@@ -1,24 +1,46 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py            # what a check of the port runs
-    python3 chip_smoke.py --profile  # also print a device-time breakdown
+    python3 chip_smoke.py --profile  # also print device-time breakdowns
 
 Phases, in order; any failure raises, exits non-zero and prints no result:
 
 1. Set-up: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the build of the kernels from ``point2cyl_torch/csrc``.
-2. Kernels: at the full-width serving shapes (B=16, N=8192) each kernel
-   (FPS at SA1 and SA2, the SA1 and SA2 grouped ball queries, 3-NN at FP2
-   and FP1) is held against its plain PyTorch version on the same card
-   inputs, and both are timed with CUDA events (median of 25 runs).
-3. Slice: a full-width backbone (N=8192, K=8, heads [3, 16]) with weights
-   drawn from a seeded torch.Generator is written as an artifact with
-   buckets (1, 4, 16) and served through ``InferenceSession`` on the card
-   for requests of 1, 5 and 16 clouds. The kernels' launch counts over
-   those requests are checked; the raw heads are held against the same
-   request with every ``*_impl="plain"`` on the card and against the
+2. Kernels: each kernel is held against its plain PyTorch version on the
+   same card inputs, and both are timed with CUDA events (median of 25
+   runs), beside the bound and, where one PyTorch call computes the same
+   function, that call's time. The forward kernels at the full-width
+   serving shapes (B=16, N=8192): FPS at SA1 and SA2, the SA1 and SA2
+   grouped ball queries, 3-NN at FP2 and FP1. The training kernels at the
+   training shapes: the idx-only ball query at SA1 of the N=512 protocol
+   (B=8), the SA1 and SA2 gather backwards and the 3-NN backward at FP2
+   and FP1 (B=4, N=8192), with cotangents from a numpy seed. Then the
+   autograd Functions' card branches: SA1's gather differentiated with
+   respect to the cloud through ``BallQueryGrouped`` against autograd of
+   the plain version, and the sources and weights the 3-NN forward saves
+   for its backward against the plain version's.
+3. Serving: a full-width backbone (N=8192, K=8, heads [3, 16]) with
+   weights drawn from a seeded torch.Generator is written as an artifact
+   with buckets (1, 4, 16) and served through ``InferenceSession`` on the
+   card for requests of 1, 5 and 16 clouds. The kernels' launch counts
+   over those requests are checked; the raw heads are held against the
+   same request with every ``*_impl="plain"`` on the card and against the
    port on the CPU.
 4. Rate: decompositions per second at bucket 16.
+5. Training at full width: Trainer A built by the CLI's own
+   ``build_trainer`` on ``--synthetic 16`` (seed 0), N=8192, K=8, B=4.
+   Launches per step are checked, every parameter gets a non-zero
+   gradient, the losses are finite, and one step is held against the
+   same step (weights, batch, FPS starts, dropout mask) with every
+   ``*_impl="plain"`` on the card: loss, every gradient, BN statistics.
+   Then the median ms per step, and the loss's gradient with respect to
+   the input clouds (a saliency map), the one caller of SA1's gather
+   backward, with its launches checked. Then two epochs of ``--synthetic 8``
+   through the CLI's ``train()`` into a temporary logdir, and a resume
+   that must continue its step and epoch.
+6. Training at N=512, B=8 (the A/B protocol): a few steps; SA1 goes
+   through the idx-only ball query once per step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -40,6 +62,7 @@ import numpy as np
 import torch
 
 B = 16  # bucket measured in the kernel and rate phases
+TB = 4  # training batch at full width
 K = 8
 SK = 2048  # sketch samples per instance, the JAX export's default
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak, NVIDIA data sheet
@@ -101,21 +124,57 @@ def clouds(seed: int, n: int, num_points: int) -> np.ndarray:
     return (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
 
 
+def profile_steps(trainer, pipeline, gen, card: str, step_ms: float) -> None:
+    """Device time by kernel name over three traced train steps, and the
+    busy share against the untraced step time."""
+    traced = 3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    batches = pipeline.epochs(TB, gen)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(traced):
+            trainer.train_step(next(batches), gen)
+        torch.cuda.synchronize()
+    # kernels and copies only: a user annotation (Adam's step) spans
+    # kernels that are counted on their own
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / traced
+    print(json.dumps({"profile": f"{traced} x train step", "device_ms_per_step": device_ms,
+                      "device_busy_share": device_ms / step_ms, "card": card}), flush=True)
+    for e in sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)[:25]:
+        print(json.dumps({"device_op": e.key[:100],
+                          "ms_per_step": e.self_device_time_total / 1e3 / traced,
+                          "calls_per_step": e.count / traced}), flush=True)
+    # the host's side: where its time per step goes, by operator
+    on_host = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:20]:
+        print(json.dumps({"host_op": e.key[:100],
+                          "host_ms_per_step": e.self_cpu_time_total / 1e3 / traced,
+                          "calls_per_step": e.count / traced}), flush=True)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="print a torch.profiler device-time breakdown of "
-                        "one bucket-16 request")
+                        help="print torch.profiler device-time breakdowns of a "
+                        "bucket-16 request and of full-width train steps")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-    from point2cyl_torch.core.config import BackboneConfig
-    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.core.config import BackboneConfig, TrainConfig
+    from point2cyl_torch.models.backbone import Backbone, build_backbone
     from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn
+    from point2cyl_torch.ops.grouping import (ball_query_plain, group_scatter_plain,
+                                              index_points, three_nn_weights_plain)
     from point2cyl_torch.serve.export import _backbone_forward, export_artifact
     from point2cyl_torch.serve.session import InferenceSession
+    from point2cyl_torch.train import steps
+    from point2cyl_torch.train.train_pc import (build_pipeline, build_trainer,
+                                                epoch_generator, train)
 
     # ---- 1. set-up -------------------------------------------------------
     card = card_line()
@@ -225,17 +284,163 @@ def main() -> None:
                               "bound_ms": b_ms, "bound_by": b_by,
                               "library_ms": None, "max_abs_err": err,
                               "card": card}), flush=True)
-    del l1_xyz, l1_f, l2_xyz, l2_f, g_xyz, g_f, f3, f2
+
+    # the training kernels, at the training shapes: B=4 at full width, and
+    # SA1 of the N=512 protocol at B=8; cotangents from a numpy seed
+    trng = np.random.default_rng(5)
+
+    def cotangent(*shape):
+        return torch.from_numpy(trng.normal(size=shape).astype(np.float32)).to(dev)
+
+    pts4, l1_4, l1f_4, l2_4, f3_4, f2_4 = (
+        t[:TB].contiguous() for t in (pts, l1_xyz, l1_f, l2_xyz, f3, f2))
+    p512 = torch.from_numpy(clouds(2, 8, 512)).to(dev)
+    with torch.inference_mode():
+        c512 = index_points(p512, cuda_fps.farthest_point_sample_plain(
+            p512, cfg.sa_npoints[0]))
+        idx_sa1 = cuda_ballquery.ball_query_grouped_plain(r1, ns1, pts4, l1_4)[0]
+        idx_sa2 = cuda_ballquery.sa_grouped_exact_plain(r2, ns2, l1_4, l1f_4, l2_4)[0]
+        nn_fp2 = [t.to(dt).contiguous() for t, dt in zip(
+            three_nn_weights_plain(l1_4, l2_4), (torch.int32, torch.float32))]
+        nn_fp1 = [t.to(dt).contiguous() for t, dt in zip(
+            three_nn_weights_plain(pts4, l1_4), (torch.int32, torch.float32))]
+    dg_sa1 = cotangent(TB, cfg.sa_npoints[0], ns1, 3)
+    dg_sa2 = cotangent(TB, cfg.sa_npoints[1], ns2, 3 + l1f_4.shape[2])
+    g_fp2 = cotangent(TB, l1_4.shape[1], f3_4.shape[2])
+    g_fp1 = cotangent(TB, cfg.num_points, f2_4.shape[2])
+
+    def query_work(xyz, new_xyz, idx):
+        nbytes = (xyz.numel() + new_xyz.numel() + idx.numel()) * 4
+        return nbytes, 9.0 * scanned_points(idx, xyz.shape[1])
+
+    def scatter_work(idx, dg, n):
+        # idx and dg read once, the (B, n, W) table written once; one add
+        # per cotangent element
+        b, w = idx.shape[0], dg.shape[-1]
+        return (idx.numel() + dg.numel() + b * n * w) * 4, float(dg.numel())
+
+    def knn_bwd_work(idx, w, g, s):
+        b, _, c = g.shape
+        # per cotangent element: 3 multiplies and 3 adds
+        return (idx.numel() + w.numel() + g.numel() + b * s * c) * 4, 6.0 * g.numel()
+
+    def index_add_call(idx, dg, n):
+        """One PyTorch call for the same scatter: index_add_ into a zeroed
+        (B*n, W) table at batch-offset row indices (made once, untimed)."""
+        b, w = idx.shape[0], dg.shape[-1]
+        rows = (idx.long() + n * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
+        flat = dg.reshape(-1, w)
+        return lambda: torch.zeros((b * n, w), device=dev).index_add_(0, rows, flat)
+
+    n1 = cfg.num_points
+    train_cases = [
+        ("ball_query@sa1_n512", "point2cyl_torch/csrc/ballquery.cu",
+         "point2cyl_tpu/ops/pallas_ballquery.py:213 _ballquery_kernel",
+         cuda_ballquery.ball_query_kernel, ball_query_plain,
+         (r1, ns1, p512, c512), None, None),
+        ("ball_query_grouped_backward@sa1", "point2cyl_torch/csrc/ballquery.cu",
+         "point2cyl_tpu/ops/pallas_ballquery.py:675 _bqg_scatter_kernel",
+         cuda_ballquery.ball_query_grouped_backward_kernel, group_scatter_plain,
+         (idx_sa1, dg_sa1, n1), scatter_work(idx_sa1, dg_sa1, n1),
+         index_add_call(idx_sa1, dg_sa1, n1)),
+        ("sa_grouped_backward@sa2", "point2cyl_torch/csrc/ballquery.cu",
+         "point2cyl_tpu/ops/pallas_ballquery.py:797 _sa_exact_scatter_kernel",
+         cuda_ballquery.sa_grouped_backward_kernel, group_scatter_plain,
+         (idx_sa2, dg_sa2, l1_4.shape[1]), scatter_work(idx_sa2, dg_sa2, l1_4.shape[1]),
+         index_add_call(idx_sa2, dg_sa2, l1_4.shape[1])),
+        ("three_nn_backward@fp2", "point2cyl_torch/csrc/knn3.cu",
+         "point2cyl_tpu/ops/pallas_knn.py:110 _knn3_bwd_kernel",
+         cuda_knn.three_nn_backward_kernel, cuda_knn.three_nn_backward_plain,
+         (*nn_fp2, g_fp2, l2_4.shape[1]), knn_bwd_work(*nn_fp2, g_fp2, l2_4.shape[1]),
+         None),
+        ("three_nn_backward@fp1", "point2cyl_torch/csrc/knn3.cu",
+         "point2cyl_tpu/ops/pallas_knn.py:110 _knn3_bwd_kernel",
+         cuda_knn.three_nn_backward_kernel, cuda_knn.three_nn_backward_plain,
+         (*nn_fp1, g_fp1, l1_4.shape[1]), knn_bwd_work(*nn_fp1, g_fp1, l1_4.shape[1]),
+         None),
+    ]
+    with torch.inference_mode():
+        for name, source, replaces, kernel, plain, inputs, work, library in train_cases:
+            got = kernel(*inputs)
+            torch.cuda.synchronize()
+            want = plain(*inputs)
+            torch.cuda.synchronize()
+            if name.startswith("ball_query@"):
+                check(torch.equal(got, want), f"{name}: indices differ from plain")
+                err = 0.0
+                work = query_work(inputs[2], inputs[3], got)
+            else:
+                # float atomics add in another order than scatter_add_
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                           msg=lambda m: f"{name}: {m}")
+                err = float((got - want).abs().max())
+            k_ms = time_ms(lambda: kernel(*inputs))
+            p_ms = time_ms(lambda: plain(*inputs))
+            l_ms = time_ms(library) if library is not None else None
+            if library is not None:
+                torch.testing.assert_close(library().reshape(got.shape), want,
+                                           rtol=1e-4, atol=1e-4,
+                                           msg=lambda m: f"{name} library: {m}")
+            b_ms, b_by = bound(*work)
+            rows.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "max_abs_err": err, "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": l_ms})
+            print(json.dumps({"kernel": name, "kernel_ms": k_ms, "plain_ms": p_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                              "max_abs_err": err, "card": card}), flush=True)
+
+    # the Functions' card branches: SA1's gather differentiated with respect
+    # to the cloud and the centres goes through BallQueryGrouped.backward
+    # (item 4), held against autograd of the plain version; tolerance as
+    # for the scatters above
+    xk, ck = pts4.clone().requires_grad_(), l1_4.clone().requires_grad_()
+    xp, cp = pts4.clone().requires_grad_(), l1_4.clone().requires_grad_()
+    before = cuda_ballquery.ball_query_grouped_backward_kernel.launches
+    cuda_ballquery.ball_query_grouped(r1, ns1, xk, ck)[1].backward(dg_sa1)
+    torch.cuda.synchronize()
+    check(cuda_ballquery.ball_query_grouped_backward_kernel.launches == before + 1,
+          "BallQueryGrouped.backward did not launch the SA1 gather backward once")
+    cuda_ballquery.ball_query_grouped_plain(r1, ns1, xp, cp)[1].backward(dg_sa1)
+    for what, got, want in (("d_xyz", xk.grad, xp.grad), ("d_new_xyz", ck.grad, cp.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"BallQueryGrouped {what}: {m}")
+    # the sources and weights the 3-NN forward saves for its backward
+    # (kSave), held against the plain version's; tolerance as for the
+    # forward
+    saved_err = 0.0
+    with torch.inference_mode():
+        for name, inputs, (idx_want, w_want) in (
+                ("fp2", (l1_4, l2_4, f3_4), nn_fp2), ("fp1", (pts4, l1_4, f2_4), nn_fp1)):
+            saved = (torch.empty_like(idx_want), torch.empty_like(w_want))
+            cuda_knn.three_nn_interpolate_kernel(*inputs, 1e-8, saved)
+            torch.cuda.synchronize()
+            check(torch.equal(saved[0], idx_want), f"three_nn@{name}: saved sources "
+                  "differ from plain")
+            torch.testing.assert_close(saved[1], w_want, rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f"three_nn@{name} saved weights: {m}")
+            saved_err = max(saved_err, float((saved[1] - w_want).abs().max()))
+    print(json.dumps({"check": "Functions on the card", "ball_query_grouped_d_xyz_err":
+                      float((xk.grad - xp.grad).abs().max()),
+                      "three_nn_saved_weights_err": saved_err}), flush=True)
+    del l1_xyz, l1_f, l2_xyz, l2_f, g_xyz, g_f, f3, f2, train_cases, xk, ck, xp, cp
 
     # ---- 3. the slice through the session ----------------------------------
     counters = {
         "fps": cuda_fps.farthest_point_sample_kernel,
+        "ball_query": cuda_ballquery.ball_query_kernel,
         "ball_query_grouped": cuda_ballquery.ball_query_grouped_kernel,
+        "ball_query_grouped_backward": cuda_ballquery.ball_query_grouped_backward_kernel,
         "sa_grouped_exact": cuda_ballquery.sa_grouped_exact_kernel,
+        "sa_grouped_backward": cuda_ballquery.sa_grouped_backward_kernel,
         "three_nn": cuda_knn.three_nn_interpolate_kernel,
+        "three_nn_backward": cuda_knn.three_nn_backward_kernel,
     }
-    per_forward = {"fps": 2, "ball_query_grouped": 1, "sa_grouped_exact": 1,
-                   "three_nn": 2}
+    # serving launches no idx-only query (its SA1 has N > 1024, its SA2
+    # features) and no backward
+    per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
+                   "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
+                   "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "fullwidth.p2ct")
         export_artifact(path, state_dict, k=K, backbone_config=cfg,
@@ -330,7 +535,8 @@ def main() -> None:
                     sess.decompose(requests[16])
                 torch.cuda.synchronize()
             on_card = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and not e.is_user_annotation]
             device_ms = sum(e.self_device_time_total for e in on_card) / 1e3
             print(json.dumps({"profile": f"{requests_traced} x decompose(16)",
                               "device_ms_per_request": device_ms / requests_traced,
@@ -344,8 +550,161 @@ def main() -> None:
                     "ms_per_request": e.self_device_time_total / 1e3 / requests_traced,
                     "calls_per_request": e.count / requests_traced}), flush=True)
 
+    # ---- 5. training at full width ----------------------------------------
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    trainer = build_trainer(tcfg, cfg.num_points, K, dev)
+    pipeline = build_pipeline(tcfg, cfg.num_points, K, dev, synthetic=16)
+    per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
+                "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
+                "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2}
+    gen = epoch_generator(tcfg.seed, 1, dev)
+    for fn in counters.values():
+        fn.launches = 0
+    auxes = [trainer.train_step(batch, gen) for batch in pipeline.epochs(TB, gen)]
+    torch.cuda.synchronize()
+    train_launches = {name: fn.launches for name, fn in counters.items()}
+    for name, count in train_launches.items():
+        check(count == per_step[name] * len(auxes),
+              f"{name} launched {count} times over {len(auxes)} train steps, "
+              f"expected {per_step[name] * len(auxes)}")
+    totals = [float(a["total"]) for a in auxes]
+    check(len(auxes) >= 4 and all(np.isfinite(totals)), f"train losses {totals}")
+    check(not any(float(a["skipped"]) for a in auxes), "a train step was skipped")
+    zero_grad = [name for name, p in trainer.model.named_parameters()
+                 if p.grad is None or not bool((p.grad != 0).any())]
+    check(not zero_grad, f"parameters without a gradient: {zero_grad}")
+    print(json.dumps({"train": "full width", "steps": len(auxes), "loss": totals,
+                      "launches": train_launches,
+                      "parameters_with_gradient": sum(
+                          1 for _ in trainer.model.parameters())}), flush=True)
+
+    # one step held against the same step with every *_impl="plain"
+    plain_train_cfg = dataclasses.replace(trainer.model.cfg, fps_impl="plain",
+                                          ballquery_impl="plain", knn_impl="plain")
+    plain_trainer = steps.Trainer(Backbone(plain_train_cfg).to(dev), tcfg)
+    plain_trainer.load_state_dict(trainer.state_dict())
+    batch = pipeline.batch(torch.arange(TB, device=dev), epoch_generator(0, 99, dev))
+    got = trainer.train_step(batch, torch.Generator(dev).manual_seed(7))
+    want = plain_trainer.train_step(batch, torch.Generator(dev).manual_seed(7))
+    loss_err = abs(float(got["total"]) - float(want["total"]))
+    check(loss_err <= 1e-5 * abs(float(want["total"])), f"loss kernel {float(got['total'])} "
+          f"vs plain {float(want['total'])}")
+    # Tolerance for each parameter: 1e-3 of its largest gradient plus 1e-4
+    # of the largest gradient of any parameter. Float atomics (the kernels,
+    # and autograd's own scatters on the plain side) add in no fixed order,
+    # and a bias in front of batch-statistics BN has an analytic gradient
+    # of 0: what it holds is that summation noise, about 1e-5 of the
+    # largest gradient, which the plain path alone shows from run to run.
+    pairs = list(zip(trainer.model.named_parameters(),
+                     plain_trainer.model.named_parameters()))
+    top = max(float(pp.grad.abs().max()) for _, (_, pp) in pairs)
+    grad_err = 0.0
+    for (name, pk), (_, pp) in pairs:
+        scale = float(pp.grad.abs().max())
+        err = float((pk.grad - pp.grad).abs().max())
+        check(err <= 1e-3 * scale + 1e-4 * top,
+              f"gradient of {name}: {err} vs its scale {scale}, largest {top}")
+        grad_err = max(grad_err, err / (1e-3 * scale + 1e-4 * top))
+    bn_err = 0.0
+    for (name, bk), (_, bp) in zip(trainer.model.named_buffers(),
+                                   plain_trainer.model.named_buffers()):
+        torch.testing.assert_close(bk, bp, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m: f"BN statistic {name}: {m}")
+        bn_err = max(bn_err, float((bk - bp).abs().max()))
+    print(json.dumps({"check": "train step vs plain", "loss_abs_err": loss_err,
+                      "grad_err_over_tolerance": grad_err, "largest_grad": top,
+                      "bn_max_abs_err": bn_err}), flush=True)
+    del plain_trainer
+
+    step_ms = []
+    for epoch in (2, 3):
+        gen = epoch_generator(tcfg.seed, epoch, dev)
+        for batch in pipeline.epochs(TB, gen):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step(batch, gen)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+    print(json.dumps({"rate": "train step", "batch": TB, "num_points": cfg.num_points,
+                      "ms_per_step": statistics.median(step_ms), "steps": len(step_ms),
+                      "card": card}), flush=True)
+    if args.profile:
+        profile_steps(trainer, pipeline, epoch_generator(tcfg.seed, 4, dev), card,
+                      statistics.median(step_ms))
+
+    # the loss's gradient with respect to the input clouds (a saliency map
+    # of the trained model, stored BN statistics): SA1's gather backward
+    # runs here, and in no train step
+    batch = pipeline.batch(torch.arange(TB, device=dev), epoch_generator(0, 98, dev))
+    cloud = batch["point_cloud"].clone().requires_grad_()
+    for fn in counters.values():
+        fn.launches = 0
+    x_raw, w_raw = trainer.model(cloud)
+    heads = steps.assemble_heads(x_raw, w_raw, tcfg.pred_seg, tcfg.pred_bb, k=K)
+    steps.proxy_losses(heads, dict(batch, point_cloud=cloud), tcfg)[0].backward()
+    torch.cuda.synchronize()
+    saliency_launches = {name: fn.launches for name, fn in counters.items()}
+    per_saliency = dict(per_step, ball_query_grouped_backward=1)
+    for name, count in saliency_launches.items():
+        check(count == per_saliency[name],
+              f"saliency: {name} launched {count} times, expected {per_saliency[name]}")
+    check(bool(torch.isfinite(cloud.grad).all()) and bool((cloud.grad != 0).any()),
+          "the gradient with respect to the clouds is not finite, or zero")
+    print(json.dumps({"saliency": "d loss / d cloud", "launches": saliency_launches,
+                      "grad_abs_max": float(cloud.grad.abs().max())}), flush=True)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    del trainer, pipeline, cloud, heads, x_raw, w_raw
+
+    # two epochs through the CLI's train(), then a resume that continues
+    with tempfile.TemporaryDirectory() as logdir:
+        cli_cfg = dataclasses.replace(tcfg, num_epochs=2, logdir=logdir)
+        done = train(cli_cfg, cfg.num_points, K, synthetic=8, device=dev)
+        check(done.step == 4, f"2 epochs of 8 clouds at B=4 took {done.step} steps")
+        resumed = train(dataclasses.replace(cli_cfg, num_epochs=3, resume=True),
+                        cfg.num_points, K, synthetic=8, device=dev)
+        check(resumed.step == 6, f"the resumed run ended at step {resumed.step}, not 6")
+        with open(os.path.join(logdir, "log.txt")) as f:
+            log = f.read()
+        check("epoch 2, step 4" in log and "> Epoch 0003 done" in log
+              and "> Epoch 0001 done" in log.split("Resumed from")[0],
+              "the resumed run did not continue at epoch 3, step 4")
+        print(json.dumps({"check": "cli resume", "steps": [done.step, resumed.step]}),
+              flush=True)
+        del done, resumed
+
+    # ---- 6. training at N=512, B=8 (the A/B protocol) ----------------------
+    small = build_trainer(dataclasses.replace(tcfg, batch_size=8), 512, K, dev)
+    pipe512 = build_pipeline(tcfg, 512, K, dev, synthetic=16)
+    per_step_512 = dict(per_step, ball_query=1, ball_query_grouped=0)
+    for fn in counters.values():
+        fn.launches = 0
+    aux512 = []
+    for epoch in (1, 2):
+        gen = epoch_generator(tcfg.seed, epoch, dev)
+        aux512 += [small.train_step(batch, gen) for batch in pipe512.epochs(8, gen)]
+    torch.cuda.synchronize()
+    launches_512 = {name: fn.launches for name, fn in counters.items()}
+    for name, count in launches_512.items():
+        check(count == per_step_512[name] * len(aux512),
+              f"N=512: {name} launched {count} times over {len(aux512)} steps")
+    totals512 = [float(a["total"]) for a in aux512]
+    check(all(np.isfinite(totals512)), f"N=512 losses {totals512}")
+    print(json.dumps({"train": "N=512 B=8", "steps": len(aux512), "loss": totals512,
+                      "launches": launches_512}), flush=True)
+
     for row in rows:
-        row["launches"] = launches[row["name"].split("@")[0]]
+        kernel = row["name"].split("@")[0]
+        if kernel == "ball_query":
+            row["launches"] = launches_512[kernel]
+        elif kernel == "ball_query_grouped_backward":
+            row["launches"] = saliency_launches[kernel]
+        elif kernel in ("fps", "ball_query_grouped", "sa_grouped_exact", "three_nn"):
+            row["launches"] = launches[kernel]
+        else:
+            row["launches"] = train_launches[kernel]
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

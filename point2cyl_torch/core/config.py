@@ -1,5 +1,7 @@
-"""Backbone configuration (the port's own copy of the JAX
-``BackboneConfig``, same fields and defaults).
+"""Backbone and trainer configuration (the port's own copies of the JAX
+``BackboneConfig``, ``LossWeights`` and ``TrainConfig``, same fields and
+defaults, less what the port does not run: the multi-device axis, the
+joint trainer's loss weights and the blocked ball query's oversampling).
 
 The neighbour-op switches take ``"auto"`` (the kernel wrapper: a CUDA
 tensor launches the kernel, a CPU tensor takes the plain version),
@@ -15,6 +17,13 @@ import dataclasses
 from typing import Sequence
 
 IMPLS = ("auto", "kernel", "plain")
+
+
+def check_compute_dtype(compute_dtype: str) -> None:
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"the port computes in float32 only (compute_dtype={compute_dtype!r})"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +55,7 @@ class BackboneConfig:
             value = getattr(self, name)
             if value not in IMPLS:
                 raise ValueError(f"{name} must be one of {IMPLS}, got {value!r}")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the port computes in float32 only "
-                f"(compute_dtype={self.compute_dtype!r})"
-            )
+        check_compute_dtype(self.compute_dtype)
 
     @classmethod
     def from_dict(cls, d: dict) -> "BackboneConfig":
@@ -64,3 +69,58 @@ class BackboneConfig:
             if key in d:
                 d[key] = tuple(tuple(m) for m in d[key])
         return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    """Loss multipliers (reference: train_Point2Cyl_without_sketch.py:53-57,
+    107-130; a disabled head zeroes its multiplier)."""
+
+    seg: float = 1.0
+    normal: float = 1.0
+    base_barrel: float = 1.0
+    extrusion_axis: float = 1.0
+    center: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer A hyperparameters.
+
+    The staircase schedules follow ``train_Point2Cyl_without_sketch.py:
+    142-164``: lr = lr0 * 0.7^floor(step*bs / 200k), bn_momentum =
+    max(0.5 * 0.5^floor(step*bs / 200k), 0.01).
+    """
+
+    batch_size: int = 4
+    num_epochs: int = 300
+    learning_rate: float = 1e-3
+    decay_step: int = 200_000
+    decay_rate: float = 0.7
+    bn_decay_step: int = 200_000
+    bn_init_momentum: float = 0.5
+    bn_decay_rate: float = 0.5
+    bn_momentum_clip: float = 0.99  # momentum >= 1 - clip
+    add_noise: bool = False
+    noise_sigma: float = 0.01
+    pred_seg: bool = True
+    pred_normal: bool = True
+    pred_bb: bool = True
+    pred_extrusion: bool = True
+    pred_center: bool = True
+    norm_eig: bool = False
+    weights: LossWeights = dataclasses.field(default_factory=LossWeights)
+    logdir: str = "runs/point2cyl_torch"
+    checkpoint_every_epochs: int = 10
+    best_after_epoch: int = 20
+    seed: int = 0
+    compute_dtype: str = "float32"
+    ballquery_impl: str = "auto"
+    resume: bool = False
+    tensorboard: bool = False
+
+    def __post_init__(self):
+        check_compute_dtype(self.compute_dtype)
+        if self.ballquery_impl not in IMPLS:
+            raise ValueError(f"ballquery_impl must be one of {IMPLS}, "
+                             f"got {self.ballquery_impl!r}")

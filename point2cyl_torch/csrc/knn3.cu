@@ -1,28 +1,44 @@
-// 3-NN inverse-distance interpolation for Hopper (sm_90a).
+// 3-NN inverse-distance interpolation and its backward for Hopper (sm_90a).
 //
-// Replaces: point2cyl_tpu/ops/pallas_knn.py:_knn3_kernel (pallas_call at
-// :205 in _interp_fwd_impl, reached through three_nn_interpolate_pallas).
-// Forward only; the backward kernel (_knn3_bwd_kernel) comes with training.
+// Replaces two TPU kernels of point2cyl_tpu/ops/pallas_knn.py:
+//   - _knn3_kernel (pallas_call at :205 in _interp_fwd_impl, reached
+//     through three_nn_interpolate_pallas). Entry point
+//     p2c_three_nn_interpolate.
+//   - _knn3_bwd_kernel (pallas_call at :141 in _interp_bwd_feats, the
+//     custom VJP's feature cotangent d_feats = W^T g). Entry point
+//     p2c_three_nn_backward.
 //
-// What it computes: for each destination point, the 3 nearest source
-// points by exact squared distance ((dx*dx + dy*dy) + dz*dz, no FMA), ties
-// to the lowest source index; weights 1/(d + eps) normalised over the
-// three; out = w0*f[i0] + w1*f[i1] + w2*f[i2] in that order. Distances are
-// not quantised: the TPU kernel packs the source index into the 10 low
-// mantissa bits (weights off by up to 2^-13 relative, S capped at 1024);
-// this kernel does neither, and takes any S whose coordinates fit shared
-// memory (S <= 19370).
+// What the forward computes: for each destination point, the 3 nearest
+// source points by exact squared distance ((dx*dx + dy*dy) + dz*dz, no
+// FMA), ties to the lowest source index; weights 1/(d + eps) normalised
+// over the three; out = w0*f[i0] + w1*f[i1] + w2*f[i2] in that order.
+// Distances are not quantised: the TPU kernel packs the source index into
+// the 10 low mantissa bits (weights off by up to 2^-13 relative, S capped
+// at 1024); this kernel does neither, and takes any S whose coordinates
+// fit shared memory (S <= 19370). When the caller passes idx/w buffers
+// (training), the forward also writes each point's 3 source indices and
+// weights, (b, n, 3) each.
 //
-// What bounds it on this card: the bytes it writes. At FP1 (B=16,
-// 512 -> 8192 points, C=128) the output is 67 MB; the 16*8192*512
+// What bounds the forward on this card: the bytes it writes. At FP1
+// (B=16, 512 -> 8192 points, C=128) the output is 67 MB; the 16*8192*512
 // distance evaluations are a few microseconds of the card's float32 rate.
 //
-// What the design does about it: one warp per destination point (8 per
-// warp, 8 warps a block), the batch row's source coordinates staged once
-// per block in shared memory. Each lane scans every 32nd source and keeps
-// its own sorted top 3; three shuffle rounds merge the lanes' lists. The
-// lanes then read the three source feature rows and write the output row
-// with consecutive lanes on consecutive channels.
+// What the forward's design does about it: one warp per destination point
+// (8 per warp, 8 warps a block), the batch row's source coordinates staged
+// once per block in shared memory. Each lane scans every 32nd source and
+// keeps its own sorted top 3; three shuffle rounds merge the lanes' lists.
+// The lanes then read the three source feature rows and write the output
+// row with consecutive lanes on consecutive channels.
+//
+// The backward: d_feats[b, idx[b, i, k], ch] += w[b, i, k] * g[b, i, ch].
+// It reads the forward's saved (idx, w) instead of recomputing the
+// distances as the TPU kernel does (0.8 MB at FP1, B=4, against a second
+// 4*8192*512 distance scan). It is bound by the bytes of g (16.8 MB at
+// FP1, B=4). One thread per g element, consecutive threads on consecutive
+// channels, three float atomic adds (RED) into the (b, s, c) table the
+// wrapper zeroed, which stays in L2 (1 MB at FP1). The order of the adds
+// into one address is not fixed, so sums may differ from run to run in
+// the last bits.
 
 #include <cuda_runtime.h>
 
@@ -33,15 +49,19 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kPointsPerWarp = 8;
 constexpr int kMaxSmem = 232448;  // 227 KB a block may opt into on sm_90
 constexpr int kNoIndex = 0x7fffffff;
+constexpr int kScatterThreads = 256;
+constexpr int kScatterMaxBlocks = 132 * 16;
 
 __device__ __forceinline__ bool before(float d2, int i2, float d1, int i1) {
   return d2 < d1 || (d2 == d1 && i2 < i1);
 }
 
+template <bool kSave>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 knn3_kernel(const float* __restrict__ dst, const float* __restrict__ src,
             const float* __restrict__ feats, int n, int s, int c, float eps,
-            float* __restrict__ out) {
+            float* __restrict__ out, int* __restrict__ idx_out,
+            float* __restrict__ w_out) {
   extern __shared__ float smem[];  // x[s] | y[s] | z[s]
   float* sx = smem;
   float* sy = smem + s;
@@ -133,6 +153,14 @@ knn3_kernel(const float* __restrict__ dst, const float* __restrict__ src,
     const float w0 = __fdiv_rn(r0, norm);
     const float w1 = __fdiv_rn(r1, norm);
     const float w2 = __fdiv_rn(r2, norm);
+    if (kSave && lane == 0) {
+      idx_out[row * 3] = sel_i[0];
+      idx_out[row * 3 + 1] = sel_i[1];
+      idx_out[row * 3 + 2] = sel_i[2];
+      w_out[row * 3] = w0;
+      w_out[row * 3 + 1] = w1;
+      w_out[row * 3 + 2] = w2;
+    }
     const float* f0 = f + static_cast<size_t>(sel_i[0]) * c;
     const float* f1 = f + static_cast<size_t>(sel_i[1]) * c;
     const float* f2 = f + static_cast<size_t>(sel_i[2]) * c;
@@ -144,28 +172,81 @@ knn3_kernel(const float* __restrict__ dst, const float* __restrict__ src,
   }
 }
 
-}  // namespace
-
-// dst (b, n, 3), src (b, s, 3), feats (b, s, c) f32 -> out (b, n, c) f32.
-// Needs s >= 3 and 3 * s * 4 bytes of shared memory.
-extern "C" int p2c_three_nn_interpolate(const float* dst, const float* src,
-                                        const float* feats, float* out, int b,
-                                        int n, int s, int c, float eps,
-                                        void* stream) {
+template <bool kSave>
+int launch(const float* dst, const float* src, const float* feats, float* out,
+           int* idx, float* w, int b, int n, int s, int c, float eps,
+           void* stream) {
   const size_t smem = 3 * static_cast<size_t>(s) * sizeof(float);
-  if (s < 3 || smem > static_cast<size_t>(kMaxSmem)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn3_kernel<kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int per_block = kWarpsPerBlock * kPointsPerWarp;
   const dim3 grid((n + per_block - 1) / per_block, b);
-  knn3_kernel<<<grid, kWarpsPerBlock * 32, smem,
-                static_cast<cudaStream_t>(stream)>>>(dst, src, feats, n, s, c,
-                                                     eps, out);
+  knn3_kernel<kSave><<<grid, kWarpsPerBlock * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      dst, src, feats, n, s, c, eps, out, idx, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (b, s, c) += w[b, i, k] * g[b, i, :] at out[b, idx[b, i, k], :].
+__global__ void __launch_bounds__(kScatterThreads)
+knn3_backward_kernel(const float* __restrict__ g, const int* __restrict__ idx,
+                     const float* __restrict__ w, int n, int s, int c,
+                     size_t total, float* __restrict__ out) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < total; e += stride) {
+    const size_t row = e / c;  // b * n + i
+    const int ch = static_cast<int>(e - row * c);
+    const size_t base = (row / n) * s;
+    const float gv = g[e];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const size_t j = base + idx[row * 3 + k];
+      atomicAdd(out + j * c + ch, __fmul_rn(w[row * 3 + k], gv));
+    }
+  }
+}
+
+}  // namespace
+
+// dst (b, n, 3), src (b, s, 3), feats (b, s, c) f32 -> out (b, n, c) f32,
+// and, when idx and w are not null, the 3 source indices (b, n, 3) i32 and
+// weights (b, n, 3) f32 of each destination point. Needs s >= 3 and
+// 3 * s * 4 bytes of shared memory.
+extern "C" int p2c_three_nn_interpolate(const float* dst, const float* src,
+                                        const float* feats, float* out,
+                                        int* idx, float* w, int b, int n,
+                                        int s, int c, float eps,
+                                        void* stream) {
+  const size_t smem = 3 * static_cast<size_t>(s) * sizeof(float);
+  if (s < 3 || smem > static_cast<size_t>(kMaxSmem) ||
+      (idx == nullptr) != (w == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (idx != nullptr) {
+    return launch<true>(dst, src, feats, out, idx, w, b, n, s, c, eps, stream);
+  }
+  return launch<false>(dst, src, feats, out, nullptr, nullptr, b, n, s, c, eps,
+                       stream);
+}
+
+// g (b, n, c), idx (b, n, 3) i32, w (b, n, 3) f32 -> d_feats (b, s, c) f32,
+// which the caller has zeroed.
+extern "C" int p2c_three_nn_backward(const float* g, const int* idx,
+                                     const float* w, float* d_feats, int b,
+                                     int n, int s, int c, void* stream) {
+  if (b < 1 || n < 1 || s < 1 || c < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t total = static_cast<size_t>(b) * n * c;
+  size_t blocks = (total + kScatterThreads - 1) / kScatterThreads;
+  if (blocks > kScatterMaxBlocks) blocks = kScatterMaxBlocks;
+  knn3_backward_kernel<<<static_cast<unsigned>(blocks), kScatterThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      g, idx, w, n, s, c, total, d_feats);
   return static_cast<int>(cudaGetLastError());
 }

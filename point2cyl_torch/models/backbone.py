@@ -1,21 +1,30 @@
-"""PointNet++-style segmentation backbone, eval forward.
+"""PointNet++-style segmentation backbone, eval and train forward.
 
 The port of ``point2cyl_tpu/models/backbone.py``: set-abstraction stages
 (FPS -> ball query -> shared MLP -> max over the neighbours), a group-all
 stage, feature propagation (3-NN inverse-distance upsampling + shared
-MLP), a shared FC stage and one dense head per output size. Module names
-follow the reference model (``sa1``, ``fp3``, ``fc1``, ``bn1``, ``fc2.i``),
-so state_dicts load under the reference's keys.
+MLP), a shared FC stage with dropout and one dense head per output size.
+Module names follow the reference model (``sa1``, ``fp3``, ``fc1``,
+``bn1``, ``fc2.i``), so state_dicts load under the reference's keys.
 
 Dispatch (``BackboneConfig.*_impl``): ``"auto"`` calls the kernel wrapper
-(CUDA tensor -> the hand-written kernel, CPU tensor -> its plain version),
-``"kernel"`` the kernel itself, ``"plain"`` the plain PyTorch version on
-any device. Train mode (batch statistics, dropout, random FPS starts)
-comes with the training slice.
+(CUDA tensor -> the hand-written kernel, with its backward kernel where
+one exists; CPU tensor -> its plain version), ``"kernel"`` the same but a
+CPU tensor raises, ``"plain"`` the plain PyTorch version on any device,
+differentiated by autograd. A set-abstraction stage picks its ball query
+as the JAX backbone does (``backbone.py:91-120``): the fused SA1 kernel
+for a cloud without features above N=1024, the fused SA2 kernel for one
+with features up to N=1024, and otherwise the idx-only kernel with the
+gather in PyTorch.
+
+Train mode: batch statistics with the momentum passed in, dropout, and
+random FPS starts, both drawn from the caller's ``torch.Generator``
+(FPS starts may also be given).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -23,13 +32,27 @@ from torch import nn
 
 from point2cyl_torch.core.config import BackboneConfig
 from point2cyl_torch.core.device import resolve_device
-from point2cyl_torch.models.layers import BatchNorm, Dense, PointMLP
+from point2cyl_torch.models.layers import BatchNorm, Dense, PointMLP, dropout
 from point2cyl_torch.ops import cuda_ballquery, cuda_fps, cuda_knn
-from point2cyl_torch.ops.grouping import index_points, sample_and_group_all
+from point2cyl_torch.ops.grouping import (ball_query_plain, group_points,
+                                          index_points, sample_and_group_all)
+
+EXACT_N_MAX = 1024  # JAX's _EXACT_N_MAX: the fused SA kernels' dispatch bound
 
 
-def _pick(impl: str, auto, kernel, plain):
-    return {"auto": auto, "kernel": kernel, "plain": plain}[impl]
+def _on_card(fn, *args):
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.device.type != "cuda":
+            raise ValueError(f"impl='kernel' needs CUDA tensors, got {a.device}")
+    return fn(*args)
+
+
+def _pick(impl: str, auto, plain):
+    if impl == "plain":
+        return plain
+    if impl == "kernel":
+        return functools.partial(_on_card, auto)
+    return auto
 
 
 class SetAbstraction(PointMLP):
@@ -45,22 +68,27 @@ class SetAbstraction(PointMLP):
         self.fps_impl = fps_impl
         self.ballquery_impl = ballquery_impl
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor | None):
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor | None,
+                train: bool = False, momentum: float = 0.1,
+                start: int | torch.Tensor = 0):
         fps = _pick(self.fps_impl, cuda_fps.farthest_point_sample,
-                    cuda_fps.farthest_point_sample_kernel,
                     cuda_fps.farthest_point_sample_plain)
-        new_xyz = index_points(xyz, fps(xyz, self.npoint))
-        if feats is None:
-            group = _pick(self.ballquery_impl, cuda_ballquery.ball_query_grouped,
-                          cuda_ballquery.ball_query_grouped_kernel,
+        new_xyz = index_points(xyz, fps(xyz, self.npoint, start))
+        n = xyz.shape[1]
+        impl = self.ballquery_impl
+        if feats is None and n > EXACT_N_MAX:
+            group = _pick(impl, cuda_ballquery.ball_query_grouped,
                           cuda_ballquery.ball_query_grouped_plain)
             _, grouped = group(self.radius, self.nsample, xyz, new_xyz)
-        else:
-            group = _pick(self.ballquery_impl, cuda_ballquery.sa_grouped_exact,
-                          cuda_ballquery.sa_grouped_exact_kernel,
+        elif feats is not None and n <= EXACT_N_MAX:
+            group = _pick(impl, cuda_ballquery.sa_grouped_exact,
                           cuda_ballquery.sa_grouped_exact_plain)
             _, grouped = group(self.radius, self.nsample, xyz, feats, new_xyz)
-        return new_xyz, self.mlp(grouped).amax(dim=2)
+        else:
+            query = _pick(impl, cuda_ballquery.ball_query, ball_query_plain)
+            idx = query(self.radius, self.nsample, xyz, new_xyz)
+            grouped = group_points(xyz, feats, new_xyz, idx)
+        return new_xyz, self.mlp(grouped, train, momentum).amax(dim=2)
 
 
 class GlobalAbstraction(PointMLP):
@@ -69,9 +97,10 @@ class GlobalAbstraction(PointMLP):
     def __init__(self, in_features: int, mlp: Sequence[int]):
         super().__init__(in_features + 3, mlp, conv_rank=4)
 
-    def forward(self, xyz: torch.Tensor, feats: torch.Tensor | None):
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor | None,
+                train: bool = False, momentum: float = 0.1):
         new_xyz, grouped = sample_and_group_all(xyz, feats)
-        return new_xyz, self.mlp(grouped).amax(dim=2)
+        return new_xyz, self.mlp(grouped, train, momentum).amax(dim=2)
 
 
 class FeaturePropagation(PointMLP):
@@ -82,18 +111,18 @@ class FeaturePropagation(PointMLP):
         super().__init__(in_features, mlp, conv_rank=3)
         self.knn_impl = knn_impl
 
-    def forward(self, xyz_dst, xyz_src, feats_dst, feats_src):
+    def forward(self, xyz_dst, xyz_src, feats_dst, feats_src, train: bool = False,
+                momentum: float = 0.1):
         b, n, _ = xyz_dst.shape
         if xyz_src.shape[1] == 1:
             interpolated = feats_src.expand(b, n, feats_src.shape[2])
         else:
             interp = _pick(self.knn_impl, cuda_knn.three_nn_interpolate,
-                           cuda_knn.three_nn_interpolate_kernel,
                            cuda_knn.three_nn_interpolate_plain)
             interpolated = interp(xyz_dst, xyz_src, feats_src, 1e-8)
         if feats_dst is not None:
             interpolated = torch.cat([feats_dst, interpolated], dim=-1)
-        return self.mlp(interpolated)
+        return self.mlp(interpolated, train, momentum)
 
 
 class Backbone(nn.Module):
@@ -135,26 +164,51 @@ class Backbone(nn.Module):
             if isinstance(m, Dense):
                 m.reset_parameters(generator)
 
-    def forward(self, pts: torch.Tensor, train: bool = False) -> list[torch.Tensor]:
-        if train:
-            raise NotImplementedError(
-                "train mode (batch statistics, dropout, random FPS starts) is "
-                "not ported yet"
-            )
+    def forward(
+        self,
+        pts: torch.Tensor,
+        train: bool = False,
+        *,
+        bn_momentum: float = 0.1,
+        generator: torch.Generator | None = None,
+        fps_starts: Sequence[torch.Tensor] | None = None,
+    ) -> list[torch.Tensor]:
+        """Heads for ``pts`` (B, N, 3).
+
+        Eval mode (``train=False``) starts FPS at point 0 and uses the
+        stored BN statistics. Train mode needs ``generator`` (on the
+        cloud's device) for the dropout mask and, unless ``fps_starts``
+        gives one (B,) start tensor per set-abstraction stage, the FPS
+        starts; BN uses batch statistics and updates its running ones
+        with ``bn_momentum``.
+        """
         num_sa = len(self.cfg.sa_npoints)
+        if train and generator is None and (
+                fps_starts is None or self.cfg.dropout_rate > 0):
+            raise ValueError("train mode draws dropout and FPS starts from a "
+                             "generator; pass generator=")
         xyz, f = pts, None
         skips = [(xyz, f)]
         for i in range(num_sa):
-            xyz, f = getattr(self, f"sa{i + 1}")(xyz, f)
+            start: int | torch.Tensor = 0
+            if train:
+                if fps_starts is not None:
+                    start = fps_starts[i]
+                else:
+                    start = torch.randint(0, xyz.shape[1], (xyz.shape[0],),
+                                          generator=generator, device=xyz.device)
+            xyz, f = getattr(self, f"sa{i + 1}")(xyz, f, train, bn_momentum, start)
             skips.append((xyz, f))
-        xyz_up, feats_up = getattr(self, f"sa{num_sa + 1}")(xyz, f)
+        xyz_up, feats_up = getattr(self, f"sa{num_sa + 1}")(xyz, f, train, bn_momentum)
         for i in range(num_sa + 1):
             dst_xyz, dst_f = skips[-(i + 1)]
             feats_up = getattr(self, f"fp{num_sa + 1 - i}")(
-                dst_xyz, xyz_up, dst_f, feats_up
+                dst_xyz, xyz_up, dst_f, feats_up, train, bn_momentum
             )
             xyz_up = dst_xyz
-        h = torch.relu(self.bn1(self.fc1(feats_up)))
+        h = torch.relu(self.bn1(self.fc1(feats_up), train, bn_momentum))
+        if train:
+            h = dropout(h, self.cfg.dropout_rate, generator)
         return [head(h) for head in self.fc2]
 
 

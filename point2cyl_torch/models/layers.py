@@ -37,13 +37,19 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Batch normalisation on stored statistics (eval mode), torch
-    semantics with eps 1e-5: ``(x - mean) * rsqrt(var + eps) * weight +
-    bias`` over the last axis. Train mode comes with the training slice.
+    """Batch normalisation with torch semantics and eps 1e-5 over the last
+    axis: ``(x - mean) * rsqrt(var + eps) * weight + bias``.
+
+    Eval mode normalises with the stored statistics. Train mode (the JAX
+    ``TorchBatchNorm``, ``layers.py:127-188``) normalises with the biased
+    batch variance, summed in two passes with the per-row partial sums
+    first, and updates the running statistics in place as ``running =
+    (1 - m) * running + m * batch`` with the unbiased variance; the
+    momentum ``m`` comes with each call (the staircase schedule).
 
     The state_dict holds ``weight``, ``bias``, ``running_mean`` and
     ``running_var``; a reference checkpoint's ``num_batches_tracked`` is
-    accepted on load and dropped (eval mode never reads it).
+    accepted on load and dropped (nothing reads it).
     """
 
     def __init__(self, features: int, eps: float = 1e-5):
@@ -58,9 +64,32 @@ class BatchNorm(nn.Module):
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.1) -> torch.Tensor:
+        if not train:
+            y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            return y * self.weight + self.bias
+        n = x.numel() // x.shape[-1]
+        inner = tuple(range(1, x.dim() - 1))
+        mean = x.sum(dim=inner).sum(dim=0) / n
+        centered = x - mean
+        var = (centered * centered).sum(dim=inner).sum(dim=0) / n
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.copy_((1.0 - momentum) * self.running_mean + momentum * mean)
+            self.running_var.copy_((1.0 - momentum) * self.running_var + momentum * unbiased)
+        y = centered * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask is
+    drawn from ``generator`` (``F.dropout`` takes none)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class PointMLP(nn.Module):
@@ -75,10 +104,12 @@ class PointMLP(nn.Module):
         )
         self.mlp_bns = nn.ModuleList(BatchNorm(w) for w in widths)
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp(self, x: torch.Tensor, train: bool = False,
+            momentum: float = 0.1) -> torch.Tensor:
         for conv, bn in zip(self.mlp_convs, self.mlp_bns):
-            x = torch.relu(bn(conv(x)))
+            x = torch.relu(bn(conv(x), train, momentum))
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.mlp(x)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.1) -> torch.Tensor:
+        return self.mlp(x, train, momentum)

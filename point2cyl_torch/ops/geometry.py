@@ -1,12 +1,34 @@
 """Decomposition geometry: per-segment sampling, extrusion extents and
-the sketch-plane projection (the serving part of the JAX
-``ops/geometry.py``, exact rotation mode)."""
+the sketch-plane projection (exact rotation mode), the training noise and
+the weighted centre estimate (the serving and training parts of the JAX
+``ops/geometry.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 ZERO_TOL = 1e-6
+
+
+def add_noise(
+    generator: torch.Generator,
+    xyz: torch.Tensor,
+    normals: torch.Tensor,
+    sigma: float = 0.01,
+) -> torch.Tensor:
+    """Gaussian displacement of each point along its normal
+    (``data_utils.py:84-96``), drawn from ``generator``."""
+    b, n, _ = xyz.shape
+    noise = sigma * torch.randn((b, n, 1), generator=generator, dtype=xyz.dtype,
+                                device=xyz.device)
+    return xyz + noise * normals
+
+
+def estimate_extrusion_centers(w: torch.Tensor, pcs: torch.Tensor) -> torch.Tensor:
+    """Segmentation-weighted point means (B, K, 3) from soft weights
+    (B, N, K) and points (B, N, 3) (``data_utils.py:253-266``). Like the
+    reference it divides by N, not by the weight mass."""
+    return torch.einsum("bnk,bnc->bkc", w, pcs) / pcs.shape[1]
 
 
 def rotation_to_z(axis: torch.Tensor, tol: float = ZERO_TOL) -> torch.Tensor:

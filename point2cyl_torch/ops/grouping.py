@@ -1,9 +1,10 @@
 """Neighbourhood ops for set abstraction and feature propagation, plain
 PyTorch.
 
-These are the plain versions of the ball-query and 3-NN kernels
-(``ops/cuda_ballquery.py``, ``ops/cuda_knn.py``): the CPU path, and what
-``chip_smoke.py`` holds the kernels against on the card. Squared
+These are the plain versions of the ball-query and 3-NN kernels and of
+their backward kernels (``ops/cuda_ballquery.py``, ``ops/cuda_knn.py``):
+the CPU path, and what ``chip_smoke.py`` holds the kernels against on the
+card. Squared
 distances are exact differences summed as ``((dx*dx + dy*dy) + dz*dz)``,
 the form of the JAX Pallas kernels (``pallas_ballquery.py:_exact_d``), so
 in-radius membership equals theirs bit for bit. (The JAX XLA path,
@@ -62,29 +63,72 @@ def ball_query_plain(
     return idx.clamp(max=n - 1).to(torch.int32)
 
 
-def three_nn_interpolate_plain(
-    xyz_dst: torch.Tensor,
-    xyz_src: torch.Tensor,
-    feats_src: torch.Tensor,
-    eps: float = 1e-8,
-) -> torch.Tensor:
-    """Inverse-squared-distance weighted 3-NN interpolation.
+def three_nn_weights_plain(
+    xyz_dst: torch.Tensor, xyz_src: torch.Tensor, eps: float = 1e-8
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3 nearest sources of each destination point and their weights.
 
     Weights ``1/(d + eps)`` normalised over the 3 nearest sources, on
     exact squared distances; ties go to the lowest source index.
 
-    Args: xyz_dst (B, N, 3); xyz_src (B, S, 3) with S >= 3; feats_src
-    (B, S, C). Returns (B, N, C).
+    Args: xyz_dst (B, N, 3); xyz_src (B, S, 3) with S >= 3. Returns idx
+    (B, N, 3) int64 and w (B, N, 3).
     """
     d = square_distance_exact(xyz_dst, xyz_src)  # (B, N, S)
     dists, idx = torch.sort(d, dim=-1, stable=True)
     dists, idx = dists[..., :3], idx[..., :3]
     recip = 1.0 / (dists + eps)
     norm = recip[..., 0] + recip[..., 1] + recip[..., 2]
-    weight = recip / norm[..., None]
+    return idx, recip / norm[..., None]
+
+
+def three_nn_interpolate_plain(
+    xyz_dst: torch.Tensor,
+    xyz_src: torch.Tensor,
+    feats_src: torch.Tensor,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Inverse-squared-distance weighted 3-NN interpolation
+    (:func:`three_nn_weights_plain`), summed ``w0*f0 + w1*f1 + w2*f2``.
+
+    Args: xyz_dst (B, N, 3); xyz_src (B, S, 3) with S >= 3; feats_src
+    (B, S, C). Returns (B, N, C).
+    """
+    return three_nn_combine_plain(feats_src, *three_nn_weights_plain(xyz_dst, xyz_src, eps))
+
+
+def three_nn_combine_plain(
+    feats_src: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor
+) -> torch.Tensor:
+    """``w0*f[i0] + w1*f[i1] + w2*f[i2]`` (B, N, C) from the 3 sources
+    ``idx`` (B, N, 3) and weights (B, N, 3) of each destination point."""
     g = index_points(feats_src, idx)  # (B, N, 3, C)
     w = weight[..., None]
     return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+
+
+def three_nn_backward_plain(
+    idx: torch.Tensor, weight: torch.Tensor, g: torch.Tensor, s: int
+) -> torch.Tensor:
+    """Feature cotangent of the 3-NN interpolation, ``W^T g``: each
+    destination row of ``g`` (B, N, C) scatter-adds into its 3 sources
+    ``idx`` (B, N, 3) with weights ``weight`` (B, N, 3). Returns (B, S, C).
+    """
+    b, n, c = g.shape
+    contrib = (weight[..., None] * g[:, :, None, :]).reshape(b, n * 3, c)
+    rows = idx.reshape(b, n * 3, 1).long().expand(-1, -1, c)
+    out = torch.zeros((b, s, c), dtype=g.dtype, device=g.device)
+    return out.scatter_add_(1, rows, contrib)
+
+
+def group_scatter_plain(idx: torch.Tensor, dg: torch.Tensor, n: int) -> torch.Tensor:
+    """Backward of the neighbour gather: the grouped cotangent ``dg``
+    (B, S, nsample, W) scatter-added onto an (B, n, W) table at the rows
+    ``idx`` (B, S, nsample) it was gathered from."""
+    b, w = dg.shape[0], dg.shape[-1]
+    rows = idx.reshape(b, -1, 1).long().expand(-1, -1, w)
+    out = torch.zeros((b, n, w), dtype=dg.dtype, device=dg.device)
+    return out.scatter_add_(1, rows, dg.reshape(b, -1, w))
 
 
 def group_points(

@@ -65,13 +65,35 @@ def smallest_eigenvector_sym3x3(a: torch.Tensor, eps: float = 1e-20) -> torch.Te
 
 
 def estimate_extrusion_axis(
-    normals: torch.Tensor, w_barrel: torch.Tensor, w_base: torch.Tensor
+    normals: torch.Tensor,
+    w_barrel: torch.Tensor,
+    w_base: torch.Tensor,
+    bb_labels: torch.Tensor | None = None,
+    inst_labels: torch.Tensor | None = None,
+    normalize: bool = False,
 ) -> torch.Tensor:
     """Per-instance extrusion axes (B, K, 3) from unit normals (B, N, 3)
     and barrel/base weights (B, N, K): the smallest-eigenvalue eigenvector
-    of sum_n (w_barrel^2 - w_base^2) x_n x_n^T. (The JAX version's
-    ``normalize=True`` branch needs ground truth and is not served.)"""
-    wdiff = w_barrel * w_barrel - w_base * w_base  # (B, N, K)
+    of sum_n (w_barrel^2 - w_base^2) x_n x_n^T.
+
+    ``normalize`` (the reference's NORM_EIG path, ``data_utils.py:133-160``)
+    scales the barrel and base weights of instance k by 1/(sqrt(count)+1)
+    of its ground-truth barrel / base points, from ``bb_labels`` (0 barrel,
+    1 base) and ``inst_labels`` (B, N).
+    """
+    k = w_barrel.shape[-1]
+    wb2 = w_barrel * w_barrel
+    wc2 = w_base * w_base
+    if normalize:
+        if bb_labels is None or inst_labels is None:
+            raise ValueError("normalize=True requires gt bb/instance labels")
+        inst = (inst_labels[..., None] == torch.arange(k, device=normals.device)
+                ).to(normals.dtype)
+        n_barrel = (inst * (bb_labels == 0).to(normals.dtype)[..., None]).sum(dim=1)
+        n_base = (inst * (bb_labels == 1).to(normals.dtype)[..., None]).sum(dim=1)
+        wb2 = wb2 / ((torch.sqrt(n_barrel) + 1.0)[:, None, :] ** 2)
+        wc2 = wc2 / ((torch.sqrt(n_base) + 1.0)[:, None, :] ** 2)
+    wdiff = wb2 - wc2  # (B, N, K)
     outer = normals[..., :, None] * normals[..., None, :]  # (B, N, 3, 3)
     m = torch.einsum("bnk,bnij->bkij", wdiff, outer)
     return smallest_eigenvector_sym3x3(m)

@@ -1,4 +1,5 @@
-"""Farthest point sampling, plain PyTorch.
+"""Farthest point sampling, plain PyTorch, and the random subsampling of
+training clouds.
 
 The plain version of the FPS kernel (``ops/cuda_fps.py``): the CPU path,
 and what ``chip_smoke.py`` holds the kernel against on the card. Its
@@ -54,3 +55,17 @@ def farthest_point_sample_plain(
         distance = torch.minimum(distance, dist)
         farthest = torch.argmax(distance, dim=-1)
     return centroids.to(torch.int32)
+
+
+def random_subsample_indices(
+    generator: torch.Generator, resolution: int, num_points: int, batch: int
+) -> torch.Tensor:
+    """(batch, num_points) int64: the first ``num_points`` of a fresh
+    random permutation of ``range(resolution)`` per sample, on the
+    generator's device (the reference Dataset's per-item
+    ``torch.randperm(resolution)[:num_points]``, ``dataloader.py:71-75``)."""
+    return torch.stack([
+        torch.randperm(resolution, generator=generator,
+                       device=generator.device)[:num_points]
+        for _ in range(batch)
+    ])

@@ -142,9 +142,14 @@ def test_assemble_heads_matches_jax():
 
 
 def test_train_mode_not_ported():
-    model = TorchBackbone(torch_config())
+    """Train mode is ported in float32 only: a bf16 compute dtype (JAX's
+    ``compute_dtype``) still raises, for the backbone and the trainer."""
+    from point2cyl_torch.core.config import TrainConfig
+
     with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, CFG.num_points, 3), train=True)
+        TorchConfig(compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError):
+        TrainConfig(compute_dtype="bfloat16")
 
 
 def test_config_rejects_unknown_impl():
