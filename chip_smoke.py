@@ -19,7 +19,19 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    autograd Functions' card branches: SA1's gather differentiated with
    respect to the cloud through ``BallQueryGrouped`` against autograd of
    the plain version, and the sources and weights the 3-NN forward saves
-   for its backward against the plain version's.
+   for its backward against the plain version's. The FPS and 3-NN rows
+   are also measured at the training shapes (B=4, random FPS starts).
+   Then the corner cases of the cluster FPS (N=512 at B=8, N=5000,
+   N=16384, a cloud of 64 distinct points each repeated, so that ties
+   fall across CTAs) and of the 3-NN forward (C=67, S=3, duplicated
+   sources, feats that are not 16-byte aligned; with 1, 2 and 4 threads
+   searching for a point, with and without the saved sources and
+   weights), each against the plain version; an FPS
+   call with a start tensor on the card under
+   ``torch.cuda.set_sync_debug_mode("error")``; an out-of-range start,
+   which must raise (an int on the host, a card tensor by the kernel's
+   device-side assert, in a child process); and FPS's time a step, the
+   slope of its SA1 time over npoint in {64, 128, 256, 512}.
 3. Serving: a full-width backbone (N=8192, K=8, heads [3, 16]) with
    weights drawn from a seeded torch.Generator is written as an artifact
    with buckets (1, 4, 16) and served through ``InferenceSession`` on the
@@ -225,6 +237,13 @@ def main() -> None:
         # per pair: 8 for the distance, 1 compare; per output: 3 mul, 2 add
         return nbytes, 9.0 * b * n * s + 5.0 * b * n * c
 
+    # the training shapes of the same kernels: B=4, per-row random starts
+    # (the training plan of the FPS kernel differs from serving's)
+    pts4, l1_4, l1f_4, l2_4, f3_4, f2_4 = (
+        t[:TB].contiguous() for t in (pts, l1_xyz, l1_f, l2_xyz, f3, f2))
+    srng = np.random.default_rng(4)
+    start_sa1, start_sa2 = (torch.from_numpy(srng.integers(0, n, size=TB)).to(dev)
+                            for n in (cfg.num_points, cfg.sa_npoints[0]))
     cases = [
         ("fps@sa1", "point2cyl_torch/csrc/fps.cu",
          "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
@@ -250,6 +269,22 @@ def main() -> None:
          "point2cyl_tpu/ops/pallas_knn.py:97 _knn3_kernel",
          cuda_knn.three_nn_interpolate_kernel, cuda_knn.three_nn_interpolate_plain,
          (pts, l1_xyz, f2), knn_work(pts, l1_xyz, f2)),
+        ("fps@sa1_train", "point2cyl_torch/csrc/fps.cu",
+         "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
+         cuda_fps.farthest_point_sample_kernel, cuda_fps.farthest_point_sample_plain,
+         (pts4, cfg.sa_npoints[0], start_sa1), fps_work(pts4, cfg.sa_npoints[0])),
+        ("fps@sa2_train", "point2cyl_torch/csrc/fps.cu",
+         "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
+         cuda_fps.farthest_point_sample_kernel, cuda_fps.farthest_point_sample_plain,
+         (l1_4, cfg.sa_npoints[1], start_sa2), fps_work(l1_4, cfg.sa_npoints[1])),
+        ("three_nn@fp2_train", "point2cyl_torch/csrc/knn3.cu",
+         "point2cyl_tpu/ops/pallas_knn.py:97 _knn3_kernel",
+         cuda_knn.three_nn_interpolate_kernel, cuda_knn.three_nn_interpolate_plain,
+         (l1_4, l2_4, f3_4), knn_work(l1_4, l2_4, f3_4)),
+        ("three_nn@fp1_train", "point2cyl_torch/csrc/knn3.cu",
+         "point2cyl_tpu/ops/pallas_knn.py:97 _knn3_kernel",
+         cuda_knn.three_nn_interpolate_kernel, cuda_knn.three_nn_interpolate_plain,
+         (pts4, l1_4, f2_4), knn_work(pts4, l1_4, f2_4)),
     ]
     rows = []
     with torch.inference_mode():
@@ -292,8 +327,6 @@ def main() -> None:
     def cotangent(*shape):
         return torch.from_numpy(trng.normal(size=shape).astype(np.float32)).to(dev)
 
-    pts4, l1_4, l1f_4, l2_4, f3_4, f2_4 = (
-        t[:TB].contiguous() for t in (pts, l1_xyz, l1_f, l2_xyz, f3, f2))
     p512 = torch.from_numpy(clouds(2, 8, 512)).to(dev)
     with torch.inference_mode():
         c512 = index_points(p512, cuda_fps.farthest_point_sample_plain(
@@ -424,6 +457,132 @@ def main() -> None:
                       float((xk.grad - xp.grad).abs().max()),
                       "three_nn_saved_weights_err": saved_err}), flush=True)
     del l1_xyz, l1_f, l2_xyz, l2_f, g_xyz, g_f, f3, f2, train_cases, xk, ck, xp, cp
+
+    # ---- 2b. the corner cases of the cluster FPS and the thread-per-point
+    # 3-NN, each held against the plain version on the card -------------------
+    corner_rng = np.random.default_rng(6)
+
+    def fps_case(b, n, seed):
+        return torch.from_numpy(clouds(seed, b, n)).to(dev)
+
+    distinct = corner_rng.normal(size=(64, 3)).astype(np.float32)
+    repeated = np.stack([distinct[corner_rng.permutation(cfg.num_points) % 64]
+                         for _ in range(TB)])
+    fps_cases = [
+        ("N=512 B=8 (A/B protocol, SA1)", fps_case(8, 512, 30), 512,
+         torch.from_numpy(corner_rng.integers(0, 512, size=8)).to(dev)),
+        ("N=512 B=8 (A/B protocol, SA2)", fps_case(8, 512, 31), 128, 0),
+        ("N=5000 B=3", fps_case(3, 5000, 32), 512,
+         torch.from_numpy(corner_rng.integers(0, 5000, size=3)).to(dev)),
+        ("N=16384 B=2", fps_case(2, 16384, 33), 512, 0),
+        ("64 distinct points repeated, N=8192 B=4", torch.from_numpy(repeated).to(dev),
+         512, 0),
+        ("64 distinct points repeated, N=8192 B=16",
+         torch.from_numpy(np.concatenate([repeated] * 4)).to(dev), 512, 7),
+    ]
+    fps_checked = []
+    with torch.inference_mode():
+        for label, xyz, npoint, start in fps_cases:
+            got = cuda_fps.farthest_point_sample_kernel(xyz, npoint, start)
+            torch.cuda.synchronize()
+            want = cuda_fps.farthest_point_sample_plain(xyz, npoint, start)
+            check(torch.equal(got, want), f"fps {label}: indices differ from plain")
+            fps_checked.append({"case": label, "plan": cuda_fps.fps_launch_plan(
+                xyz.shape[0], xyz.shape[1])})
+
+    def knn_inputs(b, n, s, c, seed):
+        r = np.random.default_rng(seed)
+        return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
+            r.normal(size=(b, n, 3)), r.normal(size=(b, s, 3)), r.normal(size=(b, s, c)))]
+
+    dup_dst, dup_src, dup_feats = knn_inputs(4, 2048, 128, 64, 40)
+    dup_src = dup_src[:, torch.arange(128, device=dev) % 32].contiguous()
+    dup_dst[:, :256] = dup_src[:, torch.arange(256, device=dev) % 128]
+    mis_dst, mis_src, mis_feats = knn_inputs(4, 2048, 128, 64, 41)
+    misaligned = torch.empty(mis_feats.numel() + 1, device=dev)[1:].view(mis_feats.shape)
+    misaligned.copy_(mis_feats)
+    knn_cases = [
+        ("C=67 (scalar path)", knn_inputs(4, 1000, 130, 67, 42)),
+        ("S=3", knn_inputs(4, 777, 3, 32, 43)),
+        ("duplicated sources (index ties)", [dup_dst, dup_src, dup_feats]),
+        ("feats not 16-byte aligned", [mis_dst, mis_src, misaligned]),
+    ]
+    knn_err = 0.0
+    with torch.inference_mode():
+        for label, (dst, src, feats) in knn_cases:
+            want_idx, want_w = three_nn_weights_plain(dst, src)
+            saved = (torch.empty(want_idx.shape, dtype=torch.int32, device=dev),
+                     torch.empty(want_w.shape, device=dev))
+            want = cuda_knn.three_nn_interpolate_plain(dst, src, feats)
+            # every search split, whichever three_nn_lanes picks here
+            for lanes in (1, 2, 4):
+                for weights in (None, saved):
+                    got = cuda_knn.three_nn_interpolate_kernel(dst, src, feats, 1e-8,
+                                                               weights, lanes)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(
+                        got, want, rtol=1e-5, atol=1e-6,
+                        msg=lambda m: f"three_nn {label} ({lanes} lanes): {m}")
+                    knn_err = max(knn_err, float((got - want).abs().max()))
+                check(torch.equal(saved[0], want_idx.to(torch.int32)),
+                      f"three_nn {label} ({lanes} lanes): saved sources differ from plain")
+                torch.testing.assert_close(
+                    saved[1], want_w, rtol=1e-5, atol=1e-6,
+                    msg=lambda m: f"three_nn {label} ({lanes} lanes) saved weights: {m}")
+                saved[0].fill_(-1)
+                saved[1].fill_(-1.0)
+
+    # no host sync in an FPS call with a start tensor on the card (the
+    # train step's), and an out-of-range start is an error, never an index:
+    # on the host for an int, in the kernel for a card tensor (a
+    # device-side assert poisons the context, so in a child process)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cuda_fps.farthest_point_sample_kernel(pts4, cfg.sa_npoints[0], start_sa1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        cuda_fps.farthest_point_sample_kernel(pts4, 16, cfg.num_points)
+        raise RuntimeError("check failed: an int FPS start of N was taken")
+    except ValueError:
+        pass
+    child = subprocess.run(
+        [sys.executable, "-c", (
+            "import torch\n"
+            "from point2cyl_torch.ops import cuda_fps\n"
+            "x = torch.rand(2, 1000, 3, device='cuda')\n"
+            "start = torch.tensor([3, 1000], device='cuda')\n"
+            "try:\n"
+            "    cuda_fps.farthest_point_sample_kernel(x, 8, start)\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError as err:\n"
+            "    print('raised:', str(err).splitlines()[0])\n"
+            "else:\n"
+            "    print('no error')\n")],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                          os.environ.get("PYTHONPATH")])))
+    )
+    check("raised:" in child.stdout and "assert" in child.stdout,
+          f"an out-of-range FPS start on the card was not reported: "
+          f"{child.stdout!r} {child.stderr[-400:]!r}")
+
+    # FPS time a step: the slope of the SA1 kernel's time over npoint
+    npoints = (64, 128, 256, 512)
+    with torch.inference_mode():
+        slope_ms = [time_ms(lambda: cuda_fps.farthest_point_sample_kernel(pts, m))
+                    for m in npoints]
+    slope, intercept = np.polyfit(npoints, slope_ms, 1)
+    print(json.dumps({"check": "corner cases", "fps": fps_checked,
+                      "three_nn": [label for label, _ in knn_cases],
+                      "three_nn_max_abs_err": knn_err,
+                      "fps_sync_free": True,
+                      "fps_bad_start_on_card": child.stdout.strip()}), flush=True)
+    print(json.dumps({"fps_step": "SA1 B=16", "plan": cuda_fps.fps_launch_plan(
+        B, cfg.num_points), "npoint": list(npoints), "ms": slope_ms,
+        "us_per_step": slope * 1e3, "intercept_ms": intercept, "card": card}), flush=True)
 
     # ---- 3. the slice through the session ----------------------------------
     counters = {
@@ -701,6 +860,8 @@ def main() -> None:
             row["launches"] = launches_512[kernel]
         elif kernel == "ball_query_grouped_backward":
             row["launches"] = saliency_launches[kernel]
+        elif row["name"].endswith("_train"):
+            row["launches"] = train_launches[kernel]
         elif kernel in ("fps", "ball_query_grouped", "sa_grouped_exact", "three_nn"):
             row["launches"] = launches[kernel]
         else:

@@ -5,11 +5,19 @@ plain version.
 (:func:`farthest_point_sample_plain`, ``ops/sampling.py``) for a CPU
 tensor and launches the kernel for a CUDA tensor; it raises on anything
 the kernel does not take. There is no fallback between the two.
+
+The kernel runs each cloud on a thread-block cluster of CTAs;
+:func:`fps_launch_plan` picks the cluster size and the threads per CTA
+from (B, N). A start index is checked without a host sync: on the host
+when it is a Python int or a CPU tensor (``ValueError``), in the kernel
+when it is a CUDA tensor (a device-side assert, reported as a
+``RuntimeError`` at the next synchronising call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,19 +25,60 @@ from point2cyl_torch.ops import _build
 from point2cyl_torch.ops.sampling import farthest_point_sample_plain, start_indices
 
 __all__ = ["farthest_point_sample", "farthest_point_sample_kernel",
-           "farthest_point_sample_plain"]
+           "farthest_point_sample_plain", "fps_launch_plan"]
 
-MAX_POINTS = 16384  # 16 points a thread in a 1024-thread block
+MAX_POINTS = 16384
+MAX_POINTS_PER_THREAD = 8  # the kernel's register budget (fps.cu)
+MAX_THREADS = 512
+MAX_CLUSTER = 8  # 16 CTAs can be scheduled, but were slower on the H100
+H100_SMS = 132
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fps_launch_plan(b: int, n: int, num_sms: int = H100_SMS) -> tuple[int, int]:
+    """(cluster, threads): CTAs per cloud and threads per CTA.
+
+    The largest power-of-two cluster up to 8 (2 for N <= 1024) whose
+    B x cluster CTAs fit on the card's SMs at once, so that no cloud
+    waits for another, and at least the CTAs that hold N at 8 points a
+    thread; then the fewest threads, a power of two from 128 to 512, that
+    hold the cloud's share at 8 points a thread. Fewer, fuller threads
+    make a shorter step: an FPS step is a chain of latencies, not of
+    throughput (PERF.md).
+    """
+    if b < 1 or not 1 <= n <= MAX_POINTS:
+        raise ValueError(f"FPS plan needs B >= 1 and 1 <= N <= {MAX_POINTS}, "
+                         f"got B={b} N={n}")
+    max_cluster = 2 if n <= 1024 else MAX_CLUSTER
+    cluster = 1
+    while cluster < max_cluster and b * cluster * 2 <= num_sms:
+        cluster *= 2
+    cluster = max(cluster, _cdiv(n, MAX_THREADS * MAX_POINTS_PER_THREAD))
+    share = _cdiv(_cdiv(n, cluster), MAX_POINTS_PER_THREAD)
+    threads = 128
+    while threads < share:
+        threads *= 2
+    return cluster, threads
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def farthest_point_sample_kernel(
-    xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor = 0
+    xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor = 0,
+    plan: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Launch the FPS kernel; ``.launches`` counts the launches.
 
     xyz (B, N, 3) float32 contiguous on CUDA. Returns (B, npoint) int32.
+    ``plan`` (cluster, threads) overrides :func:`fps_launch_plan`.
     """
     if xyz.device.type != "cuda":
         raise ValueError(f"FPS kernel needs a CUDA tensor, got {xyz.device}")
@@ -45,20 +94,17 @@ def farthest_point_sample_kernel(
             f"FPS kernel takes 1 <= npoint <= N <= {MAX_POINTS} and B >= 1, "
             f"got B={b} N={n} npoint={npoint}"
         )
-    if isinstance(start_idx, torch.Tensor):
-        bad = bool(((start_idx < 0) | (start_idx >= n)).any())
-    else:
-        bad = not 0 <= start_idx < n
-    if bad:
-        raise ValueError(f"FPS start indices must lie in [0, {n})")
-    start = start_indices(b, start_idx, xyz.device).to(torch.int32)
+    start = start_indices(b, n, start_idx, xyz.device, torch.int32)
+    if plan is None:
+        plan = fps_launch_plan(b, n, _num_sms(xyz.device.index))
+    cluster, threads = plan
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     fn = _build.function("p2c_fps", _ARGTYPES)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     status = fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), b, n, npoint,
-                stream)
+                cluster, threads, stream)
     farthest_point_sample_kernel.launches += 1
-    _build.check("p2c_fps", status)
+    _build.check(f"p2c_fps (cluster {cluster}, {threads} threads)", status)
     return out
 
 

@@ -16,6 +16,7 @@ fallback between kernel and plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,12 +28,15 @@ from point2cyl_torch.ops.grouping import (three_nn_backward_plain,
 
 __all__ = ["ThreeNNInterpolate", "three_nn_backward_kernel",
            "three_nn_backward_plain", "three_nn_interpolate",
-           "three_nn_interpolate_kernel", "three_nn_interpolate_plain"]
+           "three_nn_interpolate_kernel", "three_nn_interpolate_plain",
+           "three_nn_lanes"]
 
 MAX_SOURCES = 19370  # source coordinates staged in 227 KB of shared memory
 
+H100_SMS = 132
+
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _ARGS_BACKWARD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
@@ -47,19 +51,38 @@ def _check_cuda(name: str, named: dict[str, torch.Tensor], dtype=torch.float32) 
                              f"(B, M, C), got {t.dtype} {tuple(t.shape)}")
 
 
+def three_nn_lanes(b: int, n: int, num_sms: int = H100_SMS) -> int:
+    """Threads that search for one destination point (1, 2 or 4): the
+    fewest that give every SM at least 12 warps of searching threads, so
+    that a small batch still fills the card (each of L lanes scans every
+    L-th 4-source chunk and the L lists are merged). On the H100 that is
+    1 at FP1 and B=16, 2 at FP1 and B=4, and 4 at FP2 (PERF.md)."""
+    for lanes in (1, 2):
+        if b * n * lanes >= num_sms * 12 * 32:
+            return lanes
+    return 4
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def three_nn_interpolate_kernel(
     xyz_dst: torch.Tensor,
     xyz_src: torch.Tensor,
     feats_src: torch.Tensor,
     eps: float = 1e-8,
     weights_out: tuple[torch.Tensor, torch.Tensor] | None = None,
+    lanes: int | None = None,
 ) -> torch.Tensor:
     """Launch the 3-NN kernel; ``.launches`` counts the launches.
 
     xyz_dst (B, N, 3), xyz_src (B, S, 3), feats_src (B, S, C): float32,
     contiguous, on one CUDA device. Returns (B, N, C). ``weights_out``,
     an (idx int32, w float32) pair of (B, N, 3) tensors, is filled with
-    each point's 3 sources and weights for the backward.
+    each point's 3 sources and weights for the backward. ``lanes``
+    overrides :func:`three_nn_lanes`.
     """
     _check_cuda("3-NN kernel", {"xyz_dst": xyz_dst, "xyz_src": xyz_src,
                                 "feats_src": feats_src})
@@ -82,11 +105,13 @@ def three_nn_interpolate_kernel(
             raise ValueError("3-NN kernel: weights_out must be contiguous int32 "
                              f"and float32 ({b}, {n}, 3) on {xyz_dst.device}")
         idx_ptr, w_ptr = idx.data_ptr(), w.data_ptr()
+    if lanes is None:
+        lanes = three_nn_lanes(b, n, _num_sms(xyz_dst.device.index))
     out = torch.empty((b, n, c), dtype=torch.float32, device=xyz_dst.device)
     fn = _build.function("p2c_three_nn_interpolate", _ARGTYPES)
     stream = torch.cuda.current_stream(xyz_dst.device).cuda_stream
     status = fn(xyz_dst.data_ptr(), xyz_src.data_ptr(), feats_src.data_ptr(),
-                out.data_ptr(), idx_ptr, w_ptr, b, n, s, c, eps, stream)
+                out.data_ptr(), idx_ptr, w_ptr, b, n, s, c, eps, lanes, stream)
     three_nn_interpolate_kernel.launches += 1
     _build.check("p2c_three_nn_interpolate", status)
     return out

@@ -15,14 +15,26 @@ import torch
 
 
 def start_indices(
-    b: int, start_idx: int | torch.Tensor, device: torch.device
+    b: int, n: int, start_idx: int | torch.Tensor, device: torch.device,
+    dtype: torch.dtype = torch.int64,
 ) -> torch.Tensor:
-    """(B,) int64 start index per row from a scalar or a (B,) tensor."""
+    """(B,) start index per row from a scalar or a (B,) tensor, in one
+    operation. Raises ``ValueError`` for a start that lies outside [0, n)
+    where the host can see it without waiting for the card: a scalar or a
+    CPU tensor. A CUDA tensor is not read back here (the FPS kernel
+    asserts its range)."""
     if isinstance(start_idx, torch.Tensor):
         if start_idx.shape != (b,):
             raise ValueError(f"start_idx must be ({b},), got {tuple(start_idx.shape)}")
-        return start_idx.to(device=device, dtype=torch.int64)
-    return torch.full((b,), int(start_idx), dtype=torch.int64, device=device)
+        bad = start_idx.device.type == "cpu" and bool(
+            ((start_idx < 0) | (start_idx >= n)).any())
+    else:
+        bad = not 0 <= start_idx < n
+    if bad:
+        raise ValueError(f"FPS start indices must lie in [0, {n})")
+    if isinstance(start_idx, torch.Tensor):
+        return start_idx.to(device=device, dtype=dtype).contiguous()
+    return torch.full((b,), int(start_idx), dtype=dtype, device=device)
 
 
 def farthest_point_sample_plain(
@@ -42,7 +54,7 @@ def farthest_point_sample_plain(
     b, n, _ = xyz.shape
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     rows = torch.arange(b, device=xyz.device)
-    farthest = start_indices(b, start_idx, xyz.device)
+    farthest = start_indices(b, n, start_idx, xyz.device)
     distance = torch.full((b, n), 1e10, dtype=xyz.dtype, device=xyz.device)
     centroids = torch.empty((b, npoint), dtype=torch.int64, device=xyz.device)
     for i in range(npoint):

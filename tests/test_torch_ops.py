@@ -56,6 +56,72 @@ def test_fps_plain_per_row_start():
         np.testing.assert_array_equal(got[row:row + 1].numpy(), want)
 
 
+def _tie_cloud(kind: str, b: int, n: int) -> np.ndarray:
+    """Clouds whose distances tie exactly: 64 distinct points each repeated
+    (in a random order, so equal points lie far apart in index), or points
+    of an integer lattice scaled by 0.25 (exact in float32)."""
+    rng = np.random.default_rng(12)
+    if kind == "repeated":
+        distinct = rng.normal(size=(64, 3)).astype(np.float32)
+        return np.stack([distinct[rng.permutation(n) % 64] for _ in range(b)])
+    side = int(np.ceil(n ** (1 / 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1)
+    grid = grid.reshape(-1, 3)[:n].astype(np.float32) * 0.25
+    return np.stack([grid[rng.permutation(n)] for _ in range(b)])
+
+
+@pytest.mark.parametrize("kind", ["repeated", "lattice"])
+def test_fps_plain_matches_jax_on_ties(kind):
+    """Exact ties of distances at N=1000 (not a multiple of 32) with a
+    start per row: the indices equal JAX's, so ties go to the lowest
+    index on both sides. 100 samples of the repeated cloud run past its
+    64 distinct points, where every distance is 0."""
+    pts = _tie_cloud(kind, 3, 1000)
+    starts = [5, 517, 999]
+    got = farthest_point_sample_plain(torch.from_numpy(pts), 100,
+                                      torch.tensor(starts))
+    for row, start in enumerate(starts):
+        want = np.asarray(jax_fps(jnp.asarray(pts[row:row + 1]), 100,
+                                  start_idx=start))
+        np.testing.assert_array_equal(got[row:row + 1].numpy(), want)
+
+
+@pytest.mark.parametrize("start", [1000, -1, torch.tensor([0, 1000, 3])])
+@pytest.mark.parametrize("fps", [farthest_point_sample_plain,
+                                 cuda_fps.farthest_point_sample])
+def test_fps_start_out_of_range_raises(fps, start):
+    """A start outside [0, N) that the host can see (an int or a CPU
+    tensor) raises ValueError; on the card the kernel asserts instead."""
+    pts = torch.from_numpy(_tie_cloud("repeated", 3, 1000))
+    with pytest.raises(ValueError, match="must lie in"):
+        fps(pts, 8, start)
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 16, 64])
+def test_fps_launch_plan_covers_every_n(b):
+    """Every N the kernel takes gets a plan it accepts: a cluster of 1-8
+    CTAs of 128-512 threads that holds N at <= 8 points a thread; a
+    cluster of at most 2 at N <= 1024; and B x cluster CTAs within the
+    H100's 132 SMs unless N itself needs more CTAs."""
+    for n in range(1, cuda_fps.MAX_POINTS + 1):
+        cluster, threads = cuda_fps.fps_launch_plan(b, n)
+        assert 1 <= cluster <= cuda_fps.MAX_CLUSTER
+        assert threads in (128, 256, 512)
+        assert cluster * threads * cuda_fps.MAX_POINTS_PER_THREAD >= n
+        assert n > 1024 or cluster <= 2
+        needed = -(-n // (cuda_fps.MAX_THREADS * cuda_fps.MAX_POINTS_PER_THREAD))
+        assert b * cluster <= 132 or cluster == needed
+
+
+def test_fps_launch_plan_main_shapes():
+    """The plans measured best on the H100 (PERF.md): 8 CTAs of 128
+    threads at SA1 for serving and training, 2 of 128 at SA2."""
+    assert cuda_fps.fps_launch_plan(16, 8192) == (8, 128)
+    assert cuda_fps.fps_launch_plan(4, 8192) == (8, 128)
+    assert cuda_fps.fps_launch_plan(16, 512) == (2, 128)
+    assert cuda_fps.fps_launch_plan(8, 512) == (2, 128)
+
+
 def test_ball_query_plain_matches_pallas_exact_path():
     """N=512 takes the Pallas exact path: indices equal."""
     rng = np.random.default_rng(3)
@@ -184,6 +250,28 @@ def test_three_nn_plain_matches_pallas():
         jnp.asarray(dst), jnp.asarray(src), jnp.asarray(feats), 1e-8, 8, True))
     got = cuda_knn.three_nn_interpolate(*map(torch.from_numpy, (dst, src, feats)))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=0)
+
+
+def test_three_nn_plain_matches_pallas_odd_channels():
+    """C=67, the width the kernel serves with its 4-byte path: within
+    2e-3 of the Pallas kernel in interpret mode, as above."""
+    rng = np.random.default_rng(13)
+    src = rng.normal(size=(2, 16, 3)).astype(np.float32)
+    dst = np.concatenate([src, rng.normal(size=(2, 48, 3)).astype(np.float32)], 1)
+    feats = rng.normal(size=(2, 16, 67)).astype(np.float32)
+    want = np.asarray(three_nn_interpolate_pallas(
+        jnp.asarray(dst), jnp.asarray(src), jnp.asarray(feats), 1e-8, 8, True))
+    got = cuda_knn.three_nn_interpolate(*map(torch.from_numpy, (dst, src, feats)))
+    assert got.shape == (2, 64, 67)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("b,n,lanes", [(16, 8192, 1), (4, 8192, 2), (16, 512, 4),
+                                       (4, 512, 4), (1, 1, 4), (64, 8192, 1)])
+def test_three_nn_lanes(b, n, lanes):
+    """One thread a point where B x N fills the card, up to 4 where it
+    does not (the split measured best on the H100, PERF.md)."""
+    assert cuda_knn.three_nn_lanes(b, n) == lanes
 
 
 def test_three_nn_plain_matches_xla():
