@@ -10,7 +10,10 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
 2. Kernels: each kernel is held against its plain PyTorch version on the
    same card inputs, and both are timed with CUDA events (median of 25
    runs), beside the bound and, where one PyTorch call computes the same
-   function, that call's time. The forward kernels at the full-width
+   function, that call's time (the SA1 grouped ball query's op term
+   counts one distance test a point of each ball; the index-order scan's
+   count, the bound of earlier versions, is printed beside it as
+   ``scan_bound_ms``). The forward kernels at the full-width
    serving shapes (B=16, N=8192): FPS at SA1 and SA2, the SA1 and SA2
    grouped ball queries, 3-NN at FP2 and FP1. The training kernels at the
    training shapes: the idx-only ball query at SA1 of the N=512 protocol
@@ -19,14 +22,20 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    autograd Functions' card branches: SA1's gather differentiated with
    respect to the cloud through ``BallQueryGrouped`` against autograd of
    the plain version, and the sources and weights the 3-NN forward saves
-   for its backward against the plain version's. The FPS and 3-NN rows
-   are also measured at the training shapes (B=4, random FPS starts).
-   Then the corner cases of the cluster FPS (N=512 at B=8, N=5000,
-   N=16384, a cloud of 64 distinct points each repeated, so that ties
-   fall across CTAs) and of the 3-NN forward (C=67, S=3, duplicated
-   sources, feats that are not 16-byte aligned; with 1, 2 and 4 threads
-   searching for a point, with and without the saved sources and
-   weights), each against the plain version; an FPS
+   for its backward against the plain version's. The FPS, grouped ball
+   query and 3-NN rows are also measured at the training shapes (B=4,
+   random FPS starts). Then the corner cases of the cluster FPS (N=512
+   at B=8, N=5000, N=16384, a cloud of 64 distinct points each repeated,
+   so that ties fall across CTAs), of the 3-NN forward (C=67, S=3,
+   duplicated sources, feats that are not 16-byte aligned; with 1, 2 and
+   4 threads searching for a point, with and without the saved sources
+   and weights) and of the grouped ball queries (the main shapes at B=1,
+   4 and 16, N=5000, 4999 and 16384, a dense cluster, repeated points, a
+   lattice at spacing r with points on cell edges, an outlier at 1e4,
+   NaN and inf coordinates and centres, nsample 63, and at SA2 C=67 and
+   misaligned feats; SA1 with its plan, every query on the grid and
+   every query scanning, SA2 with each store; indices and values
+   bit-equal), each against the plain version; an FPS
    call with a start tensor on the card under
    ``torch.cuda.set_sync_debug_mode("error")``; an out-of-range start,
    which must raise (an int on the host, a card tensor by the kernel's
@@ -131,6 +140,17 @@ def scanned_points(idx: torch.Tensor, n: int) -> int:
     return int(torch.where(full, idx[..., -1].long() + 1, n).sum())
 
 
+def ball_population(xyz: torch.Tensor, new_xyz: torch.Tensor, r2: float) -> int:
+    """Points within the radius of each centre, summed over the centres:
+    the distance tests any exact ball query must make on this data (one a
+    point of each ball), counted on the card a batch row at a time."""
+    total = 0
+    for b in range(xyz.shape[0]):
+        d = new_xyz[b][:, None, :] - xyz[b][None, :, :]
+        total += int(((d * d).sum(-1) <= r2).sum())
+    return total
+
+
 def clouds(seed: int, n: int, num_points: int) -> np.ndarray:
     pts = np.random.default_rng(seed).normal(size=(n, num_points, 3))
     return (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
@@ -181,7 +201,8 @@ def main() -> None:
     from point2cyl_torch.models.backbone import Backbone, build_backbone
     from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn
     from point2cyl_torch.ops.grouping import (ball_query_plain, group_scatter_plain,
-                                              index_points, three_nn_weights_plain)
+                                              index_points, radius_squared,
+                                              three_nn_weights_plain)
     from point2cyl_torch.serve.export import _backbone_forward, export_artifact
     from point2cyl_torch.serve.session import InferenceSession
     from point2cyl_torch.train import steps
@@ -277,6 +298,14 @@ def main() -> None:
          "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
          cuda_fps.farthest_point_sample_kernel, cuda_fps.farthest_point_sample_plain,
          (l1_4, cfg.sa_npoints[1], start_sa2), fps_work(l1_4, cfg.sa_npoints[1])),
+        ("ball_query_grouped@sa1_train", "point2cyl_torch/csrc/ballquery.cu",
+         "point2cyl_tpu/ops/pallas_ballquery.py:276 _ballquery_grouped_kernel",
+         cuda_ballquery.ball_query_grouped_kernel,
+         cuda_ballquery.ball_query_grouped_plain, (r1, ns1, pts4, l1_4), None),
+        ("sa_grouped_exact@sa2_train", "point2cyl_torch/csrc/ballquery.cu",
+         "point2cyl_tpu/ops/pallas_ballquery.py:394 _sa_grouped_exact_kernel",
+         cuda_ballquery.sa_grouped_exact_kernel,
+         cuda_ballquery.sa_grouped_exact_plain, (r2, ns2, l1_4, l1f_4, l2_4), None),
         ("three_nn@fp2_train", "point2cyl_torch/csrc/knn3.cu",
          "point2cyl_tpu/ops/pallas_knn.py:97 _knn3_kernel",
          cuda_knn.three_nn_interpolate_kernel, cuda_knn.three_nn_interpolate_plain,
@@ -289,6 +318,7 @@ def main() -> None:
     rows = []
     with torch.inference_mode():
         for name, source, replaces, kernel, plain, inputs, work in cases:
+            extra = {}
             got = kernel(*inputs)
             torch.cuda.synchronize()
             want = plain(*inputs)
@@ -307,6 +337,16 @@ def main() -> None:
                 feats = inputs[3] if len(inputs) == 5 else None
                 width = got[1].shape[-1]
                 work = group_work(inputs[2], inputs[-1], got[0], width, feats)
+                if feats is None:
+                    # SA1's grid tests the points of each ball (and their
+                    # cells' neighbours), not the index-order scan that
+                    # group_work counts: its op term is one test a point of
+                    # each ball. The scan's figure, the bound of PRs 1-3,
+                    # is printed beside it.
+                    extra["scan_bound_ms"] = bound(*work)[0]
+                    work = (work[0], 9.0 * ball_population(
+                        inputs[2], inputs[-1], radius_squared(inputs[0]))
+                        + 3.0 * got[0].numel())
             k_ms = time_ms(lambda: kernel(*inputs))
             p_ms = time_ms(lambda: plain(*inputs))
             b_ms, b_by = bound(*work)
@@ -317,7 +357,7 @@ def main() -> None:
             rows.append(row)
             print(json.dumps({"kernel": name, "kernel_ms": k_ms, "plain_ms": p_ms,
                               "bound_ms": b_ms, "bound_by": b_by,
-                              "library_ms": None, "max_abs_err": err,
+                              "library_ms": None, "max_abs_err": err, **extra,
                               "card": card}), flush=True)
 
     # the training kernels, at the training shapes: B=4 at full width, and
@@ -456,7 +496,7 @@ def main() -> None:
     print(json.dumps({"check": "Functions on the card", "ball_query_grouped_d_xyz_err":
                       float((xk.grad - xp.grad).abs().max()),
                       "three_nn_saved_weights_err": saved_err}), flush=True)
-    del l1_xyz, l1_f, l2_xyz, l2_f, g_xyz, g_f, f3, f2, train_cases, xk, ck, xp, cp
+    del l2_f, g_xyz, g_f, f3, f2, train_cases, xk, ck, xp, cp
 
     # ---- 2b. the corner cases of the cluster FPS and the thread-per-point
     # 3-NN, each held against the plain version on the card -------------------
@@ -532,6 +572,108 @@ def main() -> None:
                 saved[0].fill_(-1)
                 saved[1].fill_(-1.0)
 
+    # the grouped ball queries (items 3 and 5): indices and values bit-equal
+    # to the plain version (a NaN equal to a NaN) on every case. SA1 with
+    # its own plan, with every query on the grid (cap 2^30) and with every
+    # query scanning in index order (cap 0); SA2 with each store (the
+    # kernel takes the 4-byte stores where the bulk copy's alignment is
+    # missing)
+    brng = np.random.default_rng(7)
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    def some_centres(xyz, s):
+        rows = torch.stack([torch.from_numpy(brng.permutation(xyz.shape[1])[:s])
+                            for _ in range(xyz.shape[0])]).to(dev)
+        return index_points(xyz, rows).contiguous()
+
+    def feats_for(xyz, c=128):
+        return on_card(brng.normal(size=(xyz.shape[0], xyz.shape[1], c)))
+
+    def same_bits(a, b):
+        return a.shape == b.shape and bool(
+            ((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+    dense = clouds(50, 2, cfg.num_points)
+    dense[:, :4096] = np.array([1.0, 0.0, 0.0], np.float32) + 0.05 * clouds(51, 2, 4096)
+    lattice = 0.25 * np.stack(np.meshgrid(*[np.arange(9)] * 3, indexing="ij"),
+                              -1).reshape(-1, 3)
+    edge = np.float32(np.float32(0.25) * np.float32(1.015625))  # the grid's cell edge
+    on_edges = edge * np.stack(np.meshgrid(*[np.arange(8)] * 3, indexing="ij"),
+                               -1).reshape(-1, 3)
+    exact = np.concatenate([lattice, on_edges]).astype(np.float32)
+    exact = np.stack([exact, exact[brng.permutation(len(exact))]])
+    outlier = clouds(52, 2, cfg.num_points)
+    outlier[:, 0] = [1e4, 0.0, 0.0]
+    bad = clouds(53, 2, cfg.num_points)
+    bad[0, 5, 1], bad[1, 9, 2], bad[0, 11, 0] = np.nan, np.inf, -np.inf
+    bad_xyz = on_card(bad)
+    bad_centres = some_centres(bad_xyz, 512)
+    bad_centres[0, 0], bad_centres[1, 0] = bad_xyz[0, 5], bad_xyz[1, 9]
+    geometry = [  # label, xyz, centres, radius
+        ("N=5000 B=3", on_card(clouds(54, 3, 5000)), None, r1),
+        ("N=4999 B=3 (not a multiple of 4)", on_card(clouds(55, 3, 4999)), None, r1),
+        ("N=16384 B=2 (SA1's scan route)", on_card(clouds(56, 2, 16384)), None, r1),
+        ("dense cluster: 4096 points within r of one another", on_card(dense), None, r1),
+        ("64 distinct points repeated", on_card(repeated), None, r1),
+        ("lattice at spacing r and points on cell edges, r=0.25", on_card(exact),
+         None, 0.25),
+        ("an outlier at 1e4 (the cell cap)", on_card(outlier), None, r1),
+        ("NaN and inf coordinates, centres among them", bad_xyz, bad_centres, r1),
+    ]
+    sa1_cases = [(f"main shape B={b}", r1, ns1, pts[:b].contiguous(), l1_xyz[:b].contiguous())
+                 for b in (1, TB, B)]
+    sa2_cases = [(f"main shape B={b}", r2, ns2, l1_xyz[:b].contiguous(),
+                  l1_f[:b].contiguous(), l2_xyz[:b].contiguous()) for b in (1, TB, B)]
+    for label, xyz, centres, radius in geometry:
+        centres = some_centres(xyz, 512) if centres is None else centres
+        sa1_cases.append((label, radius, ns1, xyz, centres))
+        sa2_cases.append((label, radius, ns2, xyz, feats_for(xyz), centres))
+    sa1_cases.append(("nsample 63 (4-byte stores)", r1, 63, pts4, l1_4))
+    c67 = feats_for(l1_4, 67)
+    mis_sa2 = torch.empty(l1f_4.numel() + 1, device=dev)[1:].view(l1f_4.shape)
+    mis_sa2.copy_(l1f_4)
+    sa2_cases += [("C=67", r2, ns2, l1_4, c67, l2_4),
+                  ("feats not 16-byte aligned", r2, ns2, l1_4, mis_sa2, l2_4),
+                  ("nsample 63", r2, 63, l1_4, l1f_4, l2_4)]
+    bq_checked = 0
+    bq_routes = {}
+    with torch.inference_mode():
+        for kernel, plain, bq_cases in (
+                (cuda_ballquery.ball_query_grouped_kernel,
+                 cuda_ballquery.ball_query_grouped_plain, sa1_cases),
+                (cuda_ballquery.sa_grouped_exact_kernel,
+                 cuda_ballquery.sa_grouped_exact_plain, sa2_cases)):
+            for label, *inputs in bq_cases:
+                want = plain(*inputs)
+                b, n = inputs[2].shape[:2]
+                s, ns = inputs[-1].shape[1], inputs[1]
+                if kernel is cuda_ballquery.ball_query_grouped_kernel:
+                    plans = [cuda_ballquery.ball_query_plan(b, n, s, ns, cap=cap)
+                             for cap in (cuda_ballquery.GRID_CAP, 1 << 30, 0)]
+                else:
+                    c = inputs[3].shape[2]
+                    # the wrapper's own plan first; the bulk copy's buffers
+                    # do not fit beside N=16384 points
+                    plans = [cuda_ballquery.ball_query_plan(b, n, s, ns, c)]
+                    plans += [p for p in (cuda_ballquery.ball_query_plan(
+                        b, n, s, ns, c, store=store) for store in ("bulk", "scalar"))
+                        if p is not None and p != plans[0]]
+                for plan in plans:
+                    got = kernel(*inputs, plan=plan)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got[0], want[0]),
+                          f"{kernel.__name__} {label} {plan}: indices differ from plain")
+                    check(same_bits(got[1], want[1]),
+                          f"{kernel.__name__} {label} {plan}: values differ from plain")
+                    bq_checked += 1
+                bq_routes[f"{kernel.__name__} {label}"] = plans[0].select
+    check(bq_routes["ball_query_grouped_kernel N=16384 B=2 (SA1's scan route)"] == "scan"
+          and bq_routes["ball_query_grouped_kernel main shape B=16"] == "grid",
+          f"SA1 routes {bq_routes}")
+    del l1_xyz, l1_f, l2_xyz, geometry, sa1_cases, sa2_cases, bad_xyz, bad_centres
+
     # no host sync in an FPS call with a start tensor on the card (the
     # train step's), and an out-of-range start is an error, never an index:
     # on the host for an int, in the kernel for a card tensor (a
@@ -578,6 +720,8 @@ def main() -> None:
     print(json.dumps({"check": "corner cases", "fps": fps_checked,
                       "three_nn": [label for label, _ in knn_cases],
                       "three_nn_max_abs_err": knn_err,
+                      "ball_query_cases_checked": bq_checked,
+                      "ball_query_routes": bq_routes,
                       "fps_sync_free": True,
                       "fps_bad_start_on_card": child.stdout.strip()}), flush=True)
     print(json.dumps({"fps_step": "SA1 B=16", "plan": cuda_fps.fps_launch_plan(

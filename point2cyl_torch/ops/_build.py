@@ -3,8 +3,8 @@
 At first use, every ``point2cyl_torch/csrc/*.cu`` is compiled by its own
 ``nvcc`` process (all started together) for ``sm_90a`` and the objects are
 linked into one shared library in ``point2cyl_torch/build/``, named by a
-hash of the sources and flags so an edited source never loads a stale
-build. The library has a plain C interface and is loaded with ``ctypes``:
+hash of the sources, the headers (``csrc/*.cuh``) and the flags, so an
+edited source or header never loads a stale build. The library has a plain C interface and is loaded with ``ctypes``:
 each entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch.
 
@@ -49,12 +49,19 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[Path]:
+    """The sources nvcc compiles, a process each."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _library_path(sources: list[Path]) -> Path:
+def _hashed() -> list[Path]:
+    """Every file a build reads from ``csrc``: the sources and the headers
+    they include."""
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
+
+
+def _library_path(inputs: list[Path]) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in inputs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libp2c_kernels_{h.hexdigest()[:16]}.so"
@@ -94,7 +101,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         sources = _sources()
-        path = _library_path(sources)
+        path = _library_path(_hashed())
         if not path.exists():
             _build(sources, path)
         _lib = ctypes.CDLL(str(path))

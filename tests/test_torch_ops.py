@@ -9,6 +9,7 @@ holds each one against these plain versions there).
 
 from __future__ import annotations
 
+import shutil
 import subprocess
 import sys
 
@@ -120,6 +121,172 @@ def test_fps_launch_plan_main_shapes():
     assert cuda_fps.fps_launch_plan(4, 8192) == (8, 128)
     assert cuda_fps.fps_launch_plan(16, 512) == (2, 128)
     assert cuda_fps.fps_launch_plan(8, 512) == (2, 128)
+
+
+def _taken_before(n: int, nsample: int) -> bool:
+    """What the ball-query wrappers took before the launch plans: planes of
+    N points and a warp's slots within 227 KB, 32 warps above N=1024."""
+    warps = 32 if n > 1024 else 8
+    return 1 <= nsample <= n and (3 * n + warps * nsample) * 4 <= cuda_ballquery.SMEM_LIMIT
+
+
+_PLAN_KINDS = {  # keyword arguments of ball_query_plan for each kernel
+    "sa1": {}, "idx": {"gather": False}, "sa2": {"c": 128}, "sa2 C=67": {"c": 67},
+}
+
+
+@pytest.mark.parametrize("nsample", [1, 32, 64, 128])
+def test_ball_query_plan_covers_every_n(nsample):
+    """Every (N, nsample) the wrappers took before gets a plan within the
+    card's shared memory, for each kernel at B=16 and B=4; SA1 takes the
+    grid exactly where the grid fits with GRID_MIN_WARPS warps, else the
+    index-order scan."""
+    limit = cuda_ballquery.SMEM_LIMIT
+    for n in range(nsample, 18001):
+        before = _taken_before(n, nsample)
+        grid_fits = cuda_ballquery._grid_smem(n, nsample,
+                                              cuda_ballquery.GRID_MIN_WARPS) <= limit
+        for b in (16, 4):
+            for kind, extra in _PLAN_KINDS.items():
+                plan = cuda_ballquery.ball_query_plan(b, n, 512, nsample, **extra)
+                if plan is None:
+                    assert not before, (kind, b, n, nsample)
+                    continue
+                assert plan.smem <= limit and 1 <= plan.warps <= 32 and plan.ctas >= 1
+                if kind == "sa1":
+                    assert plan.select == ("grid" if grid_fits else "scan"), (b, n, nsample)
+                    want = (cuda_ballquery._grid_smem if grid_fits
+                            else cuda_ballquery._scan_smem)(n, nsample, plan.warps)
+                    assert plan.smem == want
+
+
+@pytest.mark.parametrize("kind", list(_PLAN_KINDS))
+def test_plan_or_raise_raises_exactly_where_no_plan(kind):
+    """The wrappers' shape check reads the plan: it raises where
+    ball_query_plan gives none (and for nsample outside 1..N), and
+    nowhere else."""
+    extra = _PLAN_KINDS[kind]
+    for n in list(range(1, 40)) + list(range(11000, 21000, 7)) + [65535, 65536, 80000]:
+        for nsample in (1, 63, 64, 128, 1024):
+            plan = (cuda_ballquery.ball_query_plan(16, n, 128, nsample, **extra)
+                    if 1 <= nsample <= n else None)
+            if plan is None:
+                with pytest.raises(ValueError):
+                    cuda_ballquery.plan_or_raise(kind, 16, n, 128, nsample, **extra)
+            else:
+                assert cuda_ballquery.plan_or_raise(kind, 16, n, 128, nsample,
+                                                    **extra) == plan
+
+
+def test_ball_query_plan_main_shapes():
+    """The plans measured best on the H100 (PERF.md): the grid at SA1 with
+    about 132 / B CTAs a row (8 of 32 warps at B=16, 33 of 16 at B=4 and,
+    where more CTAs would repeat the build, at B=1); at
+    SA2 the bulk copy, 16 warps a CTA and 2 x 132 / B CTAs a row. A grid
+    that does not fit (N=16384) takes the index-order scan."""
+    plan = cuda_ballquery.ball_query_plan
+    assert plan(16, 8192, 512, 64)[:4] == ("grid", "coords", 8, 32)
+    assert plan(4, 8192, 512, 64)[:4] == ("grid", "coords", 33, 16)
+    assert plan(1, 8192, 512, 64)[:4] == ("grid", "coords", 33, 16)
+    assert plan(16, 16384, 512, 64).select == "scan"
+    assert plan(16, 512, 128, 64, 128)[:4] == ("scan", "bulk", 16, 16)
+    assert plan(4, 512, 128, 64, 128)[:4] == ("scan", "bulk", 66, 16)
+    assert plan(8, 512, 512, 64, gather=False)[:3] == ("scan", "none", 64)
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    """nvcc compiles the .cu sources alone, but the library's name hashes
+    the headers they include too: an edited header never loads a stale
+    build."""
+    (tmp_path / "a.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text("constexpr int k = 1;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build._sources() == [tmp_path / "a.cu"]
+    before = _build._library_path(_build._hashed())
+    (tmp_path / "a.cuh").write_text("constexpr int k = 2;\n")
+    assert _build._library_path(_build._hashed()) != before
+    monkeypatch.undo()
+    assert _build.CSRC / "ballquery_layout.cuh" in _build._hashed()
+
+
+@pytest.mark.skipif(shutil.which("c++") is None, reason="needs a host C++ compiler")
+def test_ball_query_smem_matches_layout_header(tmp_path):
+    """The plans' shared-memory totals are the kernels' own: the layout
+    header (csrc/ballquery_layout.cuh) compiled on the host gives the same
+    bytes for the grid, scan and SA2 kernels and the same bitmap over N,
+    nsample, warps, C and store, and the same constants and store codes."""
+    cb = cuda_ballquery
+    exprs = {"kMaxCells": cb.MAX_CELLS, "kGridHeader": cb.GRID_HEADER,
+             **{f"k{name.capitalize()}": code for code, name in enumerate(cb._STORES)}}
+    for n in (1, 3, 31, 32, 33, 512, 1023, 1025, 4999, 8192, 11904, 16384, 18000, 65535):
+        exprs[f"bitmap_words({n})"] = cb._bitmap_words(n)
+        for ns in (1, 63, 64, 128):
+            for warps in (1, 4, 16, 32):
+                exprs[f"grid_smem({n}, {ns}, {warps})"] = cb._grid_smem(n, ns, warps)
+                exprs[f"scan_smem({n}, {ns}, {warps})"] = cb._scan_smem(n, ns, warps)
+                for c in (67, 128):
+                    for code, store in enumerate(cb._STORES):
+                        exprs[f"sa_smem({n}, {ns}, {c}, {warps}, {code})"] = cb._sa_smem(
+                            n, ns, c, warps, store)
+    src = tmp_path / "layout.cpp"
+    src.write_text('#include <cstdio>\n#include "ballquery_layout.cuh"\nint main() {\n'
+                   + "".join(f'  std::printf("%lld\\n", (long long)({e}));\n' for e in exprs)
+                   + "}\n")
+    subprocess.run(["c++", "-std=c++17", "-I", str(_build.CSRC), str(src), "-o",
+                    str(tmp_path / "layout")], check=True, capture_output=True)
+    out = subprocess.run([str(tmp_path / "layout")], check=True, capture_output=True,
+                         text=True).stdout.split()
+    got = dict(zip(exprs, map(int, out)))
+    assert len(out) == len(exprs) and got == exprs
+
+
+def _axis_cells(p, lo, inv, dim):
+    """``csrc/ballquery.cu:axis_cell`` in float32."""
+    t = np.floor((p - lo).astype(np.float32) * inv)
+    return np.clip(t, 0, dim - 1).astype(np.int64)
+
+
+def _grid_edge(ext, r2):
+    """``csrc/ballquery.cu:grid_shape`` in float32: the cell edge's inverse
+    and the grid's cells a side."""
+    e = np.float32(np.sqrt(np.float32(r2))) * np.float32(1.015625)
+    e = max(e, np.float32(ext.max() * np.float32(1.0 / cuda_ballquery.MAX_CELLS)))
+    while True:
+        inv = np.float32(1.0) / e
+        dims = np.minimum(np.floor(ext * inv), cuda_ballquery.MAX_CELLS - 1) + 1
+        if np.prod(dims.astype(np.int64)) <= cuda_ballquery.MAX_CELLS:
+            return inv, dims.astype(np.int64)
+        e = np.float32(e * np.float32(1.25))
+
+
+@pytest.mark.parametrize("scale,radius", [(1.0, 0.2), (1.0, 0.4), (1e-3, 2e-4),
+                                          (1e4, 0.2), (3.0, 1.5)])
+def test_grid_cells_cover_every_in_radius_pair(scale, radius):
+    """The coverage argument of the grid kernel, in the kernel's float32
+    arithmetic: a pair that passes the exact float32 test lies at most one
+    cell apart on every axis, whatever the box (the 4096-cell cap included)
+    and with pairs at and just beyond the radius."""
+    rng = np.random.default_rng(14)
+    r2 = np.float32(radius * radius)
+    pts = (rng.uniform(-1, 1, size=(20000, 3)) * scale).astype(np.float32)
+    pts[0] = [1e4, 0.0, 0.0]  # widens the box, so the cap enlarges the cells
+    lo, hi = pts.min(0), pts.max(0)
+    inv, dims = _grid_edge((hi - lo).astype(np.float32), r2)
+    # centres near points, offsets of about the radius on each axis
+    q = pts[rng.integers(0, len(pts), 20000)]
+    off = rng.normal(size=q.shape) * radius / np.sqrt(3)
+    off[:3000] = 0.0
+    off[np.arange(3000), np.arange(3000) % 3] = radius
+    p = (q + off).astype(np.float32)
+    d = (p - q).astype(np.float32)
+    sq = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]).astype(np.float32) + d[:, 2] * d[:, 2]
+    inside = sq.astype(np.float32) <= r2
+    assert inside.sum() > 10000
+    inside &= np.all((p >= lo) & (p <= hi), axis=1)  # grid points lie in the box
+    for a in range(3):
+        cp = _axis_cells(p[inside, a], lo[a], inv, dims[a])
+        cq = _axis_cells(q[inside, a], lo[a], inv, dims[a])
+        assert np.abs(cp - cq).max() <= 1
 
 
 def test_ball_query_plain_matches_pallas_exact_path():
