@@ -18,7 +18,12 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    grouped ball queries, 3-NN at FP2 and FP1. The training kernels at the
    training shapes: the idx-only ball query at SA1 of the N=512 protocol
    (B=8), the SA1 and SA2 gather backwards and the 3-NN backward at FP2
-   and FP1 (B=4, N=8192), with cotangents from a numpy seed. Then the
+   and FP1 (B=4, N=8192), with cotangents from a numpy seed (FP2's the
+   slice of a concatenation's gradient that the step passes). The SA2
+   gather backward and the 3-NN backward, the ordered per-target sums,
+   are also held bit-equal to the host's ordered sum (np.add.at) and to
+   a second run, and the 3-NN backward's library time is index_add_ of
+   the w * g rows (the product inside the timed call). Then the
    autograd Functions' card branches: SA1's gather differentiated with
    respect to the cloud through ``BallQueryGrouped`` against autograd of
    the plain version, and the sources and weights the 3-NN forward saves
@@ -35,7 +40,13 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    NaN and inf coordinates and centres, nsample 63, and at SA2 C=67 and
    misaligned feats; SA1 with its plan, every query on the grid and
    every query scanning, SA2 with each store; indices and values
-   bit-equal), each against the plain version; an FPS
+   bit-equal), each against the plain version; and of the ordered sums
+   (3-NN at S=3, with duplicated sources, C=67, a misaligned g, the N=512
+   protocol's FP1 and FP2, N=16384 in two windows, N=12000 in one window
+   of 36,000 entries, and B=1; SA2 at the
+   N=512 protocol, C=67, width 128 aligned and not, a one-point ball
+   padded 64 times, a dense cluster, N=16384 and B=1), each bit-equal to
+   the host's ordered sum; an FPS
    call with a start tensor on the card under
    ``torch.cuda.set_sync_debug_mode("error")``; an out-of-range start,
    which must raise (an int on the host, a card tensor by the kernel's
@@ -149,6 +160,47 @@ def ball_population(xyz: torch.Tensor, new_xyz: torch.Tensor, r2: float) -> int:
         d = new_xyz[b][:, None, :] - xyz[b][None, :, :]
         total += int(((d * d).sum(-1) <= r2).sum())
     return total
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN equal to a NaN."""
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+def host_sum(idx: torch.Tensor, rows: np.ndarray, targets: int) -> np.ndarray:
+    """Each target's rows summed on the host in float32, from 0, in
+    ascending entry order (np.add.at): idx (B, E) targets, rows (B, E, C)."""
+    idx = idx.reshape(idx.shape[0], -1).cpu().numpy()
+    out = np.zeros((idx.shape[0], targets, rows.shape[-1]), np.float32)
+    for b in range(idx.shape[0]):
+        np.add.at(out[b], idx[b], rows[b])
+    return out
+
+
+def three_nn_rows(w: torch.Tensor, g: torch.Tensor) -> np.ndarray:
+    """The 3-NN backward's terms w * g in float32, (B, 3 N, C), entry
+    3 i + k for point i's k-th source."""
+    b, n, c = g.shape
+    prod = w.cpu().numpy()[..., None] * g.cpu().numpy()[:, :, None, :]
+    return prod.reshape(b, 3 * n, c)
+
+
+def host_ordered_sum(inputs) -> np.ndarray:
+    """The host's ordered sum for an ordered per-target sum's inputs: the
+    3-NN backward's (idx, w, g, S) or the SA2 gather backward's (idx, dg,
+    N)."""
+    if len(inputs) == 4:
+        idx, w, g, s = inputs
+        return host_sum(idx, three_nn_rows(w, g), s)
+    idx, dg, n = inputs
+    return host_sum(idx, dg.reshape(dg.shape[0], -1, dg.shape[-1]).cpu().numpy(), n)
+
+
+def ordered_sum_case(kernel, inputs) -> tuple[torch.Tensor, np.ndarray]:
+    """One run of an ordered per-target sum and the host's ordered sum of
+    the same terms."""
+    return kernel(*inputs), host_ordered_sum(inputs)
 
 
 def clouds(seed: int, n: int, num_points: int) -> np.ndarray:
@@ -379,7 +431,10 @@ def main() -> None:
             three_nn_weights_plain(pts4, l1_4), (torch.int32, torch.float32))]
     dg_sa1 = cotangent(TB, cfg.sa_npoints[0], ns1, 3)
     dg_sa2 = cotangent(TB, cfg.sa_npoints[1], ns2, 3 + l1f_4.shape[2])
-    g_fp2 = cotangent(TB, l1_4.shape[1], f3_4.shape[2])
+    # FP2's cotangent as the step passes it: the interpolated slice of the
+    # gradient of cat([feats_dst, interpolated]) (row stride 384)
+    g_fp2 = cotangent(TB, l1_4.shape[1], l1f_4.shape[2] + f3_4.shape[2])[
+        ..., l1f_4.shape[2]:]
     g_fp1 = cotangent(TB, cfg.num_points, f2_4.shape[2])
 
     def query_work(xyz, new_xyz, idx):
@@ -396,6 +451,15 @@ def main() -> None:
         b, _, c = g.shape
         # per cotangent element: 3 multiplies and 3 adds
         return (idx.numel() + w.numel() + g.numel() + b * s * c) * 4, 6.0 * g.numel()
+
+    def knn_index_add_call(idx, w, g, s):
+        """One PyTorch call for the same sum: index_add_ of the w * g rows
+        (the product inside the timed call) into a zeroed (B*S, C) table at
+        batch-offset source indices (made once, untimed)."""
+        b, _, c = g.shape
+        rows = (idx.long() + s * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
+        return lambda: torch.zeros((b * s, c), device=dev).index_add_(
+            0, rows, (w[..., None] * g[:, :, None, :]).reshape(-1, c))
 
     def index_add_call(idx, dg, n):
         """One PyTorch call for the same scatter: index_add_ into a zeroed
@@ -416,21 +480,21 @@ def main() -> None:
          cuda_ballquery.ball_query_grouped_backward_kernel, group_scatter_plain,
          (idx_sa1, dg_sa1, n1), scatter_work(idx_sa1, dg_sa1, n1),
          index_add_call(idx_sa1, dg_sa1, n1)),
-        ("sa_grouped_backward@sa2", "point2cyl_torch/csrc/ballquery.cu",
+        ("sa_grouped_backward@sa2", "point2cyl_torch/csrc/target_sum.cu",
          "point2cyl_tpu/ops/pallas_ballquery.py:797 _sa_exact_scatter_kernel",
          cuda_ballquery.sa_grouped_backward_kernel, group_scatter_plain,
          (idx_sa2, dg_sa2, l1_4.shape[1]), scatter_work(idx_sa2, dg_sa2, l1_4.shape[1]),
          index_add_call(idx_sa2, dg_sa2, l1_4.shape[1])),
-        ("three_nn_backward@fp2", "point2cyl_torch/csrc/knn3.cu",
+        ("three_nn_backward@fp2", "point2cyl_torch/csrc/target_sum.cu",
          "point2cyl_tpu/ops/pallas_knn.py:110 _knn3_bwd_kernel",
          cuda_knn.three_nn_backward_kernel, cuda_knn.three_nn_backward_plain,
          (*nn_fp2, g_fp2, l2_4.shape[1]), knn_bwd_work(*nn_fp2, g_fp2, l2_4.shape[1]),
-         None),
-        ("three_nn_backward@fp1", "point2cyl_torch/csrc/knn3.cu",
+         knn_index_add_call(*nn_fp2, g_fp2, l2_4.shape[1])),
+        ("three_nn_backward@fp1", "point2cyl_torch/csrc/target_sum.cu",
          "point2cyl_tpu/ops/pallas_knn.py:110 _knn3_bwd_kernel",
          cuda_knn.three_nn_backward_kernel, cuda_knn.three_nn_backward_plain,
          (*nn_fp1, g_fp1, l1_4.shape[1]), knn_bwd_work(*nn_fp1, g_fp1, l1_4.shape[1]),
-         None),
+         knn_index_add_call(*nn_fp1, g_fp1, l1_4.shape[1])),
     ]
     with torch.inference_mode():
         for name, source, replaces, kernel, plain, inputs, work, library in train_cases:
@@ -443,10 +507,18 @@ def main() -> None:
                 err = 0.0
                 work = query_work(inputs[2], inputs[3], got)
             else:
-                # float atomics add in another order than scatter_add_
+                # the plain scatter_add_ adds in another order: 1e-4
                 torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                            msg=lambda m: f"{name}: {m}")
                 err = float((got - want).abs().max())
+            if kernel in (cuda_ballquery.sa_grouped_backward_kernel,
+                          cuda_knn.three_nn_backward_kernel):
+                # the ordered sums: bit-equal to the host's ordered sum and
+                # to a second run
+                again, host = ordered_sum_case(kernel, inputs)
+                check(same_bits(got, torch.from_numpy(host).to(dev)),
+                      f"{name}: differs from the host's ordered sum")
+                check(same_bits(got, again), f"{name}: two runs differ")
             k_ms = time_ms(lambda: kernel(*inputs))
             p_ms = time_ms(lambda: plain(*inputs))
             l_ms = time_ms(library) if library is not None else None
@@ -591,10 +663,6 @@ def main() -> None:
     def feats_for(xyz, c=128):
         return on_card(brng.normal(size=(xyz.shape[0], xyz.shape[1], c)))
 
-    def same_bits(a, b):
-        return a.shape == b.shape and bool(
-            ((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
-
     dense = clouds(50, 2, cfg.num_points)
     dense[:, :4096] = np.array([1.0, 0.0, 0.0], np.float32) + 0.05 * clouds(51, 2, 4096)
     lattice = 0.25 * np.stack(np.meshgrid(*[np.arange(9)] * 3, indexing="ij"),
@@ -674,6 +742,72 @@ def main() -> None:
           f"SA1 routes {bq_routes}")
     del l1_xyz, l1_f, l2_xyz, geometry, sa1_cases, sa2_cases, bad_xyz, bad_centres
 
+    # the ordered per-target sums (items 8 and 6): each case bit-equal to
+    # the host's ordered sum (np.add.at) at the wrapper's plan
+    srng = np.random.default_rng(8)
+
+    def snormal(*shape):
+        return torch.from_numpy(srng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def misaligned(t):
+        view = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+        return view.copy_(t)
+
+    def nn_case(dst, src, c, g=None):
+        idx, w = (t.to(dt).contiguous() for t, dt in zip(
+            three_nn_weights_plain(dst, src), (torch.int32, torch.float32)))
+        g = snormal(*dst.shape[:2], c) if g is None else g
+        return cuda_knn.three_nn_backward_kernel, (idx, w, g, src.shape[1])
+
+    def ball_case(radius, xyz, centres, c, dg=None):
+        idx = ball_query_plain(radius, ns2, xyz, centres).contiguous()
+        dg = snormal(*idx.shape, 3 + c) if dg is None else dg
+        return cuda_ballquery.sa_grouped_backward_kernel, (idx, dg, xyz.shape[1])
+
+    with torch.inference_mode():
+        s3_dst, s3_src, _ = knn_inputs(4, 777, 3, 32, 43)
+        c67_dst, c67_src, _ = knn_inputs(4, 1000, 130, 67, 42)
+        l2_512 = index_points(c512, cuda_fps.farthest_point_sample_plain(c512, 128))
+        lone_xyz, lone_centres = l1_4.clone(), l2_4.clone()
+        lone_xyz[:, 0] = lone_centres[:, 0] = 5.0  # a ball of one point, padded 64 times
+        dense512 = clouds(57, TB, 512)
+        dense512[:, :256] = np.array([1.0, 0.0, 0.0], np.float32) + 0.05 * clouds(58, TB, 256)
+        dense512 = on_card(dense512)
+        big = on_card(clouds(59, 2, 16384))
+        scatter_cases = [
+            ("3-NN S=3", nn_case(s3_dst, s3_src, 32)),
+            ("3-NN duplicated sources", nn_case(dup_dst, dup_src, 64)),
+            ("3-NN C=67 (4-byte loads)", nn_case(c67_dst, c67_src, 67)),
+            ("3-NN g not 16-byte aligned",
+             nn_case(mis_dst, mis_src, 64, misaligned(snormal(4, 2048, 64)))),
+            ("3-NN FP1 N=512 B=8 (512 -> 512)", nn_case(p512, c512, 128)),
+            ("3-NN FP2 N=512 B=8 (cat slice)",
+             nn_case(c512, l2_512, 256, snormal(8, 512, 384)[..., 128:])),
+            ("3-NN N=16384 B=2 (two windows)", nn_case(big, big[:, :1024].contiguous(), 128)),
+            ("3-NN N=12000 B=2 (one window of 36,000 entries, lane runs of 64 words)",
+             nn_case(big[:, :12000].contiguous(), big[:, :1024].contiguous(), 128)),
+            ("3-NN FP1 B=1", nn_case(pts4[:1], l1_4[:1], 128)),
+            ("3-NN FP2 B=1 (cat slice)",
+             nn_case(l1_4[:1], l2_4[:1], 256, snormal(1, 512, 384)[..., 128:])),
+            ("SA2 N=512 B=8", ball_case(r2, c512, l2_512, 128)),
+            ("SA2 C=67", ball_case(r2, l1_4, l2_4, 67)),
+            ("SA2 width 128 (16-byte loads)", ball_case(r2, l1_4, l2_4, 125)),
+            ("SA2 width 128, dg not 16-byte aligned",
+             ball_case(r2, l1_4, l2_4, 125, misaligned(snormal(TB, 128, ns2, 128)))),
+            ("SA2 a one-point ball padded 64 times", ball_case(r2, lone_xyz, lone_centres, 128)),
+            ("SA2 dense cluster: 256 points within r of one another",
+             ball_case(r2, dense512, some_centres(dense512, 128), 128)),
+            ("SA2 N=16384 B=2", ball_case(r1, big, some_centres(big, 512), 128)),
+            ("SA2 B=1", ball_case(r2, l1_4[:1], l2_4[:1], 128)),
+        ]
+        for label, (kernel, inputs) in scatter_cases:
+            got, host = ordered_sum_case(kernel, inputs)
+            torch.cuda.synchronize()
+            check(same_bits(got, torch.from_numpy(host).to(dev)),
+                  f"{kernel.__name__} {label}: differs from the host's ordered sum")
+        lone = dict(scatter_cases)["SA2 a one-point ball padded 64 times"][1][0]
+        check(bool((lone[:, 0] == lone[:, 0, :1]).all()), "the one-point ball is not padded")
+
     # no host sync in an FPS call with a start tensor on the card (the
     # train step's), and an out-of-range start is an error, never an index:
     # on the host for an int, in the kernel for a card tensor (a
@@ -722,6 +856,7 @@ def main() -> None:
                       "three_nn_max_abs_err": knn_err,
                       "ball_query_cases_checked": bq_checked,
                       "ball_query_routes": bq_routes,
+                      "scatter_cases": [label for label, _ in scatter_cases],
                       "fps_sync_free": True,
                       "fps_bad_start_on_card": child.stdout.strip()}), flush=True)
     print(json.dumps({"fps_step": "SA1 B=16", "plan": cuda_fps.fps_launch_plan(

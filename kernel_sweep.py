@@ -1,6 +1,15 @@
-"""Time the ball queries', FPS's and the 3-NN forward's launch plans on one NVIDIA GPU.
+"""Time the port's kernels' launch plans on one NVIDIA GPU.
 
     python3 kernel_sweep.py
+
+The 3-NN backward and the SA2 gather backward (items 8 and 6), at the
+train step's shapes (B=4: FP1, FP2 with its cotangent a slice of a
+concatenation's gradient, SA2): every plan of targets a CTA in {2, 4, 8,
+16, 32} x warps a CTA in {4, 8, 16}, each output bit-equal to the host's
+ordered sum, with the list build alone beside it. ``--scatter`` stops
+after them; ``--split`` times instead each kernel ended after its marks
+and after its lists beside the whole kernel, then the ball queries'
+split below (``--split --scatter``: the scatters' alone).
 
 Grouped ball queries, at SA1 (N=8192 -> 512, r=0.2, nsample 64) and SA2
 (512 -> 128, r=0.4, nsample 64, C=128) at B=16, 4 and 1 (the serving
@@ -39,6 +48,7 @@ kernels at the same shapes.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import sys
 
@@ -124,6 +134,169 @@ def split_ball_query(dev: torch.device, rng: np.random.Generator) -> None:
                 print(json.dumps(row), flush=True)
 
 
+def scatter_inputs(dev: torch.device, rng: np.random.Generator, b: int = 4) -> list:
+    """Items 8 and 6 at the train step's shapes: FP1 (each of 8192 points'
+    3 sources among 512, g (B, 8192, 128)), FP2 (512 points among 128, g
+    (B, 512, 256), the slice of a (B, 512, 384) gradient that the step
+    passes) and SA2 (128 balls of 64 among 512 points, dg (B, 128, 64,
+    131)); sources and balls from the plain versions on FPS centres,
+    cotangents from a numpy seed. Each entry: label, kind, arguments of
+    the wrapper."""
+    from point2cyl_torch.ops import cuda_ballquery
+    from point2cyl_torch.ops.grouping import three_nn_weights_plain
+
+    inputs = grouping_inputs(b, dev, rng)
+    pts, l1 = inputs["sa1"][2:]
+    l2 = inputs["sa2"][4]
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    def sources(dst, src):
+        idx, w = three_nn_weights_plain(dst, src)
+        return idx.to(torch.int32).contiguous(), w.contiguous()
+
+    with torch.inference_mode():
+        idx_sa2 = cuda_ballquery.sa_grouped_exact_plain(*inputs["sa2"])[0]
+        return [
+            ("fp1", "three_nn", (*sources(pts, l1), normal(b, 8192, 128), 512)),
+            ("fp2", "three_nn", (*sources(l1, l2), normal(b, 512, 384)[..., 128:], 128)),
+            ("sa2", "group", (idx_sa2, normal(b, 128, 64, 131), 512)),
+        ]
+
+
+def split_scatter(dev: torch.device, rng: np.random.Generator) -> None:
+    """Items 8 and 6 at the train step's shapes (B=4): the kernel ended
+    after each phase (the bitmaps and counts, the lists) beside the whole
+    kernel, with the longest and the mean list, and the whole kernel on
+    targets drawn uniformly (the skew's cost); the whole kernel is checked
+    bit-equal to the host's ordered sum."""
+    from chip_smoke import same_bits
+
+    with torch.inference_mode():
+        for label, kind, args in scatter_inputs(dev, rng):
+            if not same_bits(ordered_sum(kind, args), scatter_want(args)):
+                sys.exit(f"kernel_sweep: the ordered sum at {label} differs from the host's")
+            row = {"split": f"{label} B={args[0].shape[0]}"}
+            for stop, phase in ((1, "marked_ms"), (2, "listed_ms")):
+                row[phase] = time_ms(lambda: ordered_sum(kind, args, stop=stop))
+            row["whole_ms"] = time_ms(lambda: ordered_sum(kind, args))
+            sizes = torch.stack([torch.bincount(r.reshape(-1).long(), minlength=args[-1])
+                                 for r in args[0]])
+            row.update(longest_list=int(sizes.max()), mean_list=float(sizes.float().mean()))
+            # the same work with targets drawn uniformly: what the skew costs
+            flat = torch.from_numpy(rng.integers(0, args[-1], size=tuple(args[0].shape),
+                                                 dtype=np.int32)).to(dev)
+            row["uniform_targets_ms"] = time_ms(lambda: ordered_sum(kind, (flat, *args[1:])))
+            print(json.dumps(row), flush=True)
+
+
+# p2c_target_sum_probe (csrc/target_sum.cu): three_nn, stop; idx, w, g;
+# g_batch, g_row; out; b, targets, entries, c, per_cta, warps, window; stream
+PROBE_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
+              + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def ordered_sum(kind: str, args: tuple, plan=None, stop: int = 0) -> torch.Tensor:
+    """The ordered per-target sum of the wrapper's arguments ``args`` at the
+    wrapper's plan (or ``plan``); ``stop`` 1 or 2 launches instead the
+    measurement entry point, which ends the kernel after the bitmaps or
+    the lists and writes no output, to time the phases."""
+    from point2cyl_torch.ops import _build, cuda_scatter
+
+    if kind == "three_nn":
+        idx, w, g, targets = args
+        b, n, c = g.shape
+        entries, row = 3 * n, g.stride(1)
+    else:
+        idx, g, targets = args
+        w, (b, *_, c) = None, g.shape
+        entries, row = idx.shape[1] * idx.shape[2], g.stride(2)
+    plan = plan or cuda_scatter.scatter_plan(b, targets, entries)
+    out = torch.empty((b, targets, c), device=g.device)
+    if stop:
+        fn = _build.function("p2c_target_sum_probe", PROBE_ARGS)
+        status = fn(int(kind == "three_nn"), stop, idx.data_ptr(),
+                    w.data_ptr() if w is not None else None, g.data_ptr(), g.stride(0), row,
+                    out.data_ptr(), b, targets, entries, c, plan.targets, plan.warps,
+                    plan.window, torch.cuda.current_stream(g.device).cuda_stream)
+        _build.check("p2c_target_sum_probe", status)
+    elif kind == "three_nn":
+        cuda_scatter.launch_three_nn(idx, w, g, out, plan)
+    else:
+        cuda_scatter.launch_group(idx, g, out, plan)
+    return out
+
+
+def scatter_want(args: tuple) -> torch.Tensor:
+    """The host's ordered sum of the same terms, on the card."""
+    from chip_smoke import host_ordered_sum
+
+    return torch.from_numpy(host_ordered_sum(args)).to(args[0].device)
+
+
+def sweep_scatter(dev: torch.device, rng: np.random.Generator, default_only: bool) -> None:
+    """Items 8 and 6 at the train step's shapes (B=4): the wrappers' own
+    plans or (full sweep) every plan of targets a CTA in {2, 4, 8, 16, 32}
+    x warps a CTA in {4, 8, 16}, each checked against the host's ordered sum
+    (bit for bit where the port has the ordered sums, else within 1e-4 of
+    the plain version). FP2 also with g contiguous; an older port, whose
+    kernel takes only a contiguous g, is timed with the copy the step made
+    for it."""
+    from chip_smoke import same_bits
+    from point2cyl_torch.ops import cuda_ballquery, cuda_knn
+
+    ordered = hasattr(cuda_knn, "cuda_scatter")
+    with torch.inference_mode():
+        for label, kind, args in scatter_inputs(dev, rng):
+            wrapper = (cuda_knn.three_nn_backward_kernel if kind == "three_nn"
+                       else cuda_ballquery.sa_grouped_backward_kernel)
+            want = scatter_want(args)
+            variants = [("", args)]
+            if not args[2 if kind == "three_nn" else 1].is_contiguous():
+                contiguous = list(args)
+                contiguous[2] = args[2].contiguous()
+                variants.append((" g contiguous", tuple(contiguous)))
+
+            def call(a):
+                if ordered or a[2 if kind == "three_nn" else 1].is_contiguous():
+                    return wrapper(*a)
+                g = a[2].contiguous()  # the copy the step made for the atomic design
+                return wrapper(a[0], a[1], g, a[3])
+
+            for suffix, a in variants:
+                got = call(a)
+                torch.cuda.synchronize()
+                row = {"scatter": f"{label} B=4{suffix}", "plan": "default",
+                       "host_equal": same_bits(got, want),
+                       "max_abs_err": float((got - want).abs().max()),
+                       "ms": time_ms(lambda: call(a))}
+                print(json.dumps(row), flush=True)
+                if ordered and not row["host_equal"] or row["max_abs_err"] > 1e-4:
+                    sys.exit(f"kernel_sweep: scatter {label} differs from the host sum")
+            if default_only:
+                continue
+            from point2cyl_torch.ops import cuda_scatter
+
+            b = args[0].shape[0]
+            targets = args[-1]
+            entries = args[0][0].numel()
+            chosen = cuda_scatter.scatter_plan(b, targets, entries)
+            for per_cta in (2, 4, 8, 16, 32):
+                for warps in (4, 8, 16):
+                    plan = cuda_scatter.scatter_plan(b, targets, entries, per_cta=per_cta,
+                                                     warps=warps)
+                    got = ordered_sum(kind, args, plan)
+                    torch.cuda.synchronize()
+                    row = {"scatter": f"{label} B=4" + (" *" if plan == chosen else ""),
+                           "plan": plan._asdict(), "host_equal": same_bits(got, want),
+                           "ms": time_ms(lambda: ordered_sum(kind, args, plan)),
+                           "listed_ms": time_ms(lambda: ordered_sum(kind, args, plan, stop=2))}
+                    print(json.dumps(row), flush=True)
+                    if not row["host_equal"]:
+                        sys.exit(f"kernel_sweep: scatter {label} {plan} differs")
+
+
 def sweep_ball_query(dev: torch.device, rng: np.random.Generator, default_only: bool) -> None:
     """The SA1 and SA2 grouped ball queries at B=16, 4 and 1: the wrappers'
     own plans, or (full sweep) every plan below, each checked equal to the
@@ -189,10 +362,13 @@ def main() -> None:
     parser.add_argument("--default-only", action="store_true",
                         help="time only the wrappers' own plans")
     parser.add_argument("--split", action="store_true",
-                        help="time only the grouped ball queries' selection "
-                        "beside the whole kernels, and stop")
+                        help="time only the ordered sums' phases and the grouped "
+                        "ball queries' selection beside the whole kernels, and stop")
     parser.add_argument("--ball-query", action="store_true",
                         help="time only the grouped ball queries")
+    parser.add_argument("--scatter", action="store_true",
+                        help="time only the 3-NN backward and the SA2 gather "
+                        "backward (items 8 and 6)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: no CUDA device (torch.cuda.is_available() is False)")
@@ -203,7 +379,12 @@ def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
     if args.split:
-        split_ball_query(dev, np.random.default_rng(5))
+        split_scatter(dev, np.random.default_rng(5))
+        if not args.scatter:
+            split_ball_query(dev, np.random.default_rng(5))
+        return
+    sweep_scatter(dev, np.random.default_rng(5), args.default_only)
+    if args.scatter:
         return
     sweep_ball_query(dev, np.random.default_rng(5), args.default_only)
     if args.ball_query:

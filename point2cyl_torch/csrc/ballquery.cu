@@ -1,7 +1,7 @@
-// Ball query, with and without fused neighbour gather, and the gather's
-// scatter-add backward, for Hopper (sm_90a).
+// Ball query, with and without fused neighbour gather, and the SA1
+// gather's scatter-add backward, for Hopper (sm_90a).
 //
-// Replaces five TPU kernels of point2cyl_tpu/ops/pallas_ballquery.py:
+// Replaces four TPU kernels of point2cyl_tpu/ops/pallas_ballquery.py:
 //   - _ballquery_kernel (pallas_call at :580, reached through
 //     ball_query_pallas): indices only. SA1 whenever N <= 1024 (the N=512
 //     A/B protocol) and any stage the fused kernels below do not cover.
@@ -17,9 +17,8 @@
 //   - _bqg_scatter_kernel (pallas_call at :767, in _bqg_bwd): the SA1
 //     gather's backward, d_xyz[b, idx] += d_grouped. Entry point
 //     p2c_ball_query_grouped_backward.
-//   - _sa_exact_scatter_kernel (pallas_call at :876, in _sae_bwd): the SA2
-//     gather's backward onto [xyz | feats]. Entry point
-//     p2c_sa_grouped_backward.
+// The SA2 gather's backward (_sa_exact_scatter_kernel) is
+// p2c_sa_grouped_backward in target_sum.cu.
 //
 // What the forward computes: for each query centre, the first nsample
 // point indices (ascending) whose squared distance is <= r2, short rows
@@ -103,16 +102,15 @@
 //   - The idx-only query (p2c_ball_query) is the same index-order scan
 //     without the gather, a warp per query.
 //
-// The backward: out[b, idx[b, q, k], ch] += dg[b, q, k, ch] over every
-// query q and slot k; the d_new_xyz = -sum_k dg[..., :3] term stays in
+// The SA1 backward: d_xyz[b, idx[b, q, k], ch] += dg[b, q, k, ch] over
+// every query q and slot k; the d_new_xyz = -sum_k dg term stays in
 // PyTorch, as JAX keeps it outside its kernel (pallas_ballquery.py:790).
-// It is bound by bytes: it reads dg once (17.2 MB at SA2, B=4) and writes
-// the (b, n, w) table. One thread per dg element, consecutive threads on
-// consecutive channels, adds with float atomics (RED) into the table the
-// wrapper zeroed, which lives in L2 (2.5 MB at SA1, 1.1 MB at SA2). The
-// order of the adds into one address is not fixed, so the sums may differ
-// from run to run in the last bits; the TPU kernel's one-hot matmul
-// order is not reproduced either.
+// It is bound by bytes: it reads dg once and writes the (b, n, 3) table.
+// One thread per dg element, consecutive threads on consecutive channels,
+// adds with float atomics (RED) into the table the wrapper zeroed, which
+// lives in L2 (2.5 MB at B=4). The order of the adds into one address is
+// not fixed, so the sums may differ from run to run in the last bits; the
+// TPU kernel's one-hot matmul order is not reproduced either.
 
 #include <cstdint>
 
@@ -899,12 +897,4 @@ extern "C" int p2c_ball_query_grouped_backward(const int* idx, const float* dg,
                                                float* d_xyz, int b, int rows,
                                                int n, void* stream) {
   return launch_scatter<3>(idx, dg, d_xyz, b, rows, n, 3, stream);
-}
-
-// idx (b, rows) i32, dg (b, rows, w) f32 -> d_table (b, n, w) f32 with
-// w = 3 + c, which the caller has zeroed.
-extern "C" int p2c_sa_grouped_backward(const int* idx, const float* dg,
-                                       float* d_table, int b, int rows, int n,
-                                       int w, void* stream) {
-  return launch_scatter<0>(idx, dg, d_table, b, rows, n, w, stream);
 }

@@ -1,12 +1,9 @@
-// 3-NN inverse-distance interpolation and its backward for Hopper (sm_90a).
+// 3-NN inverse-distance interpolation for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of point2cyl_tpu/ops/pallas_knn.py:
-//   - _knn3_kernel (pallas_call at :205 in _interp_fwd_impl, reached
-//     through three_nn_interpolate_pallas). Entry point
-//     p2c_three_nn_interpolate.
-//   - _knn3_bwd_kernel (pallas_call at :141 in _interp_bwd_feats, the
-//     custom VJP's feature cotangent d_feats = W^T g). Entry point
-//     p2c_three_nn_backward.
+// Replaces point2cyl_tpu/ops/pallas_knn.py:_knn3_kernel (pallas_call at
+// :205 in _interp_fwd_impl, reached through three_nn_interpolate_pallas).
+// Entry point p2c_three_nn_interpolate. The backward (_knn3_bwd_kernel)
+// is p2c_three_nn_backward in target_sum.cu.
 //
 // What the forward computes: for each destination point, the 3 nearest
 // source points by exact squared distance ((dx*dx + dy*dy) + dz*dz, no
@@ -54,16 +51,6 @@
 // at FP2 on the H100 (PERF.md): the search and the writes do not yet
 // overlap.
 //
-// The backward: d_feats[b, idx[b, i, k], ch] += w[b, i, k] * g[b, i, ch].
-// It reads the forward's saved (idx, w) instead of recomputing the
-// distances as the TPU kernel does (0.8 MB at FP1, B=4, against a second
-// 4*8192*512 distance scan). It is bound by the bytes of g (16.8 MB at
-// FP1, B=4). One thread per g element, consecutive threads on consecutive
-// channels, three float atomic adds (RED) into the (b, s, c) table the
-// wrapper zeroed, which stays in L2 (1 MB at FP1). The order of the adds
-// into one address is not fixed, so sums may differ from run to run in
-// the last bits.
-
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -74,8 +61,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreads = 128;  // destination points a block, one a thread
 constexpr int kMaxSmem = 232448;  // 227 KB a block may opt into on sm_90
 constexpr int kNoIndex = 0x7fffffff;
-constexpr int kScatterThreads = 256;
-constexpr int kScatterMaxBlocks = 132 * 16;
 
 // (d2, i2) comes before (d1, i1): smaller distance, then lower index.
 __device__ __forceinline__ bool before(float d2, int i2, float d1, int i1) {
@@ -309,26 +294,6 @@ int launch_lanes(const float* dst, const float* src, const float* feats, float* 
   }
 }
 
-// out (b, s, c) += w[b, i, k] * g[b, i, :] at out[b, idx[b, i, k], :].
-__global__ void __launch_bounds__(kScatterThreads)
-knn3_backward_kernel(const float* __restrict__ g, const int* __restrict__ idx,
-                     const float* __restrict__ w, int n, int s, int c,
-                     size_t total, float* __restrict__ out) {
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const size_t row = e / c;  // b * n + i
-    const int ch = static_cast<int>(e - row * c);
-    const size_t base = (row / n) * s;
-    const float gv = g[e];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const size_t j = base + idx[row * 3 + k];
-      atomicAdd(out + j * c + ch, __fmul_rn(w[row * 3 + k], gv));
-    }
-  }
-}
-
 }  // namespace
 
 // dst (b, n, 3), src (b, s, 3), feats (b, s, c) f32 -> out (b, n, c) f32,
@@ -352,21 +317,4 @@ extern "C" int p2c_three_nn_interpolate(const float* dst, const float* src,
   }
   return launch_lanes<false>(dst, src, feats, out, nullptr, nullptr, b, n, s, c, eps,
                              lanes, stream);
-}
-
-// g (b, n, c), idx (b, n, 3) i32, w (b, n, 3) f32 -> d_feats (b, s, c) f32,
-// which the caller has zeroed.
-extern "C" int p2c_three_nn_backward(const float* g, const int* idx,
-                                     const float* w, float* d_feats, int b,
-                                     int n, int s, int c, void* stream) {
-  if (b < 1 || n < 1 || s < 1 || c < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t total = static_cast<size_t>(b) * n * c;
-  size_t blocks = (total + kScatterThreads - 1) / kScatterThreads;
-  if (blocks > kScatterMaxBlocks) blocks = kScatterMaxBlocks;
-  knn3_backward_kernel<<<static_cast<unsigned>(blocks), kScatterThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      g, idx, w, n, s, c, total, d_feats);
-  return static_cast<int>(cudaGetLastError());
 }

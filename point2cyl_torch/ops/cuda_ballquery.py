@@ -12,7 +12,8 @@ that carry gradients through them.
 
 The two fused ones are :class:`BallQueryGrouped` and
 :class:`SAGroupedExact`: the backward scatter-adds the grouped cotangent
-onto the point table (``d_xyz[b, idx] += dg``, a kernel too) and sends
+onto the point table (``d_xyz[b, idx] += dg``, a kernel too: at SA2 the
+ordered per-target sums of ``ops/cuda_scatter.py``) and sends
 ``-sum_slots dg[..., :3]`` to the centres; the indices carry no gradient.
 Under ``inference_mode`` nothing is saved and no backward launches.
 
@@ -30,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from point2cyl_torch.ops import _build
+from point2cyl_torch.ops import _build, cuda_scatter
 from point2cyl_torch.ops.grouping import (ball_query_plain, group_points,
                                           group_scatter_plain, radius_squared)
 
@@ -49,7 +50,6 @@ _ARGS_GROUPED = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
 _ARGS_FEATURES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _ARGS_SCATTER3 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_ARGS_SCATTER = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -373,17 +373,29 @@ def sa_grouped_backward_kernel(
     idx: torch.Tensor, dg: torch.Tensor, n: int
 ) -> torch.Tensor:
     """Launch the SA2 gather's backward: ``dg`` (B, S, nsample, 3 + C)
-    scatter-added onto a zeroed (B, n, 3 + C) table at ``idx``;
-    ``.launches`` counts the launches."""
-    _check_scatter("sa_grouped_backward", idx, dg, n)
+    summed onto a (B, n, 3 + C) table at ``idx``, each row's terms in
+    ascending (query, slot) order (``csrc/target_sum.cu``);
+    ``.launches`` counts the launches. ``dg``'s channels must be adjacent
+    and its (S, nsample) rows evenly spaced."""
+    name = "sa_grouped_backward"
+    if dg.dim() != 4 or dg.dtype != torch.float32:
+        raise ValueError(f"{name}: dg must be float32 (B, S, nsample, W), got "
+                         f"{dg.dtype} {tuple(dg.shape)}")
+    cuda_scatter.check_rows(f"{name}: dg", dg.data_ptr(), tuple(dg.shape), dg.stride(), 2)
+    for key, t in (("idx", idx), ("dg", dg)):
+        if t.device.type != "cuda" or t.device != dg.device:
+            raise ValueError(f"{name}: {key} must be on the same CUDA device, got {t.device}")
+    if (idx.dtype != torch.int32 or idx.dim() != 3 or not idx.is_contiguous()
+            or dg.shape[:3] != idx.shape or n < 1):
+        raise ValueError(f"{name}: idx must be contiguous int32 (B, S, nsample) over dg "
+                         f"{tuple(dg.shape)} and N >= 1, got {idx.dtype} "
+                         f"{tuple(idx.shape)} N={n}")
     b, w = idx.shape[0], dg.shape[3]
-    rows = idx.shape[1] * idx.shape[2]
-    out = torch.zeros((b, n, w), dtype=torch.float32, device=dg.device)
-    fn = _build.function("p2c_sa_grouped_backward", _ARGS_SCATTER)
-    stream = torch.cuda.current_stream(dg.device).cuda_stream
-    status = fn(idx.data_ptr(), dg.data_ptr(), out.data_ptr(), b, rows, n, w, stream)
+    entries = idx.shape[1] * idx.shape[2]
+    plan = cuda_scatter.plan_or_raise(name, b, n, entries, num_sms=_num_sms(dg.device.index))
+    out = torch.empty((b, n, w), dtype=torch.float32, device=dg.device)
+    cuda_scatter.launch_group(idx, dg, out, plan)
     sa_grouped_backward_kernel.launches += 1
-    _build.check("p2c_sa_grouped_backward", status)
     return out
 
 
@@ -444,11 +456,12 @@ class SAGroupedExact(torch.autograd.Function):
         d_xyz = d_feats = d_new_xyz = None
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
             (idx,) = ctx.saved_tensors
-            dg_c = dg.contiguous()
-            if dg_c.device.type == "cpu":
-                table = group_scatter_plain(idx, dg_c, ctx.n)
+            if dg.device.type == "cpu":
+                table = group_scatter_plain(idx, dg, ctx.n)
             else:
-                table = sa_grouped_backward_kernel(idx, dg_c, ctx.n)
+                if not cuda_scatter.rows_readable(dg, 2):
+                    dg = dg.contiguous()
+                table = sa_grouped_backward_kernel(idx, dg, ctx.n)
             d_xyz, d_feats = table[..., :3], table[..., 3:]
         if ctx.needs_input_grad[4]:
             d_new_xyz = -dg[..., :3].sum(dim=2)  # centering adjoint

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from point2cyl_torch.ops import _build
+from point2cyl_torch.ops import _build, cuda_scatter
 from point2cyl_torch.ops.grouping import (three_nn_backward_plain,
                                           three_nn_combine_plain,
                                           three_nn_interpolate_plain,
@@ -37,7 +37,6 @@ H100_SMS = 132
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-_ARGS_BACKWARD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _check_cuda(name: str, named: dict[str, torch.Tensor], dtype=torch.float32) -> None:
@@ -125,21 +124,31 @@ def three_nn_backward_kernel(
 ) -> torch.Tensor:
     """Launch the 3-NN backward: ``W^T g`` (B, S, C) from the forward's
     ``idx`` (B, N, 3) int32 and ``weight`` (B, N, 3) and the output
-    cotangent ``g`` (B, N, C); ``.launches`` counts the launches."""
-    _check_cuda("3-NN backward", {"weight": weight, "g": g})
+    cotangent ``g`` (B, N, C), each source's terms summed in ascending
+    (point, k) order (``csrc/target_sum.cu``); ``.launches`` counts the
+    launches. ``g`` may be any view whose channels are adjacent (FP2's is
+    a slice of a concatenation's gradient): the kernel reads its rows
+    through their stride."""
+    if g.dim() != 3 or g.dtype != torch.float32:
+        raise ValueError(f"3-NN backward: g must be float32 (B, N, C), got {g.dtype} "
+                         f"{tuple(g.shape)}")
+    cuda_scatter.check_rows("3-NN backward: g", g.data_ptr(), tuple(g.shape), g.stride(), 1)
+    if g.device.type != "cuda":
+        raise ValueError(f"3-NN backward: g must be on a CUDA device, got {g.device}")
+    _check_cuda("3-NN backward", {"weight": weight})
     _check_cuda("3-NN backward", {"idx": idx}, dtype=torch.int32)
     b, n, c = g.shape
     if idx.shape != (b, n, 3) or weight.shape != (b, n, 3) or s < 1:
         raise ValueError(f"3-NN backward: idx and weight must be ({b}, {n}, 3) "
                          f"and S >= 1, got {tuple(idx.shape)} "
                          f"{tuple(weight.shape)} S={s}")
-    out = torch.zeros((b, s, c), dtype=torch.float32, device=g.device)
-    fn = _build.function("p2c_three_nn_backward", _ARGS_BACKWARD)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    status = fn(g.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(),
-                b, n, s, c, stream)
+    if not idx.device == weight.device == g.device:
+        raise ValueError("3-NN backward: idx, weight and g must be on one CUDA device")
+    plan = cuda_scatter.plan_or_raise("3-NN backward", b, s, 3 * n,
+                                      num_sms=_num_sms(g.device.index))
+    out = torch.empty((b, s, c), dtype=torch.float32, device=g.device)
+    cuda_scatter.launch_three_nn(idx, weight, g, out, plan)
     three_nn_backward_kernel.launches += 1
-    _build.check("p2c_three_nn_backward", status)
     return out
 
 
@@ -174,10 +183,12 @@ class ThreeNNInterpolate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, weight = ctx.saved_tensors
-        g = g.contiguous()
         if g.device.type == "cpu":
             d_feats = three_nn_backward_plain(idx, weight, g, ctx.s)
         else:
+            # FP2's g, a slice of the concatenation's gradient, is read in place
+            if not cuda_scatter.rows_readable(g, 1):
+                g = g.contiguous()
             d_feats = three_nn_backward_kernel(idx, weight, g, ctx.s)
         return None, None, d_feats, None
 

@@ -172,6 +172,39 @@ def test_three_nn_function_matches_pallas_vjp(b, n, s, c):
     np.testing.assert_allclose(ft.grad.numpy(), np.asarray(want_xla), atol=1e-4, rtol=1e-4)
 
 
+def test_three_nn_function_cat_slice_cotangent_matches_pallas_vjp():
+    """Item 8 as FP2 runs it: the interpolated features are concatenated
+    after the destination's own, so ThreeNNInterpolate's cotangent is a
+    slice of the concatenation's gradient (not contiguous, row stride
+    C_dst + C). Its ``W^T g`` equals JAX's custom VJP (interpret mode) of
+    the same concatenation, to the tolerances of the test above, and
+    autograd of the plain version to float32 summation order."""
+    rng = np.random.default_rng(41)
+    b, n, s, c_dst, c = 2, 96, 24, 8, 12
+    src = rng.normal(size=(b, s, 3)).astype(np.float32)
+    dst = rng.normal(size=(b, n, 3)).astype(np.float32)
+    feats = rng.normal(size=(b, s, c)).astype(np.float32)
+    own = rng.normal(size=(b, n, c_dst)).astype(np.float32)
+    cot = rng.normal(size=(b, n, c_dst + c)).astype(np.float32)
+
+    def jax_loss(f):
+        out = three_nn_interpolate_pallas(jnp.asarray(dst), jnp.asarray(src), f, 1e-8, 8,
+                                          True)
+        return jnp.sum(jnp.concatenate([jnp.asarray(own), out], -1) * jnp.asarray(cot))
+
+    want = jax.grad(jax_loss)(jnp.asarray(feats))
+    seen = []
+    ft, fp = _leaf(feats), _leaf(feats)
+    out = cuda_knn.three_nn_interpolate(torch.from_numpy(dst), torch.from_numpy(src), ft)
+    out.register_hook(lambda g: seen.append(g) or g)
+    torch.cat([torch.from_numpy(own), out], -1).mul(torch.from_numpy(cot)).sum().backward()
+    plain = three_nn_interpolate_plain(torch.from_numpy(dst), torch.from_numpy(src), fp)
+    torch.cat([torch.from_numpy(own), plain], -1).mul(torch.from_numpy(cot)).sum().backward()
+    assert not seen[0].is_contiguous() and seen[0].stride(1) == c_dst + c
+    np.testing.assert_allclose(ft.grad.numpy(), np.asarray(want), atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(ft.grad, fp.grad, rtol=1e-5, atol=1e-6)
+
+
 def test_three_nn_function_matches_autograd_of_plain():
     rng = np.random.default_rng(38)
     src = torch.from_numpy(rng.normal(size=(2, 24, 3)).astype(np.float32))

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn
+from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn, cuda_scatter
 from point2cyl_torch.ops.grouping import (ball_query_plain, sample_and_group,
                                           three_nn_interpolate_plain)
 from point2cyl_torch.ops.sampling import farthest_point_sample_plain
@@ -207,6 +207,7 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch):
     assert _build._library_path(_build._hashed()) != before
     monkeypatch.undo()
     assert _build.CSRC / "ballquery_layout.cuh" in _build._hashed()
+    assert _build.CSRC / "target_sum_layout.cuh" in _build._hashed()
 
 
 @pytest.mark.skipif(shutil.which("c++") is None, reason="needs a host C++ compiler")
@@ -238,6 +239,212 @@ def test_ball_query_smem_matches_layout_header(tmp_path):
                          text=True).stdout.split()
     got = dict(zip(exprs, map(int, out)))
     assert len(out) == len(exprs) and got == exprs
+
+
+# (targets, entries a cloud) of the ordered per-target sums on the main
+# path (N=8192) and the N=512 protocol: FP1 (S sources of N points), FP2
+# (128 sources of 512 points), SA2 (512 table rows, 128 balls of 64)
+_SCATTER_SHAPES = {"fp1": (512, 3 * 8192), "fp2": (128, 3 * 512), "sa2": (512, 128 * 64),
+                   "fp1 N=512": (512, 3 * 512)}
+
+
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 64])
+def test_scatter_plan_covers_every_shape(b):
+    """Every (B, targets, entries) of the main path and the N=512
+    protocol, and every entry count up to 200,000 for 3 to 20,000
+    targets, gets a plan within 227 KB that leaves room for every entry of
+    a window in one target's list (the worst skew), with windows of at
+    most 65,536 entries (uint16 list entries) that cover the cloud and
+    CTAs that cover the targets."""
+    limit = cuda_scatter.SMEM_LIMIT
+    shapes = list(_SCATTER_SHAPES.values())
+    shapes += [(t, e) for t in (3, 128, 512, 20000) for e in range(1, 200001, 997)]
+    for targets, entries in shapes:
+        plan = cuda_scatter.scatter_plan(b, targets, entries)
+        assert plan is not None, (b, targets, entries)
+        assert plan.smem == cuda_scatter.sum_smem(plan.window, plan.targets)
+        assert plan.smem <= limit
+        assert plan.window % 4 == 0 and plan.window <= cuda_scatter.MAX_WINDOW
+        assert plan.window * plan.windows >= entries > plan.window * (plan.windows - 1)
+        assert plan.ctas * plan.targets >= targets and plan.ctas & (plan.ctas - 1) == 0
+        assert plan.ctas < 2 * -(-targets // plan.targets)
+        assert 1 <= plan.targets <= cuda_scatter.MAX_TARGETS
+        assert plan.warps == cuda_scatter.MAX_WARPS
+        if plan.windows > 1:  # one fewer window would not fit
+            wider = cuda_scatter.sum_window(entries, plan.windows - 1)
+            assert (wider > cuda_scatter.MAX_WINDOW
+                    or cuda_scatter.sum_smem(wider, plan.targets) > limit)
+
+
+def test_scatter_plan_main_shapes():
+    """About 132 CTAs or more at B=4: 16 targets a CTA at FP1 and SA2, 4 at
+    FP2, 16 warps, 32 CTAs a cloud and one window each; two windows at
+    N=16384."""
+    plan = cuda_scatter.scatter_plan
+    assert plan(4, *_SCATTER_SHAPES["fp1"])[:4] == (16, 16, 24576, 1)
+    assert plan(4, *_SCATTER_SHAPES["fp2"])[:4] == (4, 16, 1536, 1)
+    assert plan(4, *_SCATTER_SHAPES["sa2"])[:4] == (16, 16, 8192, 1)
+    assert plan(8, *_SCATTER_SHAPES["fp1 N=512"])[:2] == (32, 16)
+    assert plan(4, 1024, 3 * 16384).windows == 2
+    for shape in ("fp1", "fp2", "sa2"):
+        assert 4 * plan(4, *_SCATTER_SHAPES[shape]).ctas >= 128
+
+
+@pytest.mark.parametrize("kind", ["three_nn", "sa2"])
+def test_scatter_plan_raises_exactly_where_no_plan(kind):
+    """The wrappers' shape check reads the plan: it raises where
+    scatter_plan gives none (no batch row, more than 65,535, no target or
+    entry) and nowhere else. scatter_plan also gives none for an override
+    (``kernel_sweep.py``'s plans) out of range."""
+    for b in (0, 1, 4, 65535, 65536):
+        for targets in (0, 1, 512):
+            for entries in (0, 1, 24576, 2**31):
+                plan = cuda_scatter.scatter_plan(b, targets, entries, num_sms=100)
+                if plan is None:
+                    with pytest.raises(ValueError, match="no launch plan"):
+                        cuda_scatter.plan_or_raise(kind, b, targets, entries, num_sms=100)
+                else:
+                    assert cuda_scatter.plan_or_raise(kind, b, targets, entries,
+                                                      num_sms=100) == plan
+    for per_cta in (0, 1, 32, 33):
+        for warps in (0, 1, 16, 17):
+            plan = cuda_scatter.scatter_plan(4, 512, 24576, per_cta=per_cta, warps=warps)
+            in_range = 1 <= per_cta <= 32 and 1 <= warps <= 16
+            assert (plan is not None) == in_range, (per_cta, warps)
+
+
+@pytest.mark.skipif(shutil.which("c++") is None, reason="needs a host C++ compiler")
+def test_scatter_smem_matches_layout_header(tmp_path):
+    """The plan's shared-memory totals and windows are the kernel's own:
+    the layout header (csrc/target_sum_layout.cuh) compiled on the host
+    gives the same bytes and windows, and the same limits."""
+    cs = cuda_scatter
+    exprs = {"kSumMaxTargets": cs.MAX_TARGETS, "kSumMaxWarps": cs.MAX_WARPS,
+             "kSumMaxWindow": cs.MAX_WINDOW}
+    for entries in (1, 3, 4, 5, 1536, 2331, 8192, 24576, 49152, 65537, 200001):
+        for windows in (1, 2, 3, 7):
+            exprs[f"sum_window({entries}, {windows})"] = cs.sum_window(entries, windows)
+    for window in (4, 32, 33, 1536, 2332, 8192, 24576, 32768, 37888, 55296, 65536):
+        exprs[f"sum_bitmap_words({window})"] = cs.sum_bitmap_words(window)
+        exprs[f"sum_summary_words({window})"] = cs.sum_summary_words(window)
+        for targets in (1, 3, 4, 16, 32):
+            exprs[f"sum_smem({window}, {targets})"] = cs.sum_smem(window, targets)
+    src = tmp_path / "layout.cpp"
+    src.write_text('#include <cstdio>\n#include "target_sum_layout.cuh"\nint main() {\n'
+                   + "".join(f'  std::printf("%lld\\n", (long long)({e}));\n' for e in exprs)
+                   + "}\n")
+    subprocess.run(["c++", "-std=c++17", "-I", str(_build.CSRC), str(src), "-o",
+                    str(tmp_path / "layout")], check=True, capture_output=True)
+    out = subprocess.run([str(tmp_path / "layout")], check=True, capture_output=True,
+                         text=True).stdout.split()
+    got = dict(zip(exprs, map(int, out)))
+    assert len(out) == len(exprs) and got == exprs
+
+
+def _target_sum_model(idx: np.ndarray, rows: np.ndarray, targets: int,
+                      plan: cuda_scatter.ScatterPlan) -> np.ndarray:
+    """``csrc/target_sum.cu`` step by step in numpy: CTA k of ``plan.ctas``
+    owns targets k, k + ctas, ...; for each window, each of its targets'
+    bitmaps of the entries, its list read out of the bitmap in word and
+    bit order, and each list summed in order in float32 (a later window
+    from the row so far). Checks on the way that the CTAs cover every
+    target once and that every list ascends."""
+    b_count, entries = idx.shape
+    out = np.full((b_count, targets, rows.shape[-1]), np.nan, np.float32)
+    for b in range(b_count):
+        for k in range(plan.ctas):
+            owned = np.arange(k, targets, plan.ctas)[:plan.targets]
+            acc = np.zeros((len(owned), rows.shape[-1]), np.float32)
+            for e0 in range(0, entries, plan.window):
+                window = idx[b, e0:e0 + plan.window]
+                for lt, t in enumerate(owned):
+                    bitmap = np.zeros(-(-len(window) // 32), np.uint64)
+                    for e in np.nonzero(window == t)[0]:
+                        bitmap[e >> 5] |= np.uint64(1) << np.uint64(e & 31)
+                    listed = [32 * wd + bit for wd, word in enumerate(bitmap)
+                              for bit in range(32) if int(word) >> bit & 1]
+                    assert (np.diff(listed) > 0).all()
+                    for e in listed:
+                        acc[lt] = acc[lt] + rows[b, e0 + e]
+            assert np.isnan(out[b, owned]).all()
+            out[b, owned] = acc
+    return out
+
+
+@pytest.mark.parametrize("case", ["fp1-like", "3 targets", "windows", "padded balls"])
+def test_target_sum_order_equals_host_sum(case):
+    """The kernel's order of work, modelled in numpy, sums each target's
+    terms in ascending entry order: equal bit for bit to np.add.at (what
+    chip_smoke.py holds the kernel to on the card), at the default plan,
+    with every entry on 3 targets, over several windows and warps, and
+    with balls of one point padded to nsample."""
+    rng = np.random.default_rng(60)
+    b, targets, entries, c = 2, 96, 1500, 5
+    idx = rng.integers(0, targets, size=(b, entries))
+    plan = cuda_scatter.scatter_plan(b, targets, entries, per_cta=16, warps=4)
+    if case == "3 targets":
+        targets = 3
+        idx = rng.integers(0, 3, size=(b, entries))
+        plan = cuda_scatter.scatter_plan(b, targets, entries)
+    elif case == "windows":
+        plan = plan._replace(window=cuda_scatter.sum_window(entries, 3), windows=3)
+    elif case == "padded balls":
+        idx = np.repeat(rng.integers(0, targets, size=(b, entries // 64 + 1)), 64,
+                        axis=1)[:, :entries]
+    rows = rng.normal(size=(b, entries, c)).astype(np.float32) * np.float32(1e3) ** \
+        rng.integers(-1, 2, size=(b, entries, 1))
+    want = np.zeros((b, targets, c), np.float32)
+    for row in range(b):
+        np.add.at(want[row], idx[row], rows[row])
+    got = _target_sum_model(idx, rows, targets, plan)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["fp2 slice", "channels strided", "sa2 rows strided",
+                                  "misaligned"])
+def test_check_rows(case):
+    """The kernels read a row at ``ptr + b * batch + r * row`` with its
+    channels adjacent: FP2's cotangent, the interpolated slice of a
+    concatenation's gradient, passes with its row stride 384 and an
+    offset that keeps 16-byte rows; channels apart, SA2 rows that do not
+    merge into one stride, or a pointer off 4 bytes raise."""
+    cat = torch.zeros(2, 512, 384)
+    if case == "fp2 slice":
+        g = cat[..., 128:]
+        assert g.stride() == (512 * 384, 384, 1)
+        cuda_scatter.check_rows("g", g.data_ptr(), tuple(g.shape), g.stride(), 1)
+        assert (g.data_ptr() - cat.data_ptr()) % 16 == 0 and cuda_scatter.rows_readable(g, 1)
+        return
+    if case == "channels strided":
+        t, merge, match = cat[..., ::2], 1, "adjacent"
+    elif case == "sa2 rows strided":
+        t, merge, match = torch.zeros(2, 8, 16, 131).transpose(1, 2), 2, "merge"
+    else:
+        t, merge, match = cat, 1, "aligned"
+    ptr = t.data_ptr() + (2 if case == "misaligned" else 0)
+    with pytest.raises(ValueError, match=match):
+        cuda_scatter.check_rows("t", ptr, tuple(t.shape), t.stride(), merge)
+    assert case == "misaligned" or not cuda_scatter.rows_readable(t, merge)
+
+
+@pytest.mark.parametrize("launch", [
+    lambda: cuda_knn.three_nn_backward_kernel(
+        torch.zeros(1, 16, 3, dtype=torch.int32), torch.zeros(1, 16, 3),
+        torch.zeros(1, 16, 8)[..., ::2], 4),
+    lambda: cuda_ballquery.sa_grouped_backward_kernel(
+        torch.zeros(1, 4, 4, dtype=torch.int32), torch.zeros(1, 4, 4, 7).transpose(1, 2), 16),
+    lambda: cuda_ballquery.sa_grouped_backward_kernel(
+        torch.zeros(1, 4, 4, dtype=torch.int32), torch.zeros(1, 4, 4, 14)[..., ::2], 16),
+])
+def test_scatter_launchers_reject_bad_strides(launch, monkeypatch):
+    """Given a cotangent whose rows the kernel cannot read as they lie, a
+    launcher raises before it builds anything."""
+    def no_build(*args, **kwargs):
+        raise AssertionError("the kernel library was requested")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    with pytest.raises(ValueError, match="adjacent|merge"):
+        launch()
 
 
 def _axis_cells(p, lo, inv, dim):
