@@ -19,15 +19,17 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    training shapes: the idx-only ball query at SA1 of the N=512 protocol
    (B=8), the SA1 and SA2 gather backwards and the 3-NN backward at FP2
    and FP1 (B=4, N=8192), with cotangents from a numpy seed (FP2's the
-   slice of a concatenation's gradient that the step passes). The SA2
-   gather backward and the 3-NN backward, the ordered per-target sums,
-   are also held bit-equal to the host's ordered sum (np.add.at) and to
-   a second run, and the 3-NN backward's library time is index_add_ of
-   the w * g rows (the product inside the timed call). Then the
-   autograd Functions' card branches: SA1's gather differentiated with
-   respect to the cloud through ``BallQueryGrouped`` against autograd of
-   the plain version, and the sources and weights the 3-NN forward saves
-   for its backward against the plain version's. The FPS, grouped ball
+   slice of a concatenation's gradient that the step passes). The
+   gathers' backwards and the 3-NN backward, the ordered per-target
+   sums, are also held bit-equal to the host's ordered sum (np.add.at)
+   and to a second run, and the 3-NN backward's library time is
+   index_add_ of the w * g rows (the product inside the timed call).
+   Then the autograd Functions' card branches: SA1's gather
+   differentiated with respect to the cloud through ``BallQueryGrouped``
+   against autograd of the plain version, and its d_xyz bit-equal to the
+   host's ordered sum and to a second backward, and the sources and
+   weights the 3-NN forward saves for its backward against the plain
+   version's. The FPS, grouped ball
    query and 3-NN rows are also measured at the training shapes (B=4,
    random FPS starts). Then the corner cases of the cluster FPS (N=512
    at B=8, N=5000, N=16384, a cloud of 64 distinct points each repeated,
@@ -40,15 +42,19 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    NaN and inf coordinates and centres, nsample 63, and at SA2 C=67 and
    misaligned feats; SA1 with its plan, every query on the grid and
    every query scanning, SA2 with each store; indices and values
-   bit-equal), each against the plain version; and of the ordered sums
-   (3-NN at S=3, with duplicated sources, C=67, a misaligned g, the N=512
-   protocol's FP1 and FP2, N=16384 in two windows, N=12000 in one window
-   of 36,000 entries, and B=1; SA2 at the
-   N=512 protocol, C=67, width 128 aligned and not, a one-point ball
-   padded 64 times, a dense cluster, N=16384 and B=1), each bit-equal to
-   the host's ordered sum; an FPS
-   call with a start tensor on the card under
-   ``torch.cuda.set_sync_debug_mode("error")``; an out-of-range start,
+   bit-equal), each against the plain version; of the idx-only ball query
+   (N=33, 1000, 1024 and 1025, the last the index-order scan, N=510 with
+   4-byte loads, nsample 63, S not a multiple of a CTA's warps, NaN and
+   inf coordinates, a cloud all within the radius), indices equal to the
+   plain version; and of the ordered sums (3-NN at S=3, with duplicated
+   sources, C=67, a misaligned g, the N=512 protocol's FP1 and FP2,
+   N=16384 in two windows, N=12000 in one window of 36,000 entries, and
+   B=1; SA2 at the N=512 protocol, C=67, width 128 aligned and not, a
+   one-point ball padded 64 times, a dense cluster, N=16384 and B=1; SA1
+   with eight one-point balls padded 64 times, a dense cluster, B=1 and
+   N=16384, each in the counts listing), each bit-equal to the host's
+   ordered sum and to a second run; an FPS call with a start tensor on
+   the card under ``torch.cuda.set_sync_debug_mode("error")``; an out-of-range start,
    which must raise (an int on the host, a card tensor by the kernel's
    device-side assert, in a child process); and FPS's time a step, the
    slope of its SA1 time over npoint in {64, 128, 256, 512}.
@@ -203,6 +209,25 @@ def ordered_sum_case(kernel, inputs) -> tuple[torch.Tensor, np.ndarray]:
     return kernel(*inputs), host_ordered_sum(inputs)
 
 
+def knn_index_add_call(idx, w, g, s):
+    """One PyTorch call for the 3-NN backward's sum: index_add_ of the w * g
+    rows (the product inside the timed call) into a zeroed (B*S, C) table
+    at batch-offset source indices (made once, untimed)."""
+    b, _, c = g.shape
+    rows = (idx.long() + s * torch.arange(b, device=g.device)[:, None, None]).reshape(-1)
+    return lambda: torch.zeros((b * s, c), device=g.device).index_add_(
+        0, rows, (w[..., None] * g[:, :, None, :]).reshape(-1, c))
+
+
+def index_add_call(idx, dg, n):
+    """One PyTorch call for a gather's backward: index_add_ into a zeroed
+    (B*n, W) table at batch-offset row indices (made once, untimed)."""
+    b, w = idx.shape[0], dg.shape[-1]
+    rows = (idx.long() + n * torch.arange(b, device=dg.device)[:, None, None]).reshape(-1)
+    flat = dg.reshape(-1, w)
+    return lambda: torch.zeros((b * n, w), device=dg.device).index_add_(0, rows, flat)
+
+
 def clouds(seed: int, n: int, num_points: int) -> np.ndarray:
     pts = np.random.default_rng(seed).normal(size=(n, num_points, 3))
     return (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
@@ -251,7 +276,7 @@ def main() -> None:
 
     from point2cyl_torch.core.config import BackboneConfig, TrainConfig
     from point2cyl_torch.models.backbone import Backbone, build_backbone
-    from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn
+    from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn, cuda_scatter
     from point2cyl_torch.ops.grouping import (ball_query_plain, group_scatter_plain,
                                               index_points, radius_squared,
                                               three_nn_weights_plain)
@@ -452,30 +477,13 @@ def main() -> None:
         # per cotangent element: 3 multiplies and 3 adds
         return (idx.numel() + w.numel() + g.numel() + b * s * c) * 4, 6.0 * g.numel()
 
-    def knn_index_add_call(idx, w, g, s):
-        """One PyTorch call for the same sum: index_add_ of the w * g rows
-        (the product inside the timed call) into a zeroed (B*S, C) table at
-        batch-offset source indices (made once, untimed)."""
-        b, _, c = g.shape
-        rows = (idx.long() + s * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
-        return lambda: torch.zeros((b * s, c), device=dev).index_add_(
-            0, rows, (w[..., None] * g[:, :, None, :]).reshape(-1, c))
-
-    def index_add_call(idx, dg, n):
-        """One PyTorch call for the same scatter: index_add_ into a zeroed
-        (B*n, W) table at batch-offset row indices (made once, untimed)."""
-        b, w = idx.shape[0], dg.shape[-1]
-        rows = (idx.long() + n * torch.arange(b, device=dev)[:, None, None]).reshape(-1)
-        flat = dg.reshape(-1, w)
-        return lambda: torch.zeros((b * n, w), device=dev).index_add_(0, rows, flat)
-
     n1 = cfg.num_points
     train_cases = [
         ("ball_query@sa1_n512", "point2cyl_torch/csrc/ballquery.cu",
          "point2cyl_tpu/ops/pallas_ballquery.py:213 _ballquery_kernel",
          cuda_ballquery.ball_query_kernel, ball_query_plain,
          (r1, ns1, p512, c512), None, None),
-        ("ball_query_grouped_backward@sa1", "point2cyl_torch/csrc/ballquery.cu",
+        ("ball_query_grouped_backward@sa1", "point2cyl_torch/csrc/target_sum.cu",
          "point2cyl_tpu/ops/pallas_ballquery.py:675 _bqg_scatter_kernel",
          cuda_ballquery.ball_query_grouped_backward_kernel, group_scatter_plain,
          (idx_sa1, dg_sa1, n1), scatter_work(idx_sa1, dg_sa1, n1),
@@ -511,7 +519,8 @@ def main() -> None:
                 torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                            msg=lambda m: f"{name}: {m}")
                 err = float((got - want).abs().max())
-            if kernel in (cuda_ballquery.sa_grouped_backward_kernel,
+            if kernel in (cuda_ballquery.ball_query_grouped_backward_kernel,
+                          cuda_ballquery.sa_grouped_backward_kernel,
                           cuda_knn.three_nn_backward_kernel):
                 # the ordered sums: bit-equal to the host's ordered sum and
                 # to a second run
@@ -537,8 +546,9 @@ def main() -> None:
 
     # the Functions' card branches: SA1's gather differentiated with respect
     # to the cloud and the centres goes through BallQueryGrouped.backward
-    # (item 4), held against autograd of the plain version; tolerance as
-    # for the scatters above
+    # (item 4), held against autograd of the plain version (tolerance as
+    # for the scatters above), and its d_xyz, an ordered sum, bit-equal to
+    # the host's and to a second backward
     xk, ck = pts4.clone().requires_grad_(), l1_4.clone().requires_grad_()
     xp, cp = pts4.clone().requires_grad_(), l1_4.clone().requires_grad_()
     before = cuda_ballquery.ball_query_grouped_backward_kernel.launches
@@ -550,6 +560,12 @@ def main() -> None:
     for what, got, want in (("d_xyz", xk.grad, xp.grad), ("d_new_xyz", ck.grad, cp.grad)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"BallQueryGrouped {what}: {m}")
+    xk2 = pts4.clone().requires_grad_()
+    cuda_ballquery.ball_query_grouped(r1, ns1, xk2, l1_4)[1].backward(dg_sa1)
+    check(same_bits(xk.grad, torch.from_numpy(host_ordered_sum(
+        (idx_sa1, dg_sa1, n1))).to(dev)), "BallQueryGrouped d_xyz differs from the "
+          "host's ordered sum")
+    check(same_bits(xk.grad, xk2.grad), "BallQueryGrouped d_xyz: two backwards differ")
     # the sources and weights the 3-NN forward saves for its backward
     # (kSave), held against the plain version's; tolerance as for the
     # forward
@@ -568,7 +584,7 @@ def main() -> None:
     print(json.dumps({"check": "Functions on the card", "ball_query_grouped_d_xyz_err":
                       float((xk.grad - xp.grad).abs().max()),
                       "three_nn_saved_weights_err": saved_err}), flush=True)
-    del l2_f, g_xyz, g_f, f3, f2, train_cases, xk, ck, xp, cp
+    del l2_f, g_xyz, g_f, f3, f2, train_cases, xk, ck, xp, cp, xk2
 
     # ---- 2b. the corner cases of the cluster FPS and the thread-per-point
     # 3-NN, each held against the plain version on the card -------------------
@@ -740,7 +756,46 @@ def main() -> None:
     check(bq_routes["ball_query_grouped_kernel N=16384 B=2 (SA1's scan route)"] == "scan"
           and bq_routes["ball_query_grouped_kernel main shape B=16"] == "grid",
           f"SA1 routes {bq_routes}")
+
+    # the idx-only ball query (item 2): indices equal to the plain version,
+    # its ballots up to N=1024, the index-order scan above
+    def idx_case(seed, b, n, s, radius, ns=ns1):
+        xyz = on_card(clouds(seed, b, n))
+        return radius, ns, xyz, some_centres(xyz, s)
+
+    nan_xyz = clouds(61, 4, 512)
+    nan_xyz[0, 5, 1], nan_xyz[1, 9, 2], nan_xyz[2, 11, 0] = np.nan, np.inf, -np.inf
+    nan_xyz = on_card(nan_xyz)
+    nan_centres = some_centres(nan_xyz, 512)
+    nan_centres[0, 0], nan_centres[1, 0] = nan_xyz[0, 5], nan_xyz[1, 9]
+    tight = on_card(0.01 * clouds(62, 2, 1000))  # every point within r of every other
+    idx_cases = [
+        ("N=33 B=3 (one block, lanes past N), S=33, nsample 16",
+         idx_case(63, 3, 33, 33, 0.6, 16)),
+        ("N=1000 B=4 (a ragged last block), S=500", idx_case(64, 4, 1000, 500, r1)),
+        ("N=1024 B=4 (8 blocks), S=512", idx_case(65, 4, 1024, 512, r1)),
+        ("N=1025 B=4 (the index-order scan)", idx_case(66, 4, 1025, 512, r1)),
+        ("nsample 63 (4-byte stores), N=512 B=8", (r1, 63, p512, c512)),
+        ("S=300, not a multiple of a CTA's warps", (r1, ns1, p512, c512[:, :300].contiguous())),
+        ("NaN and inf coordinates, centres among them", (r1, ns1, nan_xyz, nan_centres)),
+        ("a cloud all within the radius, N=1000", (r1, ns1, tight, some_centres(tight, 256))),
+        ("N=510 (4-byte loads), B=8", (r1, ns1, p512[:, :510].contiguous(), c512)),
+    ]
+    idx_routes = {}
+    with torch.inference_mode():
+        for label, inputs in idx_cases:
+            got = cuda_ballquery.ball_query_kernel(*inputs)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ball_query_plain(*inputs)),
+                  f"ball_query_kernel {label}: indices differ from plain")
+            b, n = inputs[2].shape[:2]
+            idx_routes[label] = cuda_ballquery.ball_query_plan(
+                b, n, inputs[3].shape[1], inputs[1], gather=False).select
+    check(idx_routes["N=1025 B=4 (the index-order scan)"] == "scan"
+          and idx_routes["N=1024 B=4 (8 blocks), S=512"] == "ballot",
+          f"idx-only routes {idx_routes}")
     del l1_xyz, l1_f, l2_xyz, geometry, sa1_cases, sa2_cases, bad_xyz, bad_centres
+    del idx_cases, nan_xyz, nan_centres, tight
 
     # the ordered per-target sums (items 8 and 6): each case bit-equal to
     # the host's ordered sum (np.add.at) at the wrapper's plan
@@ -764,6 +819,11 @@ def main() -> None:
         dg = snormal(*idx.shape, 3 + c) if dg is None else dg
         return cuda_ballquery.sa_grouped_backward_kernel, (idx, dg, xyz.shape[1])
 
+    def sa1_case(xyz, centres):
+        idx = ball_query_plain(r1, ns1, xyz, centres).contiguous()
+        return cuda_ballquery.ball_query_grouped_backward_kernel, (
+            idx, snormal(*idx.shape, 3), xyz.shape[1])
+
     with torch.inference_mode():
         s3_dst, s3_src, _ = knn_inputs(4, 777, 3, 32, 43)
         c67_dst, c67_src, _ = knn_inputs(4, 1000, 130, 67, 42)
@@ -774,6 +834,12 @@ def main() -> None:
         dense512[:, :256] = np.array([1.0, 0.0, 0.0], np.float32) + 0.05 * clouds(58, TB, 256)
         dense512 = on_card(dense512)
         big = on_card(clouds(59, 2, 16384))
+        # eight isolated points, each its own ball's centre: balls of one
+        # point, padded 64 times onto it
+        lone1_xyz, lone1_centres = pts4.clone(), l1_4.clone()
+        far = 5.0 + torch.arange(8, device=dev, dtype=torch.float32)[:, None]
+        lone1_xyz[:, :8] = lone1_centres[:, :8] = far
+        dense1 = on_card(dense)
         scatter_cases = [
             ("3-NN S=3", nn_case(s3_dst, s3_src, 32)),
             ("3-NN duplicated sources", nn_case(dup_dst, dup_src, 64)),
@@ -799,14 +865,27 @@ def main() -> None:
              ball_case(r2, dense512, some_centres(dense512, 128), 128)),
             ("SA2 N=16384 B=2", ball_case(r1, big, some_centres(big, 512), 128)),
             ("SA2 B=1", ball_case(r2, l1_4[:1], l2_4[:1], 128)),
+            ("SA1 eight one-point balls padded 64 times", sa1_case(lone1_xyz, lone1_centres)),
+            ("SA1 dense cluster: 4096 points within r of one another",
+             sa1_case(dense1, some_centres(dense1, 512))),
+            ("SA1 B=1", sa1_case(pts4[:1], l1_4[:1])),
+            ("SA1 N=16384 B=2", sa1_case(big, some_centres(big, 512))),
         ]
         for label, (kernel, inputs) in scatter_cases:
             got, host = ordered_sum_case(kernel, inputs)
             torch.cuda.synchronize()
             check(same_bits(got, torch.from_numpy(host).to(dev)),
                   f"{kernel.__name__} {label}: differs from the host's ordered sum")
-        lone = dict(scatter_cases)["SA2 a one-point ball padded 64 times"][1][0]
-        check(bool((lone[:, 0] == lone[:, 0, :1]).all()), "the one-point ball is not padded")
+            check(same_bits(got, kernel(*inputs)), f"{kernel.__name__} {label}: two runs differ")
+        for label, (kernel, inputs) in scatter_cases:
+            if label.startswith("SA1"):
+                plan = cuda_scatter.scatter_plan(inputs[0].shape[0], inputs[-1],
+                                                 inputs[0][0].numel(), group_width=3)
+                check(plan.listing == "counts", f"{label}: not the counts listing")
+        for label in ("SA2 a one-point ball padded 64 times",
+                      "SA1 eight one-point balls padded 64 times"):
+            lone = dict(scatter_cases)[label][1][0]
+            check(bool((lone[:, 0] == lone[:, 0, :1]).all()), f"{label}: not padded")
 
     # no host sync in an FPS call with a start tensor on the card (the
     # train step's), and an out-of-range start is an error, never an index:
@@ -856,6 +935,7 @@ def main() -> None:
                       "three_nn_max_abs_err": knn_err,
                       "ball_query_cases_checked": bq_checked,
                       "ball_query_routes": bq_routes,
+                      "idx_only_routes": idx_routes,
                       "scatter_cases": [label for label, _ in scatter_cases],
                       "fps_sync_free": True,
                       "fps_bad_start_on_card": child.stdout.strip()}), flush=True)

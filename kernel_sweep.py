@@ -2,14 +2,20 @@
 
     python3 kernel_sweep.py
 
-The 3-NN backward and the SA2 gather backward (items 8 and 6), at the
-train step's shapes (B=4: FP1, FP2 with its cotangent a slice of a
-concatenation's gradient, SA2): every plan of targets a CTA in {2, 4, 8,
-16, 32} x warps a CTA in {4, 8, 16}, each output bit-equal to the host's
-ordered sum, with the list build alone beside it. ``--scatter`` stops
-after them; ``--split`` times instead each kernel ended after its marks
-and after its lists beside the whole kernel, then the ball queries'
-split below (``--split --scatter``: the scatters' alone).
+The ordered per-target sums: the 3-NN backward and the SA2 gather
+backward (items 8 and 6) at the train step's shapes (B=4: FP1, FP2 with
+its cotangent a slice of a concatenation's gradient, SA2) and the SA1
+gather backward (item 4) at the saliency backward's (B=4, 512 balls of 64
+among 8192 points, 3 wide): the wrapper, and at SA1 also the bitmap
+listing at its own plan and ``index_add_``; then every plan of targets a
+CTA in {2, 4, 8, 16, 32} (bitmaps) or {64, 128, 256, 512, 1024} (counts,
+SA1 only) x warps a CTA in {4, 8, 16}, and the chosen counts plan in 2
+and 4 windows, each output bit-equal to the host's ordered sum, with the
+list build alone beside it. ``--scatter`` stops after them; ``--split``
+times instead each kernel ended after its marks or staging and after its
+lists beside the whole kernel, and at SA1 the counts listing's phases in
+SM cycles from each CTA's clocks; then the ball queries' split below
+(``--split --scatter``: the scatters' alone).
 
 Grouped ball queries, at SA1 (N=8192 -> 512, r=0.2, nsample 64) and SA2
 (512 -> 128, r=0.4, nsample 64, C=128) at B=16, 4 and 1 (the serving
@@ -19,8 +25,13 @@ an SM, or at B=1 8 to 132, warps a CTA in {4, 8, 16, 32}, list cap in
 {256, 1024, 4096}) and the grid's build alone (one query a row, N in {64,
 1024, 8192}); SA2 over its stores (the bulk copy, 4-byte stores), warps a
 CTA in {8, 16, 32} and CTAs a row at 1-4 an SM (at B=1 8 to 128). The
-plan the wrapper picks is marked with a star. ``--ball-query`` stops after them; ``--split`` times instead
-each kernel beside its selection alone and a fill of its outputs.
+idx-only ball query at SA1 of the N=512 protocol (B=8, 512 -> 512, r=0.2,
+nsample 64): its ballots at 8, 16 and 32 warps a CTA and the index-order
+scan, each equal to the plain version. The plan the wrapper picks is
+marked with a star. ``--ball-query`` stops after them; ``--split`` times
+instead each grouped kernel beside its selection alone and a fill of its
+outputs, and the idx-only kernel ended after its ballots and after its
+placing beside the whole kernel and a fill of its output.
 
 FPS: every plan (cluster CTAs per cloud in {1, 2, 4, 8, 16}) x (threads
 per CTA in {128, 256, 512}) at the shapes the main path gives the
@@ -49,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import sys
 
@@ -104,6 +116,7 @@ def split_ball_query(dev: torch.device, rng: np.random.Generator) -> None:
     selection) and, at SA1, the grid kernel without its gather (where the
     port has it). Every output is checked equal to the plain version's."""
     from point2cyl_torch.ops import cuda_ballquery
+    from point2cyl_torch.ops.grouping import ball_query_plain
 
     with torch.inference_mode():
         for b in (16, 4):
@@ -117,13 +130,16 @@ def split_ball_query(dev: torch.device, rng: np.random.Generator) -> None:
                 radius, ns, xyz, new_xyz = args[0], args[1], args[2], args[-1]
                 idx, grouped = kernel(*args)
                 want = plain(*args)
-                scan_idx = cuda_ballquery.ball_query_kernel(radius, ns, xyz, new_xyz)
+                # the index-order scan of the idx-only kernel: SA2's selection
+                scan = cuda_ballquery.ball_query_plan(b, xyz.shape[1], new_xyz.shape[1], ns,
+                                                      gather=False, select="scan")
+                scan_idx = cuda_ballquery.ball_query_kernel(radius, ns, xyz, new_xyz, scan)
                 if not (torch.equal(idx, want[0]) and torch.equal(grouped, want[1])
                         and torch.equal(scan_idx, want[0])):
                     sys.exit(f"kernel_sweep: {stage} B={b} differs from plain")
                 row = {"split": f"{stage} B={b}",
                        "scan_select_ms": time_ms(lambda: cuda_ballquery.ball_query_kernel(
-                           radius, ns, xyz, new_xyz))}
+                           radius, ns, xyz, new_xyz, scan))}
                 if stage == "sa1" and hasattr(cuda_ballquery, "ball_query_plan"):
                     if not torch.equal(grid_select(*args), want[0]):
                         sys.exit(f"kernel_sweep: {stage} B={b} grid selection differs")
@@ -132,6 +148,56 @@ def split_ball_query(dev: torch.device, rng: np.random.Generator) -> None:
                            fill_outputs_ms=time_ms(lambda: (idx.fill_(0), grouped.fill_(0.0))),
                            grouped_mb=grouped.numel() * 4 / 1e6)
                 print(json.dumps(row), flush=True)
+        # the idx-only kernel at the N=512 protocol: ended after its ballots,
+        # after its placing, whole, and a fill of its output
+        radius, ns, xyz, new_xyz = n512_inputs(dev)
+        idx = cuda_ballquery.ball_query_kernel(radius, ns, xyz, new_xyz)
+        if not torch.equal(idx, ball_query_plain(radius, ns, xyz, new_xyz)):
+            sys.exit("kernel_sweep: idx-only N=512 differs from plain")
+        row = {"split": "idx-only N=512 B=8",
+               "plan": cuda_ballquery.ball_query_plan(8, 512, 512, ns, gather=False)._asdict()}
+        for stop, phase in ((1, "ballots_ms"), (2, "placed_ms")):
+            row[phase] = time_ms(lambda: ballot_probe(stop, radius, ns, xyz, new_xyz))
+        row.update(whole_ms=time_ms(lambda: cuda_ballquery.ball_query_kernel(
+            radius, ns, xyz, new_xyz)), fill_output_ms=time_ms(lambda: idx.fill_(0)))
+        print(json.dumps(row), flush=True)
+
+
+def n512_inputs(dev: torch.device) -> tuple:
+    """SA1 of the N=512 protocol: 8 clouds of 512 points, their 512 FPS
+    centres, r=0.2, nsample 64 (the idx-only ball query's inputs)."""
+    from point2cyl_torch.ops import cuda_fps
+    from point2cyl_torch.ops.grouping import index_points
+
+    xyz = torch.from_numpy(clouds(2, 8, 512)).to(dev)
+    with torch.inference_mode():
+        centres = index_points(xyz, cuda_fps.farthest_point_sample_plain(xyz, 512))
+    return 0.2, 64, xyz, centres.contiguous()
+
+
+# p2c_ball_query_probe (csrc/ballquery.cu): stop; xyz, new_xyz, idx; b, n,
+# s, ns; r2; ctas, warps; stream
+BALLOT_PROBE_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def ballot_probe(stop: int, radius: float, ns: int, xyz: torch.Tensor,
+                 new_xyz: torch.Tensor) -> None:
+    """The idx-only ballot kernel at the wrapper's plan, ended after its
+    ballots (stop 1) or its placing (stop 2), through the measurement-only
+    entry point."""
+    from point2cyl_torch.ops import _build, cuda_ballquery
+    from point2cyl_torch.ops.grouping import radius_squared
+
+    b, n, _ = xyz.shape
+    s = new_xyz.shape[1]
+    plan = cuda_ballquery.ball_query_plan(b, n, s, ns, gather=False)
+    idx = torch.empty((b, s, ns), dtype=torch.int32, device=xyz.device)
+    fn = _build.function("p2c_ball_query_probe", BALLOT_PROBE_ARGS)
+    status = fn(stop, xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), b, n, s, ns,
+                radius_squared(radius), plan.ctas, plan.warps,
+                torch.cuda.current_stream(xyz.device).cuda_stream)
+    _build.check("p2c_ball_query_probe", status)
 
 
 def scatter_inputs(dev: torch.device, rng: np.random.Generator, b: int = 4) -> list:
@@ -139,9 +205,10 @@ def scatter_inputs(dev: torch.device, rng: np.random.Generator, b: int = 4) -> l
     3 sources among 512, g (B, 8192, 128)), FP2 (512 points among 128, g
     (B, 512, 256), the slice of a (B, 512, 384) gradient that the step
     passes) and SA2 (128 balls of 64 among 512 points, dg (B, 128, 64,
-    131)); sources and balls from the plain versions on FPS centres,
-    cotangents from a numpy seed. Each entry: label, kind, arguments of
-    the wrapper."""
+    131)); item 4 at the saliency backward's, SA1 (512 balls of 64 among
+    8192 points, dg (B, 512, 64, 3)); sources and balls from the plain
+    versions on FPS centres, cotangents from a numpy seed. Each entry:
+    label, kind, arguments of the wrapper."""
     from point2cyl_torch.ops import cuda_ballquery
     from point2cyl_torch.ops.grouping import three_nn_weights_plain
 
@@ -157,30 +224,36 @@ def scatter_inputs(dev: torch.device, rng: np.random.Generator, b: int = 4) -> l
         return idx.to(torch.int32).contiguous(), w.contiguous()
 
     with torch.inference_mode():
+        idx_sa1 = cuda_ballquery.ball_query_grouped_plain(*inputs["sa1"])[0]
         idx_sa2 = cuda_ballquery.sa_grouped_exact_plain(*inputs["sa2"])[0]
         return [
             ("fp1", "three_nn", (*sources(pts, l1), normal(b, 8192, 128), 512)),
             ("fp2", "three_nn", (*sources(l1, l2), normal(b, 512, 384)[..., 128:], 128)),
             ("sa2", "group", (idx_sa2, normal(b, 128, 64, 131), 512)),
+            ("sa1", "group", (idx_sa1, normal(b, 512, 64, 3), 8192)),
         ]
 
 
 def split_scatter(dev: torch.device, rng: np.random.Generator) -> None:
-    """Items 8 and 6 at the train step's shapes (B=4): the kernel ended
-    after each phase (the bitmaps and counts, the lists) beside the whole
-    kernel, with the longest and the mean list, and the whole kernel on
-    targets drawn uniformly (the skew's cost); the whole kernel is checked
-    bit-equal to the host's ordered sum."""
+    """Items 8, 6 and 4 at their shapes (B=4): the kernel ended after each
+    phase (the marks or staging, the lists) beside the whole kernel, and
+    for the counts listing its phases from the CTAs' clocks, with the
+    longest and the mean list, and the whole kernel on targets drawn
+    uniformly (the skew's cost); the whole kernel is checked bit-equal to
+    the host's ordered sum."""
     from chip_smoke import same_bits
 
     with torch.inference_mode():
         for label, kind, args in scatter_inputs(dev, rng):
             if not same_bits(ordered_sum(kind, args), scatter_want(args)):
                 sys.exit(f"kernel_sweep: the ordered sum at {label} differs from the host's")
-            row = {"split": f"{label} B={args[0].shape[0]}"}
+            row = {"split": f"{label} B={args[0].shape[0]}",
+                   "listing": scatter_plan_of(args).listing}
             for stop, phase in ((1, "marked_ms"), (2, "listed_ms")):
                 row[phase] = time_ms(lambda: ordered_sum(kind, args, stop=stop))
             row["whole_ms"] = time_ms(lambda: ordered_sum(kind, args))
+            if row["listing"] == "counts":
+                row.update(phase_clocks(kind, args))
             sizes = torch.stack([torch.bincount(r.reshape(-1).long(), minlength=args[-1])
                                  for r in args[0]])
             row.update(longest_list=int(sizes.max()), mean_list=float(sizes.float().mean()))
@@ -191,17 +264,52 @@ def split_scatter(dev: torch.device, rng: np.random.Generator) -> None:
             print(json.dumps(row), flush=True)
 
 
+def phase_clocks(kind: str, args: tuple) -> dict:
+    """The counts listing's phases from each CTA's clocks (median over 25
+    runs of the median and the largest over the CTAs, in SM cycles): from
+    its start to the end of the counts' zeroing, the staging, the scan and
+    placing, and the sorts with the sums (a thread or a warp a target sums
+    the list it sorted); the kernel's span and the spread of the CTAs'
+    starts on the global timer (ns)."""
+    runs = [ordered_sum(kind, args, stop=3).cpu().numpy() for _ in range(25)]
+    names = ("zeroing", "staging", "scan_and_placing", "sorts_and_sums")
+    out = {}
+    for i, name in enumerate(names):
+        spans = np.stack([r[:, i + 1] - r[:, i] for r in runs])
+        out[f"{name}_cycles"] = float(np.median(np.median(spans, 1)))
+        out[f"{name}_cycles_max"] = float(np.median(spans.max(1)))
+    out["span_ns"] = float(np.median([r[:, 6].max() - r[:, 5].min() for r in runs]))
+    out["start_spread_ns"] = float(np.median([r[:, 5].max() - r[:, 5].min() for r in runs]))
+    return out
+
+
 # p2c_target_sum_probe (csrc/target_sum.cu): three_nn, stop; idx, w, g;
-# g_batch, g_row; out; b, targets, entries, c, per_cta, warps, window; stream
+# g_batch, g_row; out; b, targets, entries, c, per_cta, warps, window,
+# listing; stream
 PROBE_ARGS = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2
-              + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+              + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+
+def scatter_plan_of(args: tuple, **override):
+    """The wrapper's plan for an ordered sum's wrapper arguments (B,
+    targets and entries a cloud from idx and the target count; for a
+    gather's backward its rows' width, where the port's plan takes it), or
+    with ``override``."""
+    from point2cyl_torch.ops import cuda_scatter
+
+    if len(args) == 3 and hasattr(cuda_scatter, "LISTINGS"):
+        override = {"group_width": args[1].shape[-1], **override}
+    return cuda_scatter.scatter_plan(args[0].shape[0], args[-1], args[0][0].numel(),
+                                     **override)
 
 
 def ordered_sum(kind: str, args: tuple, plan=None, stop: int = 0) -> torch.Tensor:
     """The ordered per-target sum of the wrapper's arguments ``args`` at the
     wrapper's plan (or ``plan``); ``stop`` 1 or 2 launches instead the
-    measurement entry point, which ends the kernel after the bitmaps or
-    the lists and writes no output, to time the phases."""
+    measurement entry point, which ends the kernel after the marks or
+    staging or after the lists and writes no output, to time the phases;
+    ``stop`` 3 (counts listing) runs it whole and returns each CTA's 8
+    clocks (``p2c_target_sum_probe``)."""
     from point2cyl_torch.ops import _build, cuda_scatter
 
     if kind == "three_nn":
@@ -212,16 +320,21 @@ def ordered_sum(kind: str, args: tuple, plan=None, stop: int = 0) -> torch.Tenso
         idx, g, targets = args
         w, (b, *_, c) = None, g.shape
         entries, row = idx.shape[1] * idx.shape[2], g.stride(2)
-    plan = plan or cuda_scatter.scatter_plan(b, targets, entries)
-    out = torch.empty((b, targets, c), device=g.device)
+    plan = plan or scatter_plan_of(args)
+    # stop 3: room past the output for each CTA's 8 clocks (8-byte aligned)
+    room = 16 * b * plan.ctas if stop == 3 else 0
+    out = torch.empty(((b * targets * c + 1) // 2 * 2 + room,), device=g.device)
     if stop:
         fn = _build.function("p2c_target_sum_probe", PROBE_ARGS)
         status = fn(int(kind == "three_nn"), stop, idx.data_ptr(),
                     w.data_ptr() if w is not None else None, g.data_ptr(), g.stride(0), row,
                     out.data_ptr(), b, targets, entries, c, plan.targets, plan.warps,
-                    plan.window, torch.cuda.current_stream(g.device).cuda_stream)
+                    plan.window, cuda_scatter.LISTINGS.index(plan.listing),
+                    torch.cuda.current_stream(g.device).cuda_stream)
         _build.check("p2c_target_sum_probe", status)
-    elif kind == "three_nn":
+        return out[-room:].view(torch.int64).view(b * plan.ctas, 8) if stop == 3 else out
+    out = out[:b * targets * c].view(b, targets, c)
+    if kind == "three_nn":
         cuda_scatter.launch_three_nn(idx, w, g, out, plan)
     else:
         cuda_scatter.launch_group(idx, g, out, plan)
@@ -236,21 +349,26 @@ def scatter_want(args: tuple) -> torch.Tensor:
 
 
 def sweep_scatter(dev: torch.device, rng: np.random.Generator, default_only: bool) -> None:
-    """Items 8 and 6 at the train step's shapes (B=4): the wrappers' own
-    plans or (full sweep) every plan of targets a CTA in {2, 4, 8, 16, 32}
-    x warps a CTA in {4, 8, 16}, each checked against the host's ordered sum
-    (bit for bit where the port has the ordered sums, else within 1e-4 of
-    the plain version). FP2 also with g contiguous; an older port, whose
-    kernel takes only a contiguous g, is timed with the copy the step made
-    for it."""
-    from chip_smoke import same_bits
-    from point2cyl_torch.ops import cuda_ballquery, cuda_knn
+    """Items 8, 6 and 4 at their shapes (B=4): the wrappers' own plans and,
+    at SA1, the bitmap listing's own plan through the same launch and
+    ``index_add_``; or (full sweep) every plan of targets a CTA x warps a
+    CTA of each listing the shape takes, each checked against the host's
+    ordered sum (bit for bit where the port has the ordered sums, else
+    within 1e-4 of the plain version). FP2 also with g contiguous; an
+    older port, whose kernel takes only a contiguous g, is timed with the
+    copy the step made for it."""
+    from chip_smoke import index_add_call, same_bits
+    from point2cyl_torch.ops import cuda_ballquery, cuda_knn, cuda_scatter
 
     ordered = hasattr(cuda_knn, "cuda_scatter")
+    # a port with the counts listing sums SA1's gather backward in order too
+    counts = hasattr(cuda_scatter, "LISTINGS")
     with torch.inference_mode():
         for label, kind, args in scatter_inputs(dev, rng):
             wrapper = (cuda_knn.three_nn_backward_kernel if kind == "three_nn"
+                       else cuda_ballquery.ball_query_grouped_backward_kernel if label == "sa1"
                        else cuda_ballquery.sa_grouped_backward_kernel)
+            exact = counts if label == "sa1" else ordered
             want = scatter_want(args)
             variants = [("", args)]
             if not args[2 if kind == "three_nn" else 1].is_contiguous():
@@ -264,28 +382,45 @@ def sweep_scatter(dev: torch.device, rng: np.random.Generator, default_only: boo
                 g = a[2].contiguous()  # the copy the step made for the atomic design
                 return wrapper(a[0], a[1], g, a[3])
 
-            for suffix, a in variants:
-                got = call(a)
+            def report(name, plan, fn):
+                got = fn()
                 torch.cuda.synchronize()
-                row = {"scatter": f"{label} B=4{suffix}", "plan": "default",
-                       "host_equal": same_bits(got, want),
-                       "max_abs_err": float((got - want).abs().max()),
-                       "ms": time_ms(lambda: call(a))}
+                row = {"scatter": name, "plan": plan, "host_equal": same_bits(got, want),
+                       "max_abs_err": float((got - want).abs().max()), "ms": time_ms(fn)}
                 print(json.dumps(row), flush=True)
-                if ordered and not row["host_equal"] or row["max_abs_err"] > 1e-4:
+                return row
+
+            for suffix, a in variants:
+                row = report(f"{label} B=4{suffix}", "default", lambda: call(a))
+                if exact and not row["host_equal"] or row["max_abs_err"] > 1e-4:
                     sys.exit(f"kernel_sweep: scatter {label} differs from the host sum")
+            if label == "sa1":
+                # the bitmap listing at its own plan, and one PyTorch call
+                bitmaps = scatter_plan_of(args, **({"listing": "bitmaps"} if counts else {}))
+                row = report("sa1 B=4 bitmaps", bitmaps._asdict(),
+                             lambda: ordered_sum(kind, args, bitmaps))
+                if not row["host_equal"]:
+                    sys.exit("kernel_sweep: scatter sa1 bitmaps differs from the host sum")
+                library = index_add_call(*args)
+                row = report("sa1 B=4 index_add_", None,
+                             lambda: library().reshape(want.shape))
+                if row["max_abs_err"] > 1e-4:
+                    sys.exit("kernel_sweep: index_add_ at sa1 differs from the host sum")
             if default_only:
                 continue
-            from point2cyl_torch.ops import cuda_scatter
-
-            b = args[0].shape[0]
-            targets = args[-1]
-            entries = args[0][0].numel()
-            chosen = cuda_scatter.scatter_plan(b, targets, entries)
-            for per_cta in (2, 4, 8, 16, 32):
-                for warps in (4, 8, 16):
-                    plan = cuda_scatter.scatter_plan(b, targets, entries, per_cta=per_cta,
-                                                     warps=warps)
+            chosen = scatter_plan_of(args)
+            listings = ("bitmaps", "counts") if label == "sa1" else ("bitmaps",)
+            for listing in listings:
+                sizes = (64, 128, 256, 512, 1024) if listing == "counts" else (2, 4, 8, 16, 32)
+                plans = [scatter_plan_of(args, per_cta=per_cta, warps=warps, listing=listing)
+                         for per_cta, warps in itertools.product(sizes, (4, 8, 16))]
+                if listing == "counts":  # the chosen plan in 2 and 4 windows
+                    entries = args[0][0].numel()
+                    plans += [chosen._replace(window=cuda_scatter.sum_window(entries, k),
+                                              windows=k, smem=cuda_scatter.list_smem(
+                                                  cuda_scatter.sum_window(entries, k),
+                                                  chosen.targets)) for k in (2, 4)]
+                for plan in plans:
                     got = ordered_sum(kind, args, plan)
                     torch.cuda.synchronize()
                     row = {"scatter": f"{label} B=4" + (" *" if plan == chosen else ""),
@@ -298,17 +433,20 @@ def sweep_scatter(dev: torch.device, rng: np.random.Generator, default_only: boo
 
 
 def sweep_ball_query(dev: torch.device, rng: np.random.Generator, default_only: bool) -> None:
-    """The SA1 and SA2 grouped ball queries at B=16, 4 and 1: the wrappers'
-    own plans, or (full sweep) every plan below, each checked equal to the
-    plain version. SA1 also with one query a row, which leaves each CTA's
-    grid build and little else."""
+    """The idx-only ball query at the N=512 protocol, then the SA1 and SA2
+    grouped ball queries at B=16, 4 and 1: the wrappers' own plans, or
+    (full sweep) every plan below, each checked equal to the plain
+    version. SA1 also with one query a row, which leaves each CTA's grid
+    build and little else."""
     from point2cyl_torch.ops import cuda_ballquery
+    from point2cyl_torch.ops.grouping import ball_query_plain
 
     def run(label, kernel, want, args, plan=None):
         extra = {} if plan is None else {"plan": plan}
         got = kernel(*args, **extra)
         torch.cuda.synchronize()
-        equal = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        equal = bool(torch.equal(got[0], want[0]) and (want[1] is None
+                                                        or torch.equal(got[1], want[1])))
         row = {"ball_query": label, "plan": "default" if plan is None else plan._asdict(),
                "equal": equal, "ms": time_ms(lambda: kernel(*args, **extra))}
         print(json.dumps(row), flush=True)
@@ -318,6 +456,23 @@ def sweep_ball_query(dev: torch.device, rng: np.random.Generator, default_only: 
     sa1_kernel = cuda_ballquery.ball_query_grouped_kernel
     sa2_kernel = cuda_ballquery.sa_grouped_exact_kernel
     with torch.inference_mode():
+        # the idx-only kernel at the N=512 protocol (its indices alone)
+        radius, ns, xyz, new_xyz = n512_inputs(dev)
+        want = ball_query_plain(radius, ns, xyz, new_xyz)
+
+        def idx_only(*args, plan=None):
+            extra = {} if plan is None else {"plan": plan}
+            return (cuda_ballquery.ball_query_kernel(*args, **extra), None)
+
+        args = (radius, ns, xyz, new_xyz)
+        run("idx-only N=512 B=8", idx_only, (want, None), args)
+        if not default_only:
+            chosen = cuda_ballquery.ball_query_plan(8, 512, 512, ns, gather=False)
+            for p in [cuda_ballquery.ball_query_plan(8, 512, 512, ns, gather=False, warps=w)
+                      for w in (8, 16, 32)] + [cuda_ballquery.ball_query_plan(
+                          8, 512, 512, ns, gather=False, select="scan")]:
+                run("idx-only N=512 B=8" + (" *" if p == chosen else ""), idx_only,
+                    (want, None), args, p)
         for b in (16, 4, 1):
             inputs = grouping_inputs(b, dev, rng)
             sa1, sa2 = inputs["sa1"], inputs["sa2"]

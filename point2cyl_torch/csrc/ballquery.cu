@@ -1,7 +1,7 @@
-// Ball query, with and without fused neighbour gather, and the SA1
-// gather's scatter-add backward, for Hopper (sm_90a).
+// Ball query, with and without fused neighbour gather, for Hopper
+// (sm_90a).
 //
-// Replaces four TPU kernels of point2cyl_tpu/ops/pallas_ballquery.py:
+// Replaces three TPU kernels of point2cyl_tpu/ops/pallas_ballquery.py:
 //   - _ballquery_kernel (pallas_call at :580, reached through
 //     ball_query_pallas): indices only. SA1 whenever N <= 1024 (the N=512
 //     A/B protocol) and any stage the fused kernels below do not cover.
@@ -14,11 +14,9 @@
 //     sa_grouped_exact_pallas / sa_grouped_exact): exact ball query, then
 //     grouped = [xyz[idx] - centre | feats[idx]]. SA2 (N=512, C=128).
 //     Entry point p2c_sa_grouped_features.
-//   - _bqg_scatter_kernel (pallas_call at :767, in _bqg_bwd): the SA1
-//     gather's backward, d_xyz[b, idx] += d_grouped. Entry point
-//     p2c_ball_query_grouped_backward.
-// The SA2 gather's backward (_sa_exact_scatter_kernel) is
-// p2c_sa_grouped_backward in target_sum.cu.
+// The gathers' backwards (_bqg_scatter_kernel at SA1,
+// _sa_exact_scatter_kernel at SA2) are p2c_sa_grouped_backward in
+// target_sum.cu: ordered per-target sums.
 //
 // What the forward computes: for each query centre, the first nsample
 // point indices (ascending) whose squared distance is <= r2, short rows
@@ -99,18 +97,26 @@
 //     buffers do not fit shared memory, a lane reads and stores 4 bytes
 //     straight into `grouped`. 16-byte stores from registers, without the
 //     shared block, measured slower than both (PERF.md) and are not kept.
-//   - The idx-only query (p2c_ball_query) is the same index-order scan
-//     without the gather, a warp per query.
-//
-// The SA1 backward: d_xyz[b, idx[b, q, k], ch] += dg[b, q, k, ch] over
-// every query q and slot k; the d_new_xyz = -sum_k dg term stays in
-// PyTorch, as JAX keeps it outside its kernel (pallas_ballquery.py:790).
-// It is bound by bytes: it reads dg once and writes the (b, n, 3) table.
-// One thread per dg element, consecutive threads on consecutive channels,
-// adds with float atomics (RED) into the table the wrapper zeroed, which
-// lives in L2 (2.5 MB at B=4). The order of the adds into one address is
-// not fixed, so the sums may differ from run to run in the last bits; the
-// TPU kernel's one-hot matmul order is not reproduced either.
+//   - The idx-only query (p2c_ball_query; SA1 of the N=512 protocol: N=512,
+//     S=512, nsample 64, B=8): by the roofline its bytes (the 1 MB of
+//     indices written, 0.34 us), in practice the launch and the latency of
+//     a few dependent steps. A ball on the unit sphere at r=0.2 holds
+//     about 5 of 512 points, so an index-order scan with an early stop
+//     runs all 16 of its ballot steps anyway, each waiting on the last's
+//     count. Up to kBallotMaxN points (ball_query_ballot_kernel) a warp
+//     serves one query with no shared staging and no __syncthreads: it
+//     reads the row through L1 (__ldg; the CTA's other warps read the
+//     same 6 KB), lane l the 4 adjacent points 4 l .. 4 l + 3 of each
+//     block of 128 with three 16-byte loads (a lane a point and a step
+//     of 32, the first build, took three 4-byte loads of 12-byte-strided
+//     addresses a point: three times the L1 wavefronts, PERF.md), all
+//     blocks' tests independent; one warp prefix over the lanes' counts,
+//     a byte for each block packed into 64 bits, ranks every hit, each
+//     lane places its hits below nsample into the warp's slots, and the
+//     lanes write the padded row, 16 bytes a lane where it is aligned. 32
+//     warps a CTA: S / 32 CTAs a row, 128 at B=8, one wave. Above that,
+//     the index-order scan of the staged row (ball_query_scan_kernel), a
+//     warp a query, with its stop.
 
 #include <cstdint>
 
@@ -123,8 +129,6 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxSmem = 232448;  // 227 KB a block may opt into on sm_90
 constexpr int kMaxThreads = 1024;
-constexpr int kScatterThreads = 256;
-constexpr int kScatterMaxBlocks = 132 * 16;
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az, float bx,
                                          float by, float bz) {
@@ -475,6 +479,120 @@ sa_group_kernel(const float* __restrict__ xyz, const float* __restrict__ feats,
   }
 }
 
+// Grid (ctas, b), `warps` warps a CTA, n <= kBallotMaxN; a warp takes
+// query q = blockIdx.x * warps + warp, then every (ctas * warps)-th. Lane
+// l tests the points 128 m + 4 l .. 128 m + 4 l + 3 of each block m of 128
+// (three 16-byte loads where `load_vec`: n % 4 == 0 and xyz 16-byte
+// aligned; else 12 of 4 bytes), all blocks' loads and tests independent,
+// and keeps a bit for each (bit 4 m + k). One prefix over the lanes of
+// their counts, a byte for each block packed into 64 bits, ranks every
+// lane's hits in index order; each lane places its hits below ns into the
+// warp's slots, and the row is padded with its first index (n - 1 where it
+// has none) and written, 16 bytes a lane where `store_vec` (ns % 4 == 0
+// and idx_out 16-byte aligned). kStop > 0 ends after the tests (1) or the
+// placing (2), writing nothing meaningful: p2c_ball_query_probe times the
+// phases so.
+template <int kStop>
+__global__ void __launch_bounds__(kMaxThreads)
+ball_query_ballot_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                         int n, int s, int ns, float r2, bool load_vec, bool store_vec,
+                         int* __restrict__ idx_out) {
+  constexpr int kBlocks = kBallotMaxN / 128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  const int blocks = (n + 127) >> 7;
+  const float* p = xyz + static_cast<size_t>(b) * n * 3;
+  int* sel = reinterpret_cast<int*>(smem) + warp * ns;
+
+  for (int q = blockIdx.x * warps + warp; q < s; q += gridDim.x * warps) {
+    const size_t row = static_cast<size_t>(b) * s + q;
+    const float cx = __ldg(new_xyz + row * 3);
+    const float cy = __ldg(new_xyz + row * 3 + 1);
+    const float cz = __ldg(new_xyz + row * 3 + 2);
+    unsigned hits = 0u;  // bit 4 m + k: point 128 m + 4 lane + k is in radius
+#pragma unroll
+    for (int m = 0; m < kBlocks; ++m) {
+      if (m < blocks) {  // warp-uniform
+        const int j = 128 * m + 4 * lane;  // the lane's first point of the block
+        float c[12];
+        if (load_vec) {
+          const float4* p4 = reinterpret_cast<const float4*>(p + 3 * j);
+          const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          const float4 u = j < n ? __ldg(p4) : zero;
+          const float4 v = j < n ? __ldg(p4 + 1) : zero;
+          const float4 w = j < n ? __ldg(p4 + 2) : zero;
+          c[0] = u.x, c[1] = u.y, c[2] = u.z, c[3] = u.w, c[4] = v.x, c[5] = v.y;
+          c[6] = v.z, c[7] = v.w, c[8] = w.x, c[9] = w.y, c[10] = w.z, c[11] = w.w;
+        } else {
+#pragma unroll
+          for (int t = 0; t < 12; ++t) c[t] = j + t / 3 < n ? __ldg(p + 3 * j + t) : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (j + k < n && sq_dist(cx, cy, cz, c[3 * k], c[3 * k + 1], c[3 * k + 2]) <= r2) {
+            hits |= 1u << (4 * m + k);
+          }
+        }
+      }
+    }
+    if (kStop == 1) {
+      if (hits == 0xffffffffu && lane == 0) idx_out[row * ns] = 0;  // keeps the tests
+      continue;
+    }
+    // the lane's count in each block, a byte each (at most 128 a block),
+    // and their inclusive prefix over the lanes
+    unsigned long long mine = 0ull;
+#pragma unroll
+    for (int m = 0; m < kBlocks; ++m) {
+      mine |= static_cast<unsigned long long>(__popc(hits >> (4 * m) & 0xfu)) << (8 * m);
+    }
+    unsigned long long incl = mine;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned long long t = __shfl_up_sync(kFullMask, incl, off);
+      if (lane >= off) incl += t;
+    }
+    const unsigned long long totals = __shfl_sync(kFullMask, incl, 31);
+    const unsigned long long before = incl - mine;
+    int base = 0;  // the hits of the blocks before m
+#pragma unroll
+    for (int m = 0; m < kBlocks; ++m) {
+      int at = base + static_cast<int>(before >> (8 * m) & 0xffull);
+      for (unsigned h = hits >> (4 * m) & 0xfu; h != 0u && at < ns; h &= h - 1u) {
+        sel[at++] = 128 * m + 4 * lane + __ffs(static_cast<int>(h)) - 1;
+      }
+      base += static_cast<int>(totals >> (8 * m) & 0xffull);
+    }
+    const int found = min(base, ns);
+    // the first in-radius index: the least of the lanes' first
+    const unsigned lowest = hits != 0u ? __ffs(static_cast<int>(hits)) - 1 : 0u;
+    const unsigned least = __reduce_min_sync(
+        kFullMask, hits != 0u ? 128u * (lowest >> 2) + 4u * lane + (lowest & 3u) : 0xffffffffu);
+    const int first = base > 0 ? static_cast<int>(least) : n - 1;
+    __syncwarp();
+    if (kStop == 2) {
+      if (sel[lane % ns] == -2 && lane == 0) idx_out[row * ns] = first;  // keeps the placing
+      __syncwarp();
+      continue;
+    }
+    int* out = idx_out + row * ns;
+    if (store_vec) {
+      for (int t = lane; t < ns / 4; t += 32) {
+        const int k = 4 * t;
+        reinterpret_cast<int4*>(out)[t] =
+            make_int4(k < found ? sel[k] : first, k + 1 < found ? sel[k + 1] : first,
+                      k + 2 < found ? sel[k + 2] : first, k + 3 < found ? sel[k + 3] : first);
+      }
+    } else {
+      for (int t = lane; t < ns; t += 32) out[t] = t < found ? sel[t] : first;
+    }
+    __syncwarp();  // sel is rewritten by the next query
+  }
+}
+
 struct GridShape {
   float lo[3];
   float inv;  // 1 / cell edge
@@ -755,41 +873,6 @@ ball_query_grid_kernel(const float* __restrict__ xyz, const float* __restrict__ 
 }
 
 
-// out (b, n, w) += dg (b, rows, w) at out[b, idx[b, r], :]; rows = s * ns.
-// kWidth > 0 fixes the row width at compile time (SA1's 3 coordinates);
-// kWidth == 0 reads it from w.
-template <int kWidth>
-__global__ void __launch_bounds__(kScatterThreads)
-group_scatter_kernel(const int* __restrict__ idx, const float* __restrict__ dg,
-                     int rows, int n, int w, size_t total,
-                     float* __restrict__ out) {
-  const int width = kWidth > 0 ? kWidth : w;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const size_t r = e / width;  // b * rows + (q * ns + k)
-    const int ch = static_cast<int>(e - r * width);
-    const size_t b = r / rows;
-    const int j = idx[r];
-    atomicAdd(out + (b * n + j) * width + ch, dg[e]);
-  }
-}
-
-template <int kWidth>
-int launch_scatter(const int* idx, const float* dg, float* out, int b,
-                   int rows, int n, int w, void* stream) {
-  if (b < 1 || rows < 1 || n < 1 || w < 1 || (kWidth > 0 && w != kWidth)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t total = static_cast<size_t>(b) * rows * w;
-  size_t blocks = (total + kScatterThreads - 1) / kScatterThreads;
-  if (blocks > kScatterMaxBlocks) blocks = kScatterMaxBlocks;
-  group_scatter_kernel<kWidth>
-      <<<static_cast<unsigned>(blocks), kScatterThreads, 0,
-         static_cast<cudaStream_t>(stream)>>>(idx, dg, rows, n, w, total, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The checks every forward shares: a plan of `ctas` CTAs of `warps` warps
@@ -831,13 +914,35 @@ int launch_scan(bool gather, bool vec, const float* xyz, const float* new_xyz, i
 
 }  // namespace
 
-// xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32: the
-// index-order scan, `ctas` CTAs of `warps` warps a row.
+// xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32, `ctas` CTAs
+// of `warps` warps a row: ballot != 0 the independent ballots (needs n <=
+// kBallotMaxN), else the index-order scan.
 extern "C" int p2c_ball_query(const float* xyz, const float* new_xyz, int* idx,
-                              int b, int n, int s, int ns, float r2, int ctas,
+                              int b, int n, int s, int ns, float r2, int ballot, int ctas,
                               int warps, void* stream) {
-  return launch_scan(false, false, xyz, new_xyz, idx, nullptr, b, n, s, ns, r2, ctas,
-                     warps, stream);
+  if (!ballot) {
+    return launch_scan(false, false, xyz, new_xyz, idx, nullptr, b, n, s, ns, r2, ctas,
+                       warps, stream);
+  }
+  const size_t smem = ballot_smem(ns, warps);
+  return launch(ball_query_ballot_kernel<0>,
+                plan_ok(b, n, s, ns, ctas, warps, smem) && n <= kBallotMaxN, b, ctas, warps,
+                smem, stream, xyz, new_xyz, n, s, ns, r2, n % 4 == 0 && aligned16(xyz),
+                ns % 4 == 0 && aligned16(idx), idx);
+}
+
+// For measurement only (kernel_sweep.py --split): the ballot kernel of
+// p2c_ball_query ended after its ballots (stop 1) or its placing (stop 2);
+// `idx` holds nothing meaningful after it.
+extern "C" int p2c_ball_query_probe(int stop, const float* xyz, const float* new_xyz,
+                                    int* idx, int b, int n, int s, int ns, float r2,
+                                    int ctas, int warps, void* stream) {
+  const size_t smem = ballot_smem(ns, warps);
+  const bool ok = plan_ok(b, n, s, ns, ctas, warps, smem) && n <= kBallotMaxN &&
+                  (stop == 1 || stop == 2);
+  return launch(stop == 1 ? ball_query_ballot_kernel<1> : ball_query_ballot_kernel<2>, ok,
+                b, ctas, warps, smem, stream, xyz, new_xyz, n, s, ns, r2,
+                n % 4 == 0 && aligned16(xyz), false, idx);
 }
 
 // xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32 and, unless
@@ -889,12 +994,4 @@ extern "C" int p2c_sa_grouped_features(const float* xyz, const float* feats,
                     (store == kScalar || store == kBulk),
                 b, ctas, warps, smem, stream, xyz, feats, new_xyz, n, s, ns, c, r2,
                 stage_vec, idx, grouped);
-}
-
-// idx (b, rows) i32, dg (b, rows, 3) f32 -> d_xyz (b, n, 3) f32, which the
-// caller has zeroed.
-extern "C" int p2c_ball_query_grouped_backward(const int* idx, const float* dg,
-                                               float* d_xyz, int b, int rows,
-                                               int n, void* stream) {
-  return launch_scatter<3>(idx, dg, d_xyz, b, rows, n, 3, stream);
 }

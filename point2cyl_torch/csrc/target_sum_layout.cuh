@@ -1,4 +1,4 @@
-// Shared-memory layout of the ordered per-target sums in target_sum.cu.
+// Shared-memory layouts of the ordered per-target sums in target_sum.cu.
 //
 // The launch plan of ops/cuda_scatter.py (scatter_plan) sizes the same
 // layout in Python; tests/test_torch_ops.py compiles this header with the
@@ -15,9 +15,18 @@
 #define P2C_HD
 #endif
 
-constexpr int kSumMaxTargets = 32;    // targets a CTA owns, at most
-constexpr int kSumMaxWarps = 16;      // warps a CTA, at most
-constexpr int kSumMaxWindow = 65536;  // entries a window: list entries are uint16
+constexpr int kSumMaxTargets = 32;     // targets a CTA owns, at most (bitmaps)
+constexpr int kListMaxTargets = 8192;  // targets a CTA owns, at most (counts)
+constexpr int kSumMaxWarps = 16;       // warps a CTA, at most
+constexpr int kSumMaxWindow = 65536;   // entries a window: list entries are uint16
+constexpr int kListMaxWidth = 4;       // widest row the counts listing sums (a thread a row)
+
+// How a CTA builds its targets' lists of entries: a bitmap of the window
+// for each target (few targets, many entries each), or a count for each
+// target, a staging of its entries and a sort of each list (many targets,
+// few entries each, rows of at most kListMaxWidth floats: SA1's gather
+// backward).
+enum Listing { kBitmaps = 0, kCounts = 1 };
 
 P2C_HD constexpr size_t sum_round16(size_t x) { return (x + 15) / 16 * 16; }
 
@@ -65,4 +74,20 @@ P2C_HD constexpr size_t sum_list_bytes(int window) {
 P2C_HD constexpr size_t sum_smem(int window, int targets) {
   return sum_bitmaps_bytes(window, targets) + sum_list_bytes(window) +
          sum_round16(4 * (2 * static_cast<size_t>(targets) + 2));
+}
+
+// The counts listing's regions, in order: the staged entries of the CTA's
+// targets, (entry << 16 | target) as uint32, a region for each warp of the
+// entries it reads (room for the whole window in one target, and 128 more
+// entries a warp); the lists of entry ids (uint16), room for the whole
+// window; each target's count (then its cursor) and list start (and one
+// more for the end), each warp's count of entries staged and 32 warps'
+// partial sums (int32).
+P2C_HD constexpr size_t list_stage_bytes(int window) {
+  return sum_round16(4 * (static_cast<size_t>(window) + 128 * kSumMaxWarps));
+}
+
+P2C_HD constexpr size_t list_smem(int window, int targets) {
+  return list_stage_bytes(window) + sum_list_bytes(window) +
+         sum_round16(4 * (2 * static_cast<size_t>(targets) + 1 + kSumMaxWarps + 32));
 }

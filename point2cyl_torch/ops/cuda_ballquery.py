@@ -12,8 +12,8 @@ that carry gradients through them.
 
 The two fused ones are :class:`BallQueryGrouped` and
 :class:`SAGroupedExact`: the backward scatter-adds the grouped cotangent
-onto the point table (``d_xyz[b, idx] += dg``, a kernel too: at SA2 the
-ordered per-target sums of ``ops/cuda_scatter.py``) and sends
+onto the point table (``d_xyz[b, idx] += dg``, a kernel too: the ordered
+per-target sums of ``ops/cuda_scatter.py``) and sends
 ``-sum_slots dg[..., :3]`` to the centres; the indices carry no gradient.
 Under ``inference_mode`` nothing is saved and no backward launches.
 
@@ -42,14 +42,16 @@ GRID_HEADER = 1024  # bytes ahead of the grid kernel's planes (kGridHeader)
 GRID_CAP = 1024  # candidates a query tests through the grid before it scans
 GRID_MIN_WARPS = 4  # fewer warps than this build a grid too slowly
 SA2_WARPS = 16  # warps of an SA2 CTA
+BALLOT_MAX_N = 1024  # most points a row the idx-only ballots take (kBallotMaxN)
+BALLOT_WARPS = 32  # warps of an idx-only ballot CTA
 
+# xyz, new_xyz, idx; b, n, s, ns; r2; select, ctas, warps; stream
 _ARGS_IDX = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _ARGS_GROUPED = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _ARGS_FEATURES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_ARGS_SCATTER3 = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -90,6 +92,12 @@ def _scan_smem(n: int, nsample: int, warps: int) -> int:
     return 12 * _cdiv(n, 4) * 4 + 4 * warps * nsample
 
 
+def _ballot_smem(nsample: int, warps: int) -> int:
+    """Shared memory of the idx-only ballot kernel (``ballot_smem``): a
+    warp's slots."""
+    return 4 * warps * nsample
+
+
 def _sa_smem(n: int, nsample: int, c: int, warps: int, store: str) -> int:
     """Shared memory of the SA2 kernel (``sa_smem``):
     planes, a warp's slots and query centre, and for the bulk store two
@@ -108,7 +116,10 @@ _STORES = ("scalar", "bulk")
 class BallQueryPlan(NamedTuple):
     """How a ball-query kernel is launched over a batch row."""
 
-    select: str  # "grid": a cell grid of the row in shared memory; "scan": index order
+    # "grid": a cell grid of the row in shared memory; "scan": index order,
+    # the row staged in shared memory; "ballot": idx only at N <= 1024, a
+    # warp's independent ballots over the row read through L1
+    select: str
     store: str   # SA2: one of _STORES; SA1: "coords"; idx only: "none"
     ctas: int    # CTAs a batch row
     warps: int   # warps a CTA
@@ -132,12 +143,16 @@ def ball_query_plan(
     b: int, n: int, s: int, nsample: int, c: int | None = None, *,
     gather: bool = True, num_sms: int = H100_SMS, ctas: int | None = None,
     warps: int | None = None, cap: int = GRID_CAP, store: str | None = None,
+    select: str | None = None,
 ) -> BallQueryPlan | None:
     """The launch of a ball query over B rows of N points, S queries and
     ``nsample`` slots; None where no route fits shared memory.
 
-    - ``gather=False``: the idx-only kernel, an index-order scan, a warp a
-      query.
+    - ``gather=False``: the idx-only kernel, a warp a query. Up to
+      BALLOT_MAX_N points ("ballot"): BALLOT_WARPS warps a CTA and S /
+      warps CTAs a row (128 CTAs at the N=512 protocol's B=8), no staging
+      of the row; above, the index-order scan of the staged row with its
+      early stop ("scan").
     - ``c is None`` (SA1's gather, coordinates only): the cell grid where
       the row's grid fits, with about num_sms / B CTAs a row so that the
       card fills in one wave (8 at B=16, 33 at B=4), but no more than at
@@ -154,11 +169,19 @@ def ball_query_plan(
       the shared memory would not fit) and 2 x num_sms / B CTAs a row (16
       at B=16, 66 at B=4), at most S.
 
-    ``ctas``, ``warps``, ``cap`` and ``store`` override the choice
-    (``kernel_sweep.py``); an override that does not fit gives None.
+    ``ctas``, ``warps``, ``cap``, ``store`` and (idx only) ``select``
+    override the choice (``kernel_sweep.py``); an override that does not
+    fit gives None.
     """
     if not gather:
-        return _scan_plan(s, n, nsample, "none")
+        if select == "scan" or (select is None and n > BALLOT_MAX_N):
+            return _scan_plan(s, n, nsample, "none")
+        warps = warps or BALLOT_WARPS
+        smem = _ballot_smem(nsample, warps)
+        if select not in (None, "ballot") or n > BALLOT_MAX_N or not 1 <= warps <= 32 \
+                or smem > SMEM_LIMIT:
+            return None
+        return BallQueryPlan("ballot", "none", ctas or _cdiv(s, warps), warps, 0, smem)
     if c is None:
         if store not in (None, "coords"):
             return None
@@ -250,10 +273,12 @@ def _check_inputs(name: str, nsample: int, tensors: dict[str, torch.Tensor],
 
 
 def ball_query_kernel(
-    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+    plan: BallQueryPlan | None = None,
 ) -> torch.Tensor:
-    """Launch the idx-only kernel; ``.launches`` counts the launches."""
-    plan = _check_inputs("ball_query", nsample, {"xyz": xyz, "new_xyz": new_xyz},
+    """Launch the idx-only kernel; ``.launches`` counts the launches.
+    ``plan`` overrides :func:`ball_query_plan`."""
+    plan = _check_inputs("ball_query", nsample, {"xyz": xyz, "new_xyz": new_xyz}, plan,
                          gather=False)
     b, n, _ = xyz.shape
     s = new_xyz.shape[1]
@@ -261,9 +286,10 @@ def ball_query_kernel(
     fn = _build.function("p2c_ball_query", _ARGS_IDX)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), b, n, s,
-                nsample, radius_squared(radius), plan.ctas, plan.warps, stream)
+                nsample, radius_squared(radius), int(plan.select == "ballot"), plan.ctas,
+                plan.warps, stream)
     ball_query_kernel.launches += 1
-    _build.check("p2c_ball_query", status)
+    _build.check(f"p2c_ball_query ({plan.select})", status)
     return idx
 
 
@@ -330,54 +356,12 @@ def sa_grouped_exact_kernel(
 sa_grouped_exact_kernel.launches = 0  # kernel launches, for chip_smoke.py
 
 
-def _check_scatter(name: str, idx: torch.Tensor, dg: torch.Tensor, n: int) -> None:
-    for key, t in (("idx", idx), ("dg", dg)):
-        if t.device.type != "cuda" or t.device != idx.device:
-            raise ValueError(f"{name}: {key} must be on the same CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-    if idx.dtype != torch.int32 or idx.dim() != 3:
-        raise ValueError(f"{name}: idx must be int32 (B, S, nsample), got "
-                         f"{idx.dtype} {tuple(idx.shape)}")
-    if dg.dtype != torch.float32 or dg.shape[:3] != idx.shape or dg.dim() != 4:
-        raise ValueError(f"{name}: dg must be float32 (B, S, nsample, W) over idx "
-                         f"{tuple(idx.shape)}, got {dg.dtype} {tuple(dg.shape)}")
-    if n < 1 or idx.numel() == 0:
-        raise ValueError(f"{name}: needs N >= 1 and a non-empty idx")
-
-
-def ball_query_grouped_backward_kernel(
-    idx: torch.Tensor, dg: torch.Tensor, n: int
-) -> torch.Tensor:
-    """Launch the SA1 gather's backward: ``dg`` (B, S, nsample, 3)
-    scatter-added onto a zeroed (B, n, 3) table at ``idx``;
-    ``.launches`` counts the launches."""
-    _check_scatter("ball_query_grouped_backward", idx, dg, n)
-    if dg.shape[3] != 3:
-        raise ValueError("ball_query_grouped_backward: dg must be 3 wide")
-    b = idx.shape[0]
-    rows = idx.shape[1] * idx.shape[2]
-    out = torch.zeros((b, n, 3), dtype=torch.float32, device=dg.device)
-    fn = _build.function("p2c_ball_query_grouped_backward", _ARGS_SCATTER3)
-    stream = torch.cuda.current_stream(dg.device).cuda_stream
-    status = fn(idx.data_ptr(), dg.data_ptr(), out.data_ptr(), b, rows, n, stream)
-    ball_query_grouped_backward_kernel.launches += 1
-    _build.check("p2c_ball_query_grouped_backward", status)
-    return out
-
-
-ball_query_grouped_backward_kernel.launches = 0  # kernel launches, for chip_smoke.py
-
-
-def sa_grouped_backward_kernel(
-    idx: torch.Tensor, dg: torch.Tensor, n: int
-) -> torch.Tensor:
-    """Launch the SA2 gather's backward: ``dg`` (B, S, nsample, 3 + C)
-    summed onto a (B, n, 3 + C) table at ``idx``, each row's terms in
-    ascending (query, slot) order (``csrc/target_sum.cu``);
-    ``.launches`` counts the launches. ``dg``'s channels must be adjacent
-    and its (S, nsample) rows evenly spaced."""
-    name = "sa_grouped_backward"
+def group_backward_kernel(name: str, idx: torch.Tensor, dg: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """The gathers' backward: ``dg`` (B, S, nsample, W) summed onto a (B,
+    n, W) table at ``idx``, each row's terms in ascending (query, slot)
+    order (``csrc/target_sum.cu``). ``dg``'s channels must be adjacent and
+    its (S, nsample) rows evenly spaced."""
     if dg.dim() != 4 or dg.dtype != torch.float32:
         raise ValueError(f"{name}: dg must be float32 (B, S, nsample, W), got "
                          f"{dg.dtype} {tuple(dg.shape)}")
@@ -392,9 +376,35 @@ def sa_grouped_backward_kernel(
                          f"{tuple(idx.shape)} N={n}")
     b, w = idx.shape[0], dg.shape[3]
     entries = idx.shape[1] * idx.shape[2]
-    plan = cuda_scatter.plan_or_raise(name, b, n, entries, num_sms=_num_sms(dg.device.index))
+    plan = cuda_scatter.plan_or_raise(name, b, n, entries, group_width=w,
+                                      num_sms=_num_sms(dg.device.index))
     out = torch.empty((b, n, w), dtype=torch.float32, device=dg.device)
     cuda_scatter.launch_group(idx, dg, out, plan)
+    return out
+
+
+def ball_query_grouped_backward_kernel(
+    idx: torch.Tensor, dg: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Launch the SA1 gather's backward (:func:`group_backward_kernel`, dg
+    3 wide); ``.launches`` counts the launches."""
+    name = "ball_query_grouped_backward"
+    if dg.dim() != 4 or dg.shape[3] != 3:
+        raise ValueError(f"{name}: dg must be (B, S, nsample, 3), got {tuple(dg.shape)}")
+    out = group_backward_kernel(name, idx, dg, n)
+    ball_query_grouped_backward_kernel.launches += 1
+    return out
+
+
+ball_query_grouped_backward_kernel.launches = 0  # kernel launches, for chip_smoke.py
+
+
+def sa_grouped_backward_kernel(
+    idx: torch.Tensor, dg: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Launch the SA2 gather's backward (:func:`group_backward_kernel`, dg
+    3 + C wide); ``.launches`` counts the launches."""
+    out = group_backward_kernel("sa_grouped_backward", idx, dg, n)
     sa_grouped_backward_kernel.launches += 1
     return out
 
@@ -423,11 +433,12 @@ class BallQueryGrouped(torch.autograd.Function):
         d_xyz = d_new_xyz = None
         if ctx.needs_input_grad[2]:
             (idx,) = ctx.saved_tensors
-            dg_c = dg.contiguous()
-            if dg_c.device.type == "cpu":
-                d_xyz = group_scatter_plain(idx, dg_c, ctx.n)
+            if dg.device.type == "cpu":
+                d_xyz = group_scatter_plain(idx, dg, ctx.n)
             else:
-                d_xyz = ball_query_grouped_backward_kernel(idx, dg_c, ctx.n)
+                if not cuda_scatter.rows_readable(dg, 2):
+                    dg = dg.contiguous()
+                d_xyz = ball_query_grouped_backward_kernel(idx, dg, ctx.n)
         if ctx.needs_input_grad[3]:
             d_new_xyz = -dg.sum(dim=2)  # centering adjoint
         return None, None, d_xyz, d_new_xyz

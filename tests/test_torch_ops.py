@@ -9,6 +9,7 @@ holds each one against these plain versions there).
 
 from __future__ import annotations
 
+import itertools
 import shutil
 import subprocess
 import sys
@@ -191,7 +192,12 @@ def test_ball_query_plan_main_shapes():
     assert plan(16, 16384, 512, 64).select == "scan"
     assert plan(16, 512, 128, 64, 128)[:4] == ("scan", "bulk", 16, 16)
     assert plan(4, 512, 128, 64, 128)[:4] == ("scan", "bulk", 66, 16)
-    assert plan(8, 512, 512, 64, gather=False)[:3] == ("scan", "none", 64)
+    # idx only: the ballots, 32 warps a CTA and S / 32 CTAs a row (128 CTAs
+    # at the N=512 protocol's B=8); above N=1024 the index-order scan
+    assert plan(8, 512, 512, 64, gather=False)[:4] == ("ballot", "none", 16, 32)
+    assert plan(8, 1024, 512, 64, gather=False).select == "ballot"
+    assert plan(8, 1025, 512, 64, gather=False).select == "scan"
+    assert plan(8, 512, 512, 64, gather=False, select="scan")[:3] == ("scan", "none", 64)
 
 
 def test_build_hash_covers_headers(tmp_path, monkeypatch):
@@ -214,10 +220,12 @@ def test_build_hash_covers_headers(tmp_path, monkeypatch):
 def test_ball_query_smem_matches_layout_header(tmp_path):
     """The plans' shared-memory totals are the kernels' own: the layout
     header (csrc/ballquery_layout.cuh) compiled on the host gives the same
-    bytes for the grid, scan and SA2 kernels and the same bitmap over N,
-    nsample, warps, C and store, and the same constants and store codes."""
+    bytes for the grid, scan, ballot and SA2 kernels and the same bitmap
+    over N, nsample, warps, C and store, and the same constants and store
+    codes."""
     cb = cuda_ballquery
     exprs = {"kMaxCells": cb.MAX_CELLS, "kGridHeader": cb.GRID_HEADER,
+             "kBallotMaxN": cb.BALLOT_MAX_N,
              **{f"k{name.capitalize()}": code for code, name in enumerate(cb._STORES)}}
     for n in (1, 3, 31, 32, 33, 512, 1023, 1025, 4999, 8192, 11904, 16384, 18000, 65535):
         exprs[f"bitmap_words({n})"] = cb._bitmap_words(n)
@@ -225,6 +233,7 @@ def test_ball_query_smem_matches_layout_header(tmp_path):
             for warps in (1, 4, 16, 32):
                 exprs[f"grid_smem({n}, {ns}, {warps})"] = cb._grid_smem(n, ns, warps)
                 exprs[f"scan_smem({n}, {ns}, {warps})"] = cb._scan_smem(n, ns, warps)
+                exprs[f"ballot_smem({ns}, {warps})"] = cb._ballot_smem(ns, warps)
                 for c in (67, 128):
                     for code, store in enumerate(cb._STORES):
                         exprs[f"sa_smem({n}, {ns}, {c}, {warps}, {code})"] = cb._sa_smem(
@@ -243,9 +252,12 @@ def test_ball_query_smem_matches_layout_header(tmp_path):
 
 # (targets, entries a cloud) of the ordered per-target sums on the main
 # path (N=8192) and the N=512 protocol: FP1 (S sources of N points), FP2
-# (128 sources of 512 points), SA2 (512 table rows, 128 balls of 64)
+# (128 sources of 512 points), SA2 (512 table rows, 128 balls of 64);
+# and SA1's gather backward in the saliency backward (8192 points, 512
+# balls of 64)
 _SCATTER_SHAPES = {"fp1": (512, 3 * 8192), "fp2": (128, 3 * 512), "sa2": (512, 128 * 64),
-                   "fp1 N=512": (512, 3 * 512)}
+                   "fp1 N=512": (512, 3 * 512), "fp2 N=512": (128, 3 * 512),
+                   "sa2 N=512": (512, 128 * 64), "sa1": (8192, 512 * 64)}
 
 
 @pytest.mark.parametrize("b", [1, 2, 4, 8, 16, 64])
@@ -255,31 +267,44 @@ def test_scatter_plan_covers_every_shape(b):
     targets, gets a plan within 227 KB that leaves room for every entry of
     a window in one target's list (the worst skew), with windows of at
     most 65,536 entries (uint16 list entries) that cover the cloud and
-    CTAs that cover the targets."""
-    limit = cuda_scatter.SMEM_LIMIT
+    CTAs that cover the targets; the counts listing exactly where a
+    gather's backward sums rows of at most 4 floats (SA1's 3), bitmaps
+    would need more than one wave at 32 targets a CTA and a target has at
+    most 8 entries on average; bitmaps for the 3-NN backward and for wider
+    rows (SA2's 131) at every shape."""
+    cs = cuda_scatter
+    limit = cs.SMEM_LIMIT
     shapes = list(_SCATTER_SHAPES.values())
-    shapes += [(t, e) for t in (3, 128, 512, 20000) for e in range(1, 200001, 997)]
-    for targets, entries in shapes:
-        plan = cuda_scatter.scatter_plan(b, targets, entries)
-        assert plan is not None, (b, targets, entries)
-        assert plan.smem == cuda_scatter.sum_smem(plan.window, plan.targets)
+    shapes += [(t, e) for t in (3, 128, 512, 8192, 20000) for e in range(1, 200001, 997)]
+    for (targets, entries), width in itertools.product(shapes, (None, 3, 4, 5, 131)):
+        plan = cs.scatter_plan(b, targets, entries, group_width=width)
+        assert plan is not None, (b, targets, entries, width)
+        counts = (width in (3, 4) and b * -(-targets // cs.MAX_TARGETS) > cs.H100_SMS
+                  and entries <= 8 * targets)
+        assert plan.listing == ("counts" if counts else "bitmaps"), (b, targets, entries, width)
+        smem = cs.list_smem if counts else cs.sum_smem
+        assert plan.smem == smem(plan.window, plan.targets)
         assert plan.smem <= limit
-        assert plan.window % 4 == 0 and plan.window <= cuda_scatter.MAX_WINDOW
+        assert plan.window % 4 == 0 and plan.window <= cs.MAX_WINDOW
         assert plan.window * plan.windows >= entries > plan.window * (plan.windows - 1)
         assert plan.ctas * plan.targets >= targets and plan.ctas & (plan.ctas - 1) == 0
         assert plan.ctas < 2 * -(-targets // plan.targets)
-        assert 1 <= plan.targets <= cuda_scatter.MAX_TARGETS
-        assert plan.warps == cuda_scatter.MAX_WARPS
+        assert 1 <= plan.targets <= (cs.MAX_LIST_TARGETS if counts else cs.MAX_TARGETS)
+        assert plan.warps == cs.MAX_WARPS
+        if counts:  # one wave: at most num_sms / B CTAs a cloud, unless the cap needs more
+            assert b * plan.ctas <= cs.H100_SMS or plan.targets == cs.MAX_LIST_TARGETS
         if plan.windows > 1:  # one fewer window would not fit
-            wider = cuda_scatter.sum_window(entries, plan.windows - 1)
-            assert (wider > cuda_scatter.MAX_WINDOW
-                    or cuda_scatter.sum_smem(wider, plan.targets) > limit)
+            wider = cs.sum_window(entries, plan.windows - 1)
+            assert wider > cs.MAX_WINDOW or smem(wider, plan.targets) > limit
 
 
 def test_scatter_plan_main_shapes():
     """About 132 CTAs or more at B=4: 16 targets a CTA at FP1 and SA2, 4 at
-    FP2, 16 warps, 32 CTAs a cloud and one window each; two windows at
-    N=16384."""
+    FP2, 16 warps, 32 CTAs a cloud and one window each, bitmaps; two
+    windows at N=16384. FP1, FP2 and SA2 keep bitmaps at every batch, the
+    N=512 protocol's too. SA1's gather backward (8192 targets, 512 balls
+    of 64, 3 wide) takes the counts listing: 32 CTAs of 256 targets a
+    cloud at B=4, one wave, and one window."""
     plan = cuda_scatter.scatter_plan
     assert plan(4, *_SCATTER_SHAPES["fp1"])[:4] == (16, 16, 24576, 1)
     assert plan(4, *_SCATTER_SHAPES["fp2"])[:4] == (4, 16, 1536, 1)
@@ -288,17 +313,28 @@ def test_scatter_plan_main_shapes():
     assert plan(4, 1024, 3 * 16384).windows == 2
     for shape in ("fp1", "fp2", "sa2"):
         assert 4 * plan(4, *_SCATTER_SHAPES[shape]).ctas >= 128
+        assert plan(4, *_SCATTER_SHAPES[shape]).listing == "bitmaps"
+    for shape, b in itertools.product(("fp1", "fp2", "fp1 N=512", "fp2 N=512"), (1, 8, 16, 64)):
+        assert plan(b, *_SCATTER_SHAPES[shape]).listing == "bitmaps"
+    for shape, b in itertools.product(("sa2", "sa2 N=512"), (1, 8, 16, 64)):
+        assert plan(b, *_SCATTER_SHAPES[shape], group_width=131).listing == "bitmaps"
+    sa1 = plan(4, *_SCATTER_SHAPES["sa1"], group_width=3)
+    assert sa1.listing == "counts" and sa1[:5] == (256, 16, 32768, 1, 32)
+    assert plan(4, *_SCATTER_SHAPES["sa1"], group_width=3,
+                listing="bitmaps")[:5] == (32, 16, 32768, 1, 256)
 
 
-@pytest.mark.parametrize("kind", ["three_nn", "sa2"])
+@pytest.mark.parametrize("kind", ["three_nn", "sa2", "sa1"])
 def test_scatter_plan_raises_exactly_where_no_plan(kind):
     """The wrappers' shape check reads the plan: it raises where
     scatter_plan gives none (no batch row, more than 65,535, no target or
     entry) and nowhere else. scatter_plan also gives none for an override
-    (``kernel_sweep.py``'s plans) out of range."""
+    (``kernel_sweep.py``'s plans) out of range: targets a CTA beyond each
+    listing's limit, warps, a listing it does not know, or the counts
+    listing for the 3-NN backward or rows wider than 4."""
     for b in (0, 1, 4, 65535, 65536):
-        for targets in (0, 1, 512):
-            for entries in (0, 1, 24576, 2**31):
+        for targets in (0, 1, 512, 8192):
+            for entries in (0, 1, 24576, 32768, 2**31):
                 plan = cuda_scatter.scatter_plan(b, targets, entries, num_sms=100)
                 if plan is None:
                     with pytest.raises(ValueError, match="no launch plan"):
@@ -306,22 +342,32 @@ def test_scatter_plan_raises_exactly_where_no_plan(kind):
                 else:
                     assert cuda_scatter.plan_or_raise(kind, b, targets, entries,
                                                       num_sms=100) == plan
-    for per_cta in (0, 1, 32, 33):
-        for warps in (0, 1, 16, 17):
-            plan = cuda_scatter.scatter_plan(4, 512, 24576, per_cta=per_cta, warps=warps)
-            in_range = 1 <= per_cta <= 32 and 1 <= warps <= 16
-            assert (plan is not None) == in_range, (per_cta, warps)
+    for listing, most in (("bitmaps", 32), ("counts", 8192)):
+        for per_cta in (0, 1, most, most + 1):
+            for warps in (0, 1, 16, 17):
+                plan = cuda_scatter.scatter_plan(4, 8192, 32768, group_width=3,
+                                                 per_cta=per_cta, warps=warps, listing=listing)
+                in_range = 1 <= per_cta <= most and 1 <= warps <= 16
+                assert (plan is not None) == in_range, (listing, per_cta, warps)
+                assert plan is None or plan.listing == listing
+    assert cuda_scatter.scatter_plan(4, 8192, 32768, group_width=3, listing="sorted") is None
+    for width in (None, 5, 131):
+        assert cuda_scatter.scatter_plan(4, 8192, 32768, group_width=width,
+                                         listing="counts") is None
 
 
 @pytest.mark.skipif(shutil.which("c++") is None, reason="needs a host C++ compiler")
 def test_scatter_smem_matches_layout_header(tmp_path):
     """The plan's shared-memory totals and windows are the kernel's own:
     the layout header (csrc/target_sum_layout.cuh) compiled on the host
-    gives the same bytes and windows, and the same limits."""
+    gives the same bytes and windows for both listings, the same limits
+    and the same listing codes."""
     cs = cuda_scatter
-    exprs = {"kSumMaxTargets": cs.MAX_TARGETS, "kSumMaxWarps": cs.MAX_WARPS,
-             "kSumMaxWindow": cs.MAX_WINDOW}
-    for entries in (1, 3, 4, 5, 1536, 2331, 8192, 24576, 49152, 65537, 200001):
+    exprs = {"kSumMaxTargets": cs.MAX_TARGETS, "kListMaxTargets": cs.MAX_LIST_TARGETS,
+             "kSumMaxWarps": cs.MAX_WARPS,
+             "kSumMaxWindow": cs.MAX_WINDOW, "kListMaxWidth": cs.MAX_LIST_WIDTH,
+             **{f"k{name.capitalize()}": code for code, name in enumerate(cs.LISTINGS)}}
+    for entries in (1, 3, 4, 5, 1536, 2331, 8192, 24576, 32768, 49152, 65537, 200001):
         for windows in (1, 2, 3, 7):
             exprs[f"sum_window({entries}, {windows})"] = cs.sum_window(entries, windows)
     for window in (4, 32, 33, 1536, 2332, 8192, 24576, 32768, 37888, 55296, 65536):
@@ -329,6 +375,8 @@ def test_scatter_smem_matches_layout_header(tmp_path):
         exprs[f"sum_summary_words({window})"] = cs.sum_summary_words(window)
         for targets in (1, 3, 4, 16, 32):
             exprs[f"sum_smem({window}, {targets})"] = cs.sum_smem(window, targets)
+        for targets in (1, 3, 64, 256, 1024, 8192):
+            exprs[f"list_smem({window}, {targets})"] = cs.list_smem(window, targets)
     src = tmp_path / "layout.cpp"
     src.write_text('#include <cstdio>\n#include "target_sum_layout.cuh"\nint main() {\n'
                    + "".join(f'  std::printf("%lld\\n", (long long)({e}));\n' for e in exprs)
@@ -341,14 +389,104 @@ def test_scatter_smem_matches_layout_header(tmp_path):
     assert len(out) == len(exprs) and got == exprs
 
 
+LANE_SORT_MAX = 16  # csrc/target_sum.cu kLaneSortMax
+
+
+def _warp_sort_model(s: list) -> list:
+    """``csrc/target_sum.cu:warp_sort`` step by step: up to 32 entries the
+    shuffle network in registers (lane l holds entry l, the lanes past the
+    end a key above every entry); more, the bitonic network over the next
+    power of two in shared memory, every compare-exchange putting the
+    smaller entry at the lower place, pairs reaching past the list's end
+    skipped (the lanes of a step take disjoint pairs, so their order is
+    immaterial)."""
+    if len(s) <= 32:
+        x = [int(v) for v in s] + [0x10000 + lane for lane in range(len(s), 32)]
+        k = 2
+        while k <= 32:
+            j = k >> 1
+            while j > 0:
+                y = [x[lane ^ j] for lane in range(32)]
+                x = [min(x[lane], y[lane]) if ((lane & j) == 0) == ((lane & k) == 0)
+                     else max(x[lane], y[lane]) for lane in range(32)]
+                j >>= 1
+            k <<= 1
+        return x[:len(s)]
+    s = list(s)
+    n = 2
+    while n < len(s):
+        n <<= 1
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j > 0:
+            for p in range(n >> 1):
+                i = (p // j) * 2 * j + p % j
+                other = (i | (k - 1)) - (i & (k - 1)) if j == k >> 1 else i + j
+                if other < len(s) and s[other] < s[i]:
+                    s[i], s[other] = s[other], s[i]
+            j >>= 1
+        k <<= 1
+    return s
+
+
+def _register_sort_model(s: list, size: int) -> list:
+    """``csrc/target_sum.cu:sort_regs<size>`` on a list of at most ``size``
+    entries (places past its end hold 0x10000): the bitonic network, each
+    compare-exchange ascending or descending by bit k of the lower place."""
+    x = [int(v) for v in s] + [0x10000] * (size - len(s))
+    k = 2
+    while k <= size:
+        j = k >> 1
+        while j > 0:
+            for i in range(size):
+                if i ^ j > i:
+                    lo, hi = min(x[i], x[i ^ j]), max(x[i], x[i ^ j])
+                    x[i], x[i ^ j] = (lo, hi) if i & k == 0 else (hi, lo)
+            j >>= 1
+        k <<= 1
+    return x[:len(s)]
+
+
+def _list_sort_model(s: list, size: int = 0) -> list:
+    """The counts listing's sort of one list at a row of at most 4 floats:
+    up to LANE_SORT_MAX entries the thread's network in registers of the
+    warp's size (``size``, by default the least of 4, 8 and 16 that holds
+    the list), else the warp's network."""
+    if len(s) > LANE_SORT_MAX:
+        return _warp_sort_model(s)
+    if len(s) < 2:
+        return list(s)
+    return _register_sort_model(s, size or next(m for m in (4, 8, 16) if m >= len(s)))
+
+
+@pytest.mark.parametrize("lengths", [range(0, 40), range(40, 300, 7), (511, 512, 513, 1000)])
+def test_list_sort_sorts_every_length(lengths):
+    """The counts listing's list sort puts any order of distinct entry ids
+    in ascending order, at every list length around the powers of two
+    (where the warp's network skips the pairs past the end), and a short
+    list at each size of register network that holds it (a warp takes the
+    size of its longest list)."""
+    rng = np.random.default_rng(61)
+    for n in lengths:
+        for _ in range(3):
+            ids = rng.choice(65536, size=n, replace=False)
+            assert _list_sort_model(list(ids)) == sorted(ids)
+            for size in (4, 8, 16):
+                if 2 <= n <= size:
+                    assert _list_sort_model(list(ids), size) == sorted(ids)
+
+
 def _target_sum_model(idx: np.ndarray, rows: np.ndarray, targets: int,
                       plan: cuda_scatter.ScatterPlan) -> np.ndarray:
     """``csrc/target_sum.cu`` step by step in numpy: CTA k of ``plan.ctas``
     owns targets k, k + ctas, ...; for each window, each of its targets'
-    bitmaps of the entries, its list read out of the bitmap in word and
-    bit order, and each list summed in order in float32 (a later window
+    list, read out of the target's bitmap of the entries in word and bit
+    order (bitmaps), or placed in an arbitrary order (the atomics') and
+    sorted (counts); each list summed in order in float32 (a later window
     from the row so far). Checks on the way that the CTAs cover every
     target once and that every list ascends."""
+    rng = np.random.default_rng(62)
     b_count, entries = idx.shape
     out = np.full((b_count, targets, rows.shape[-1]), np.nan, np.float32)
     for b in range(b_count):
@@ -358,11 +496,15 @@ def _target_sum_model(idx: np.ndarray, rows: np.ndarray, targets: int,
             for e0 in range(0, entries, plan.window):
                 window = idx[b, e0:e0 + plan.window]
                 for lt, t in enumerate(owned):
-                    bitmap = np.zeros(-(-len(window) // 32), np.uint64)
-                    for e in np.nonzero(window == t)[0]:
-                        bitmap[e >> 5] |= np.uint64(1) << np.uint64(e & 31)
-                    listed = [32 * wd + bit for wd, word in enumerate(bitmap)
-                              for bit in range(32) if int(word) >> bit & 1]
+                    if plan.listing == "counts":
+                        listed = _list_sort_model(list(rng.permutation(
+                            np.nonzero(window == t)[0])))
+                    else:
+                        bitmap = np.zeros(-(-len(window) // 32), np.uint64)
+                        for e in np.nonzero(window == t)[0]:
+                            bitmap[e >> 5] |= np.uint64(1) << np.uint64(e & 31)
+                        listed = [32 * wd + bit for wd, word in enumerate(bitmap)
+                                  for bit in range(32) if int(word) >> bit & 1]
                     assert (np.diff(listed) > 0).all()
                     for e in listed:
                         acc[lt] = acc[lt] + rows[b, e0 + e]
@@ -371,13 +513,18 @@ def _target_sum_model(idx: np.ndarray, rows: np.ndarray, targets: int,
     return out
 
 
-@pytest.mark.parametrize("case", ["fp1-like", "3 targets", "windows", "padded balls"])
+@pytest.mark.parametrize("case", ["fp1-like", "3 targets", "windows", "padded balls",
+                                  "sa1-like", "isolated points padded", "one target in every ball"])
 def test_target_sum_order_equals_host_sum(case):
     """The kernel's order of work, modelled in numpy, sums each target's
     terms in ascending entry order: equal bit for bit to np.add.at (what
     chip_smoke.py holds the kernel to on the card), at the default plan,
     with every entry on 3 targets, over several windows and warps, and
-    with balls of one point padded to nsample."""
+    with balls of one point padded to nsample; and with the counts
+    listing, the wrapper's choice at SA1-like shapes (many targets, about
+    4 entries each, rows 3 wide): balls of 64 among 2048 points, isolated
+    points each padded 64 times onto itself, and one target in every
+    ball."""
     rng = np.random.default_rng(60)
     b, targets, entries, c = 2, 96, 1500, 5
     idx = rng.integers(0, targets, size=(b, entries))
@@ -391,6 +538,28 @@ def test_target_sum_order_equals_host_sum(case):
     elif case == "padded balls":
         idx = np.repeat(rng.integers(0, targets, size=(b, entries // 64 + 1)), 64,
                         axis=1)[:, :entries]
+    elif case in ("sa1-like", "isolated points padded", "one target in every ball"):
+        # 128 balls of 64 among 2048 points at r=0.4 (about 82 points a ball,
+        # as at SA1): about 4 entries a target
+        b, targets, balls, ns, c = 3, 2048, 128, 64, 3
+        entries = balls * ns
+        pts = _sphere(rng, (b, targets, 3))
+        centres = pts[:, rng.permutation(targets)[:balls]]
+        if case == "isolated points padded":  # each ball's centre is its only point
+            pts[:, :balls] = 5.0 + np.arange(balls, dtype=np.float32)[:, None]
+            centres = pts[:, :balls]
+        idx = ball_query_plain(0.4, ns, torch.from_numpy(pts),
+                               torch.from_numpy(np.ascontiguousarray(centres))).numpy()
+        if case == "one target in every ball":
+            idx[:, :, 0] = 7
+        idx = idx.reshape(b, entries)
+        plan = cuda_scatter.scatter_plan(b, targets, entries, group_width=c)
+        assert plan.listing == "counts"
+        sizes = np.stack([np.bincount(row, minlength=targets) for row in idx])
+        if case == "sa1-like":  # nearly every list sorted by one thread
+            assert (sizes <= LANE_SORT_MAX).mean() > 0.99
+        else:  # lists of a padded ball, or of every ball, that a warp sorts
+            assert sizes.max() >= ns
     rows = rng.normal(size=(b, entries, c)).astype(np.float32) * np.float32(1e3) ** \
         rng.integers(-1, 2, size=(b, entries, 1))
     want = np.zeros((b, targets, c), np.float32)
@@ -398,6 +567,70 @@ def test_target_sum_order_equals_host_sum(case):
         np.add.at(want[row], idx[row], rows[row])
     got = _target_sum_model(idx, rows, targets, plan)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _ballot_model(radius: float, nsample: int, xyz: np.ndarray,
+                  centres: np.ndarray) -> np.ndarray:
+    """``csrc/ballquery.cu:ball_query_ballot_kernel`` step by step in
+    numpy: for each query, lane l's in-radius bits of points 128 m + 4 l
+    .. 128 m + 4 l + 3 of each block m (float32 ((dx^2 + dy^2) + dz^2), no
+    fused multiply-add), one exclusive prefix over the lanes of their
+    counts, a byte for each block packed into 64 bits, each lane's hits
+    placed from the blocks before and its prefix while below nsample, and
+    the row padded with the least of the lanes' first hits (N - 1 where
+    there is none)."""
+    r2 = np.float32(radius * radius)
+    b_count, n, _ = xyz.shape
+    blocks = -(-n // 128)
+    out = np.empty(centres.shape[:2] + (nsample,), np.int32)
+    for b in range(b_count):
+        for q, c in enumerate(centres[b]):
+            with np.errstate(invalid="ignore"):  # inf - inf: NaN, never in radius
+                d = (c - xyz[b]).astype(np.float32)
+            sq = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+            inside = np.zeros(128 * blocks, bool)
+            inside[:n] = sq <= r2
+            hits = inside.reshape(blocks, 32, 4)  # [block, lane, point of the lane]
+            packed = [sum(int(hits[m, lane].sum()) << (8 * m) for m in range(blocks))
+                      for lane in range(32)]
+            before = np.cumsum(packed) - packed
+            totals = sum(packed)
+            sel = np.full(nsample, -1, np.int32)
+            base = 0
+            for m in range(blocks):
+                for lane in range(32):
+                    at = base + (int(before[lane]) >> (8 * m) & 0xFF)
+                    for k in np.nonzero(hits[m, lane])[0]:
+                        if at < nsample:
+                            sel[at] = 128 * m + 4 * lane + k
+                        at += 1
+                base += totals >> (8 * m) & 0xFF
+            firsts = [128 * m + 4 * lane + k for lane in range(32)
+                      for m, k in zip(*np.nonzero(hits[:, lane]))]
+            first = min(firsts) if firsts else n - 1
+            out[b, q] = np.where(np.arange(nsample) < min(base, nsample), sel, first)
+    return out
+
+
+@pytest.mark.parametrize("n", [33, 512, 1000, 1024])
+def test_ballot_placement_equals_plain(n):
+    """The idx-only kernel's placement (each lane's bits of 4 adjacent
+    points a block, one packed prefix, the pad), modelled in numpy, gives
+    ball_query_plain's indices: full rows, short rows, empty rows and a
+    point with a NaN or an infinite coordinate, at N not a multiple of 4
+    (33: one block, its lanes past N), 4 blocks, a ragged last block and
+    all 8; the plan takes the ballots at each of these N."""
+    rng = np.random.default_rng(63)
+    pts = _sphere(rng, (2, n, 3))
+    pts[0, 3, 1], pts[1, n // 2, 0] = np.nan, np.inf
+    centres = np.concatenate([pts[:, rng.permutation(n)[:40]],
+                              np.full((2, 1, 3), 9.0, np.float32)], 1)
+    for radius, nsample in ((0.2, min(64, n)), (0.6, 16), (1.5, min(63, n))):
+        got = _ballot_model(radius, nsample, pts, centres)
+        want = ball_query_plain(radius, nsample, torch.from_numpy(pts),
+                                torch.from_numpy(centres)).numpy()
+        np.testing.assert_array_equal(got, want)
+    assert cuda_ballquery.ball_query_plan(2, n, 41, 64, gather=False).select == "ballot"
 
 
 @pytest.mark.parametrize("case", ["fp2 slice", "channels strided", "sa2 rows strided",
@@ -435,6 +668,8 @@ def test_check_rows(case):
         torch.zeros(1, 4, 4, dtype=torch.int32), torch.zeros(1, 4, 4, 7).transpose(1, 2), 16),
     lambda: cuda_ballquery.sa_grouped_backward_kernel(
         torch.zeros(1, 4, 4, dtype=torch.int32), torch.zeros(1, 4, 4, 14)[..., ::2], 16),
+    lambda: cuda_ballquery.ball_query_grouped_backward_kernel(
+        torch.zeros(1, 4, 4, dtype=torch.int32), torch.zeros(1, 4, 4, 3).transpose(1, 2), 16),
 ])
 def test_scatter_launchers_reject_bad_strides(launch, monkeypatch):
     """Given a cotangent whose rows the kernel cannot read as they lie, a
