@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and evaluation on one NVIDIA GPU.
 
     python3 chip_smoke.py            # what a check of the port runs
     python3 chip_smoke.py --profile  # also print device-time breakdowns
@@ -79,9 +79,24 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    that must continue its step and epoch.
 6. Training at N=512, B=8 (the A/B protocol): a few steps; SA1 goes
    through the idx-only ball query once per step.
+7. Evaluation: ``python -m point2cyl_torch.eval.evaluator``'s
+   ``cli_main`` restores phase 5's CLI checkpoint and evaluates
+   ``--synthetic 8`` at full width (N=8192, K=8, B=4, ``--no_implicit``):
+   the ``Restored backbone`` line, a finite metric block, and per eval
+   batch 2 FPS, 1 SA1 grouped query, 1 SA2 grouped query and 2 3-NN
+   launches and no other. The same batches through ``evaluate`` with
+   every ``*_impl="plain"`` must give the same metric means within the
+   CPU parity test's tolerances; then the clouds per second of
+   ``evaluate`` and the ms of one eval step. Then the N=512 protocol:
+   phase 6's weights evaluated on ``ab_data/test.h5`` at B=8, SA1 through
+   the idx-only ball query once a batch.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON (each row also
+with its launches in the two evaluations, ``eval_launches``); the last
+line is ``{"ok": true, "device": {...}}``.
+
+``--profile`` adds device-time breakdowns of a bucket-16 request, of
+full-width train steps and of full-width eval steps.
 """
 
 from __future__ import annotations
@@ -103,6 +118,10 @@ B = 16  # bucket measured in the kernel and rate phases
 TB = 4  # training batch at full width
 K = 8
 SK = 2048  # sketch samples per instance, the JAX export's default
+# metric means of the kernel path against the all-plain path, as
+# tests/test_torch_eval.py holds the port against JAX
+EVAL_ATOL = {"miou": 1e-5, "bb_accuracy": 1e-5, "normal_error_deg": 2e-3,
+             "axis_error_deg": 2e-3, "centroid_difference": 1e-5}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TIMED_RUNS = 25
@@ -233,15 +252,15 @@ def clouds(seed: int, n: int, num_points: int) -> np.ndarray:
     return (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
 
 
-def profile_steps(trainer, pipeline, gen, card: str, step_ms: float) -> None:
-    """Device time by kernel name over three traced train steps, and the
-    busy share against the untraced step time."""
+def profile_steps(label: str, step, card: str, step_ms: float) -> None:
+    """Device time by kernel name over three traced calls of ``step``, the
+    busy share against the untraced time of one, and the host's time by
+    operator."""
     traced = 3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    batches = pipeline.epochs(TB, gen)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(traced):
-            trainer.train_step(next(batches), gen)
+            step()
         torch.cuda.synchronize()
     # kernels and copies only: a user annotation (Adam's step) spans
     # kernels that are counted on their own
@@ -249,7 +268,7 @@ def profile_steps(trainer, pipeline, gen, card: str, step_ms: float) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     device_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / traced
-    print(json.dumps({"profile": f"{traced} x train step", "device_ms_per_step": device_ms,
+    print(json.dumps({"profile": f"{traced} x {label}", "device_ms_per_step": device_ms,
                       "device_busy_share": device_ms / step_ms, "card": card}), flush=True)
     for e in sorted(on_card, key=lambda e: e.self_device_time_total, reverse=True)[:25]:
         print(json.dumps({"device_op": e.key[:100],
@@ -268,13 +287,17 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="print torch.profiler device-time breakdowns of a "
-                        "bucket-16 request and of full-width train steps")
+                        "bucket-16 request and of full-width train and eval steps")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-    from point2cyl_torch.core.config import BackboneConfig, TrainConfig
+    from point2cyl_torch.core.checkpoint import CheckpointManager
+    from point2cyl_torch.core.config import BackboneConfig, EvalConfig, TrainConfig
+    from point2cyl_torch.data.pipeline import InputPipeline
+    from point2cyl_torch.data.synthetic import generate_dataset
+    from point2cyl_torch.eval import evaluator
     from point2cyl_torch.models.backbone import Backbone, build_backbone
     from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn, cuda_scatter
     from point2cyl_torch.ops.grouping import (ball_query_plain, group_scatter_plain,
@@ -1150,7 +1173,9 @@ def main() -> None:
                       "ms_per_step": statistics.median(step_ms), "steps": len(step_ms),
                       "card": card}), flush=True)
     if args.profile:
-        profile_steps(trainer, pipeline, epoch_generator(tcfg.seed, 4, dev), card,
+        gen = epoch_generator(tcfg.seed, 4, dev)
+        batches = pipeline.epochs(TB, gen)
+        profile_steps("train step", lambda: trainer.train_step(next(batches), gen), card,
                       statistics.median(step_ms))
 
     # the loss's gradient with respect to the input clouds (a saliency map
@@ -1176,22 +1201,24 @@ def main() -> None:
     trainer.optimizer.zero_grad(set_to_none=True)
     del trainer, pipeline, cloud, heads, x_raw, w_raw
 
-    # two epochs through the CLI's train(), then a resume that continues
-    with tempfile.TemporaryDirectory() as logdir:
-        cli_cfg = dataclasses.replace(tcfg, num_epochs=2, logdir=logdir)
-        done = train(cli_cfg, cfg.num_points, K, synthetic=8, device=dev)
-        check(done.step == 4, f"2 epochs of 8 clouds at B=4 took {done.step} steps")
-        resumed = train(dataclasses.replace(cli_cfg, num_epochs=3, resume=True),
-                        cfg.num_points, K, synthetic=8, device=dev)
-        check(resumed.step == 6, f"the resumed run ended at step {resumed.step}, not 6")
-        with open(os.path.join(logdir, "log.txt")) as f:
-            log = f.read()
-        check("epoch 2, step 4" in log and "> Epoch 0003 done" in log
-              and "> Epoch 0001 done" in log.split("Resumed from")[0],
-              "the resumed run did not continue at epoch 3, step 4")
-        print(json.dumps({"check": "cli resume", "steps": [done.step, resumed.step]}),
-              flush=True)
-        del done, resumed
+    # two epochs through the CLI's train(), then a resume that continues;
+    # phase 7 evaluates its checkpoint
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    logdir = os.path.join(work.name, "cli_run")
+    cli_cfg = dataclasses.replace(tcfg, num_epochs=2, logdir=logdir)
+    done = train(cli_cfg, cfg.num_points, K, synthetic=8, device=dev)
+    check(done.step == 4, f"2 epochs of 8 clouds at B=4 took {done.step} steps")
+    resumed = train(dataclasses.replace(cli_cfg, num_epochs=3, resume=True),
+                    cfg.num_points, K, synthetic=8, device=dev)
+    check(resumed.step == 6, f"the resumed run ended at step {resumed.step}, not 6")
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    check("epoch 2, step 4" in log and "> Epoch 0003 done" in log
+          and "> Epoch 0001 done" in log.split("Resumed from")[0],
+          "the resumed run did not continue at epoch 3, step 4")
+    print(json.dumps({"check": "cli resume", "steps": [done.step, resumed.step]}),
+          flush=True)
+    del done, resumed
 
     # ---- 6. training at N=512, B=8 (the A/B protocol) ----------------------
     small = build_trainer(dataclasses.replace(tcfg, batch_size=8), 512, K, dev)
@@ -1213,8 +1240,95 @@ def main() -> None:
     print(json.dumps({"train": "N=512 B=8", "steps": len(aux512), "loss": totals512,
                       "launches": launches_512}), flush=True)
 
+    # ---- 7. evaluation ------------------------------------------------------
+    per_eval_batch = dict(per_forward)
+    eval_argv = ["--synthetic", "8", "--num_point", str(cfg.num_points), "--K", str(K),
+                 "--batch_size", str(TB), "--no_implicit", "--logdir", logdir]
+    for fn in counters.values():
+        fn.launches = 0
+    means = evaluator.cli_main(eval_argv)
+    torch.cuda.synchronize()
+    eval_launches = {name: fn.launches for name, fn in counters.items()}
+    with open(os.path.join(logdir, "log_evaluate.txt")) as f:
+        eval_log = f.read().splitlines()
+    check(eval_log[0] == f"Restored backbone from {logdir}/model",
+          f"the evaluator did not restore the CLI checkpoint: {eval_log[0]!r}")
+    block = eval_log[eval_log.index("=" * 20) + 1:]
+    check(len(block) == 8 and block[0] == "Num evaluated= 8"
+          and all(np.isfinite(float(line.rsplit("=", 1)[1])) for line in block),
+          f"metric block {block}")
+    for name, count in eval_launches.items():
+        check(count == per_eval_batch[name] * 2,
+              f"eval: {name} launched {count} times over 2 batches, "
+              f"expected {per_eval_batch[name] * 2}")
+    print(json.dumps({"eval": "full width, cli_main", "clouds": 8, "batch": TB,
+                      "launches": eval_launches, **means}), flush=True)
+
+    # the same batches through evaluate() with every *_impl="plain"
+    state = CheckpointManager(logdir).load("model", dev)["model"]
+    eval_cfg = EvalConfig(num_sketch_samples=SK)
+    # the trainer's backbone is cfg: full width, heads [3, 2K], exact
+    eval_model = build_backbone(cfg, state_dict=state, device=dev)
+    eval_plain = build_backbone(plain_cfg, state_dict=state, device=dev)
+    eval_pipe = InputPipeline(generate_dataset(8, resolution=cfg.num_points,
+                                               max_instances=K, num_sketch_points=SK,
+                                               seed=1), cfg.num_points, K, dev)
+    eval_batches = list(eval_pipe.epochs(TB, torch.Generator(dev).manual_seed(0),
+                                         shuffle=False))
+    quiet = lambda msg: None  # noqa: E731
+    got = evaluator.evaluate(eval_model, eval_batches, eval_cfg, TB, log=quiet)
+    want = evaluator.evaluate(eval_plain, eval_batches, eval_cfg, TB, log=quiet)
+    eval_err = {name: abs(got[name] - want[name]) for name in EVAL_ATOL}
+    for name, atol in EVAL_ATOL.items():
+        check(eval_err[name] <= atol, f"eval {name}: kernels {got[name]} vs plain "
+              f"{want[name]}, tolerance {atol}")
+    print(json.dumps({"check": "eval vs plain", "abs_err": eval_err,
+                      "atol": EVAL_ATOL}), flush=True)
+    del eval_plain
+
+    # clouds per second of evaluate() and the ms of one eval step
+    eval_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluator.evaluate(eval_model, eval_batches, eval_cfg, TB, log=quiet)
+        eval_s.append(time.perf_counter() - t0)
+    step = evaluator.make_eval_step(eval_model, eval_cfg, SK)
+    gen = torch.Generator(dev).manual_seed(0)
+    step_eval_ms = time_ms(lambda: step(eval_batches[0], gen))
+    print(json.dumps({"rate": "evaluate", "batch": TB, "num_points": cfg.num_points,
+                      "clouds_per_s": 8 / statistics.median(eval_s),
+                      "evaluate_s": eval_s, "ms_per_eval_step": step_eval_ms,
+                      "card": card}), flush=True)
+    if args.profile:
+        profile_steps("eval step", lambda: step(eval_batches[0], gen), card, step_eval_ms)
+    del eval_model, eval_batches, eval_pipe
+
+    # the N=512 protocol: phase 6's weights on the committed held-out pack
+    logdir512 = os.path.join(work.name, "n512")
+    CheckpointManager(logdir512).save("model", {"model": small.model.state_dict()})
+    per_eval_512 = dict(per_eval_batch, ball_query=1, ball_query_grouped=0)
+    for fn in counters.values():
+        fn.launches = 0
+    means512 = evaluator.cli_main(["--data_dir", "ab_data", "--data_split", "test",
+                                   "--num_point", "512", "--K", str(K), "--batch_size",
+                                   "8", "--no_implicit", "--seed", "0",
+                                   "--logdir", logdir512])
+    torch.cuda.synchronize()
+    eval_launches_512 = {name: fn.launches for name, fn in counters.items()}
+    batches512 = 32 // 8
+    for name, count in eval_launches_512.items():
+        check(count == per_eval_512[name] * batches512,
+              f"eval N=512: {name} launched {count} times over {batches512} batches")
+    check(all(np.isfinite(v) for v in means512.values()), f"eval N=512 means {means512}")
+    print(json.dumps({"eval": "N=512 B=8, ab_data/test.h5", "launches": eval_launches_512,
+                      **means512}), flush=True)
+    work.cleanup()
+
     for row in rows:
         kernel = row["name"].split("@")[0]
+        row["eval_launches"] = {"n8192": eval_launches[kernel],
+                                "n512": eval_launches_512[kernel]}
         if kernel == "ball_query":
             row["launches"] = launches_512[kernel]
         elif kernel == "ball_query_grouped_backward":

@@ -1,5 +1,6 @@
-"""Backbone and trainer configuration (the port's own copies of the JAX
-``BackboneConfig``, ``LossWeights`` and ``TrainConfig``, same fields and
+"""Backbone, trainer and evaluator configuration (the port's own copies of
+the JAX ``BackboneConfig``, ``LossWeights``, ``TrainConfig`` and
+``EvalConfig``, same fields and
 defaults, less what the port does not run: the multi-device axis, the
 joint trainer's loss weights and the blocked ball query's oversampling).
 
@@ -124,3 +125,26 @@ class TrainConfig:
         if self.ballquery_impl not in IMPLS:
             raise ValueError(f"ballquery_impl must be one of {IMPLS}, "
                              f"got {self.ballquery_impl!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Evaluator oracle-substitution flags (reference: eval.py:53-69 uses
+    store_false so pred_* default ON)."""
+
+    pred_seg: bool = True
+    pred_normal: bool = True
+    pred_bb: bool = True
+    use_gt_normals: bool = False
+    use_gt_segmentation: bool = False
+    use_gt_bb: bool = False
+    use_gt_sketch: bool = False
+    use_gt_im: bool = False
+    use_whole_pc: bool = False
+    use_extrusion_axis_feat: bool = False
+    num_sketch_samples: int = 2048
+    norm_eig: bool = False
+    # Perturb input points along their normals before the forward pass
+    # (reference eval.py:239-240).
+    add_noise: bool = False
+    noise_sigma: float = 0.01

@@ -4,8 +4,9 @@
 Dataset keys follow ``utils.py:1159-1315``: point_cloud, normals,
 extrusion_labels, base_barrel_labels, n_instances, extrusion_axes,
 extrusion_distances, and optionally extrusion_operation, extrusion_centers,
-extrusion_extents, sketches, sketches_norms. ``h5py`` is imported by the
-loader only, so the synthetic path runs where it is not installed.
+extrusion_extents, sketches, sketches_norms. The files are read by the
+port's own numpy reader (``data/h5_reader.py``): the card's machine has
+no ``h5py``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+from point2cyl_torch.data.h5_reader import read_datasets
 
 _REQUIRED = (
     "point_cloud",
@@ -85,15 +88,11 @@ def load_h5(path: str) -> PackedDataset:
     """Read a reference-schema h5 file; all optional keys that exist are
     loaded (superset of the reference's flag-gated loads,
     ``utils.py:1195-1230,1276-1315``)."""
-    import h5py
-
-    kwargs = {}
-    with h5py.File(path, "r") as f:
-        for key in _REQUIRED:
-            kwargs[key] = f[key][:]
-        for key in _OPTIONAL:
-            if key in f:
-                kwargs[key] = f[key][:]
-    ds = PackedDataset(**kwargs)
+    arrays = read_datasets(path)
+    missing = [key for key in _REQUIRED if key not in arrays]
+    if missing:
+        raise KeyError(f"{path} lacks {missing}")
+    ds = PackedDataset(**{key: arrays[key] for key in _REQUIRED + _OPTIONAL
+                          if key in arrays})
     ds.validate()
     return ds

@@ -112,10 +112,16 @@ class InputPipeline:
                                            self.num_points, len(rows))
         return self.gather(rows, sub_idx)
 
-    def epochs(self, batch_size: int, generator: torch.Generator) -> Iterator[dict]:
-        """One epoch of batches in an order drawn from ``generator``; the
-        ragged tail is dropped, as a drop_last loader does."""
-        order = torch.randperm(self.num_samples, generator=generator,
-                               device=generator.device)
+    def epochs(self, batch_size: int, generator: torch.Generator,
+               shuffle: bool = True) -> Iterator[dict]:
+        """One epoch of batches in an order drawn from ``generator``, or in
+        row order without ``shuffle`` (the evaluator's); each cloud's
+        subsample is drawn from ``generator`` either way. The ragged tail
+        is dropped, as a drop_last loader does."""
+        if shuffle:
+            order = torch.randperm(self.num_samples, generator=generator,
+                                   device=generator.device)
+        else:
+            order = torch.arange(self.num_samples, device=generator.device)
         for i in range(self.num_samples // batch_size):
             yield self.batch(order[i * batch_size:(i + 1) * batch_size], generator)
