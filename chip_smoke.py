@@ -90,13 +90,35 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    ``evaluate`` and the ms of one eval step. Then the N=512 protocol:
    phase 6's weights evaluated on ``ab_data/test.h5`` at B=8, SA1 through
    the idx-only ball query once a batch.
+8. The implicit stack at full width: ``ImplicitNet(d_in=258)`` with
+   geometric init and the sketch encoders (4-channel, and the 7-channel
+   whole-cloud one) with seeded weights and BN statistics, written as an
+   IGR-layout and a joint-layout checkpoint. Serving: the export CLI
+   (``python -m point2cyl_torch.serve.export``) on phase 5's checkpoint
+   with and without ``--im_logdir`` (buckets 1, 4, 16), requests of 1, 5
+   and 16 clouds through both sessions: latents (n, 8, 256), unit norm
+   and float16 against ``exact_latents`` within 1e-3, labels and geometry
+   equal to the artifact without the encoder, the launches per request
+   unchanged, the kernel path against every ``*_impl="plain"`` (heads
+   1e-4, labels on 0.999 of points, latents 1e-3 where a cloud's labels
+   agree), and decompositions per second at bucket 16 with latents
+   beside the rate without them. Evaluation: ``cli_main`` with the
+   implicit stack in the default mode and with ``--use_whole_pc
+   --use_extrusion_axis_feat`` (the restore line, a finite block with
+   non-zero fitting lines, 2 FPS, 1 SA1, 1 SA2 and 2 3-NN launches a
+   batch), the same batches against every ``*_impl="plain"`` within the
+   CPU tests' tolerances, clouds per second of ``evaluate``, the ms of an
+   eval step in both modes, its peak memory, and the decoder alone on
+   the fitting metrics' 327,680 points against its float32 bound.
 
 The line before the last is the kernel table as JSON (each row also
-with its launches in the two evaluations, ``eval_launches``); the last
-line is ``{"ok": true, "device": {...}}``.
+with its launches in the evaluations, ``eval_launches``, and in the
+requests with latents, ``serve_latents_launches``); the last line is
+``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
-full-width train steps and of full-width eval steps.
+full-width train steps and of full-width eval steps without and with the
+implicit stack.
 """
 
 from __future__ import annotations
@@ -122,6 +144,8 @@ SK = 2048  # sketch samples per instance, the JAX export's default
 # tests/test_torch_eval.py holds the port against JAX
 EVAL_ATOL = {"miou": 1e-5, "bb_accuracy": 1e-5, "normal_error_deg": 2e-3,
              "axis_error_deg": 2e-3, "centroid_difference": 1e-5}
+# the fitting metrics' means, as tests/test_torch_eval.py holds them
+EVAL_FIT_ATOL = {"fit_cyl_loss": 1e-4, "fit_global_loss": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TIMED_RUNS = 25
@@ -293,16 +317,19 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
 
-    from point2cyl_torch.core.checkpoint import CheckpointManager
+    from point2cyl_torch.core.checkpoint import CheckpointManager, restore_implicit_stack
     from point2cyl_torch.core.config import BackboneConfig, EvalConfig, TrainConfig
     from point2cyl_torch.data.pipeline import InputPipeline
     from point2cyl_torch.data.synthetic import generate_dataset
     from point2cyl_torch.eval import evaluator
     from point2cyl_torch.models.backbone import Backbone, build_backbone
+    from point2cyl_torch.models.implicit import EncoderBatchNorm, ImplicitNet, PointNetEncoder
+    from point2cyl_torch.models.layers import Dense
     from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps, cuda_knn, cuda_scatter
     from point2cyl_torch.ops.grouping import (ball_query_plain, group_scatter_plain,
                                               index_points, radius_squared,
                                               three_nn_weights_plain)
+    from point2cyl_torch.serve import export as export_cli
     from point2cyl_torch.serve.export import _backbone_forward, export_artifact
     from point2cyl_torch.serve.session import InferenceSession
     from point2cyl_torch.train import steps
@@ -310,6 +337,7 @@ def main() -> None:
                                                 epoch_generator, train)
 
     # ---- 1. set-up -------------------------------------------------------
+    script_t0 = time.perf_counter()
     card = card_line()
     t0 = time.perf_counter()
     _build.library()
@@ -1284,7 +1312,6 @@ def main() -> None:
               f"{want[name]}, tolerance {atol}")
     print(json.dumps({"check": "eval vs plain", "abs_err": eval_err,
                       "atol": EVAL_ATOL}), flush=True)
-    del eval_plain
 
     # clouds per second of evaluate() and the ms of one eval step
     eval_s = []
@@ -1302,7 +1329,6 @@ def main() -> None:
                       "card": card}), flush=True)
     if args.profile:
         profile_steps("eval step", lambda: step(eval_batches[0], gen), card, step_eval_ms)
-    del eval_model, eval_batches, eval_pipe
 
     # the N=512 protocol: phase 6's weights on the committed held-out pack
     logdir512 = os.path.join(work.name, "n512")
@@ -1323,12 +1349,221 @@ def main() -> None:
     check(all(np.isfinite(v) for v in means512.values()), f"eval N=512 means {means512}")
     print(json.dumps({"eval": "N=512 B=8, ab_data/test.h5", "launches": eval_launches_512,
                       **means512}), flush=True)
+
+    # ---- 8. the implicit stack at full width -------------------------------
+    # an IGR checkpoint of ImplicitNet and the 4-channel sketch encoder, and
+    # a joint-layout one with the 7-channel whole-cloud encoder, from a seed
+    gen8 = torch.Generator().manual_seed(8)
+    implicit8 = ImplicitNet(d_in=258)
+    implicit8.reset_parameters(gen8)
+    im_dirs = {}
+    for key, encoder8, names in (
+            ("sketch", PointNetEncoder(256, 2, with_normals=True),
+             ("model", "model_state_dict", "encoder_state_dict")),
+            ("whole pc, axis", PointNetEncoder(256, 7, with_normals=False),
+             ("im_model", "implicit_net", "pn_encoder"))):
+        encoder8.reset_parameters(gen8)
+        with torch.no_grad():
+            for m in encoder8.modules():
+                if isinstance(m, EncoderBatchNorm):
+                    m.weight.uniform_(0.5, 1.5, generator=gen8)
+                    m.bias.normal_(0.0, 0.1, generator=gen8)
+                    m.running_mean.normal_(0.0, 0.1, generator=gen8)
+                    m.running_var.uniform_(0.5, 1.5, generator=gen8)
+        im_dirs[key] = (os.path.join(work.name, key.replace(" ", "_").replace(",", "")),
+                        names[0])
+        os.makedirs(im_dirs[key][0])
+        torch.save({names[1]: implicit8.state_dict(), names[2]: encoder8.state_dict()},
+                   os.path.join(im_dirs[key][0], f"{names[0]}.pth"))
+
+    # serving: the export CLI on phase 5's checkpoint, with and without the
+    # encoder, and the same requests through both sessions
+    arts = {name: os.path.join(work.name, f"{name}.p2ct") for name in ("lat", "geo")}
+    export_argv = ["--logdir", logdir, "--num_point", str(cfg.num_points), "--K", str(K),
+                   "--num_sk_point", str(SK), "--buckets", "1", "4", "16"]
+    meta_lat = export_cli.cli_main(export_argv + ["--out", arts["lat"], "--im_logdir",
+                                                  im_dirs["sketch"][0]])
+    meta_geo = export_cli.cli_main(export_argv + ["--out", arts["geo"]])
+    check(meta_lat["with_latents"] and meta_lat["latent_size"] == 256
+          and not meta_geo["with_latents"], "export CLI metas")
+    sess_lat, sess_geo = InferenceSession(arts["lat"]), InferenceSession(arts["geo"])
+    check(sess_lat.encoder is not None and sess_geo.encoder is None, "session encoders")
+    for fn in counters.values():
+        fn.launches = 0
+    lat_results = {n: sess_lat.decompose(p) for n, p in requests.items()}
+    torch.cuda.synchronize()
+    lat_launches = {name: fn.launches for name, fn in counters.items()}
+    for name, count in lat_launches.items():
+        check(count == per_forward[name] * forwards,
+              f"latents: {name} launched {count} times over {forwards} forwards, "
+              f"expected {per_forward[name] * forwards}")
+    lat_err = norm_err = 0.0
+    for n, p in requests.items():
+        got, geo = lat_results[n], sess_geo.decompose(p)
+        exact = sess_lat.decompose(p, exact_latents=True)
+        check(got["latents"].shape == (n, K, 256) and bool(np.isfinite(got["latents"]).all()),
+              f"decompose({n}) latents {got['latents'].shape}")
+        norm_err = max(norm_err, float(np.abs(np.linalg.norm(got["latents"], axis=-1)
+                                              - 1.0).max()))
+        lat_err = max(lat_err, float(np.abs(got["latents"] - exact["latents"]).max()))
+        for key, val in geo.items():
+            check(np.array_equal(got[key], val) and np.array_equal(exact[key], val),
+                  f"decompose({n}) {key} differs from the artifact without the encoder")
+    check(norm_err <= 1e-3, f"latents not unit norm: {norm_err}")
+    check(lat_err <= 1e-3, f"float16 latents vs exact_latents: {lat_err}")
+
+    # the kernel path against every *_impl="plain", on the card: heads
+    # within 1e-4, labels on >= 0.999 of points, and the latents of each
+    # cloud whose labels all agree within 1e-3 (float32 through the
+    # encoder from projections within ~1e-5)
+    state = CheckpointManager(logdir).load("model", dev)["model"]
+    plain8 = build_backbone(plain_cfg, state_dict=state, device=dev)
+    with torch.inference_mode():
+        got = _backbone_forward(sess_lat.model, pts16, k=K, num_sk_points=SK,
+                                encoder=sess_lat.encoder)
+        want = _backbone_forward(plain8, pts16, k=K, num_sk_points=SK,
+                                 encoder=sess_lat.encoder)
+    for key in ("x_raw", "w_raw"):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-4,
+                                   msg=lambda m: f"latents: plain vs kernel {key}: {m}")
+    agree8 = float((got["labels"] == want["labels"]).float().mean())
+    check(agree8 >= 0.999, f"latents: labels agree on {agree8:.5f} of points vs plain")
+    same = (got["labels"] == want["labels"]).all(dim=-1)
+    check(int(same.sum()) >= B // 2, f"only {int(same.sum())} clouds' labels agree")
+    plain_lat_err = float((got["latents"] - want["latents"])[same].abs().max())
+    check(plain_lat_err <= 1e-3, f"latents kernel vs plain: {plain_lat_err}")
+    rate_lat = sess_lat.benchmark(batch=B, iters=20)
+    rate_geo = sess_geo.benchmark(batch=B, iters=20)
+    # the encoder alone on a bucket's 128 sketches of 2,048 points
+    enc_in = torch.randn(B * K, SK, 4, device=dev)
+    enc_macs = sum(m.weight.shape[0] * m.weight.shape[1]
+                   for m in sess_lat.encoder.modules() if isinstance(m, Dense))
+    with torch.inference_mode():
+        enc_ms = time_ms(lambda: sess_lat.encoder(enc_in), runs=10)
+    enc_flop = 2.0 * (enc_macs * B * K * SK + 1024 * 256 * B * K)
+    del enc_in
+    print(json.dumps({"slice": "decompose with latents", "requests": [1, 5, 16],
+                      "launches": lat_launches, "fp16_vs_exact_max_abs_err": lat_err,
+                      "unit_norm_max_err": norm_err, "plain_label_agreement": agree8,
+                      "plain_latent_max_abs_err": plain_lat_err,
+                      "plain_clouds_compared": int(same.sum())}), flush=True)
+    print(json.dumps({"rate": "decompose with latents", **rate_lat,
+                      "without_latents": rate_geo["decompositions_per_sec"],
+                      "ms_per_request_without_latents": rate_geo["ms_per_request"],
+                      "phase4_without_latents": rate["decompositions_per_sec"],
+                      "encoder_ms": enc_ms, "encoder_flop": enc_flop,
+                      "encoder_flop_bound_ms": enc_flop / FP32_OPS_PER_S * 1e3,
+                      "card": card}), flush=True)
+    if args.profile:
+        profile_steps("decompose(16) with latents", lambda: sess_lat.decompose(requests[16]),
+                      card, rate_lat["ms_per_request"])
+    del sess_lat, sess_geo, plain8, got, want
+
+    # evaluation: cli_main with the implicit stack, in the default mode and
+    # on the whole cloud with its axis feature
+    im_argv = ["--synthetic", "8", "--num_point", str(cfg.num_points), "--K", str(K),
+               "--batch_size", str(TB), "--num_sk_point", str(SK), "--logdir", logdir]
+    im_flags = {"sketch": [], "whole pc, axis": ["--use_whole_pc",
+                                                 "--use_extrusion_axis_feat"]}
+    im_launches = {}
+    for mode, flags in im_flags.items():
+        im_dir, name = im_dirs[mode]
+        for fn in counters.values():
+            fn.launches = 0
+        means8 = evaluator.cli_main(im_argv + flags + ["--im_logdir", im_dir])
+        torch.cuda.synchronize()
+        im_launches[mode] = {name_: fn.launches for name_, fn in counters.items()}
+        with open(os.path.join(logdir, "log_evaluate.txt")) as f:
+            eval_log = f.read().splitlines()
+        check(eval_log[1] == f"Restored implicit stack from {im_dir}/{name}",
+              f"{mode}: the evaluator did not restore the implicit stack: {eval_log[1]!r}")
+        block = eval_log[eval_log.index("=" * 20) + 1:]
+        values = [float(line.rsplit("=", 1)[1]) for line in block]
+        check(len(block) == 8 and block[0] == "Num evaluated= 8"
+              and all(np.isfinite(values)) and values[-2] > 0 and values[-1] > 0,
+              f"{mode}: metric block {block}")
+        for name_, count in im_launches[mode].items():
+            check(count == per_eval_batch[name_] * 2,
+                  f"eval {mode}: {name_} launched {count} times over 2 batches, "
+                  f"expected {per_eval_batch[name_] * 2}")
+        print(json.dumps({"eval": f"full width, implicit stack, {mode}", "clouds": 8,
+                          "batch": TB, "launches": im_launches[mode], **means8}),
+              flush=True)
+
+    # the same batches with every *_impl="plain", in both modes, within
+    # the CPU parity tests' tolerances
+    stacks = {}
+    for mode, flags in im_flags.items():
+        cfg8 = EvalConfig(num_sketch_samples=SK, use_whole_pc=bool(flags),
+                          use_extrusion_axis_feat=bool(flags))
+        implicit8, encoder8 = ImplicitNet(d_in=258), evaluator.encoder_for(cfg8)
+        check(restore_implicit_stack(im_dirs[mode][0], implicit8, encoder8)
+              == im_dirs[mode][1], f"{mode}: restore")
+        stacks[mode] = (cfg8, implicit8.to(dev).eval(), encoder8.to(dev).eval())
+        fit_got = evaluator.evaluate(eval_model, eval_batches, cfg8, TB, log=quiet,
+                                     implicit=stacks[mode][1], encoder=stacks[mode][2])
+        fit_want = evaluator.evaluate(eval_plain, eval_batches, cfg8, TB, log=quiet,
+                                      implicit=stacks[mode][1], encoder=stacks[mode][2])
+        fit_err = {name: abs(fit_got[name] - fit_want[name]) for name in EVAL_FIT_ATOL}
+        for name, atol in EVAL_FIT_ATOL.items():
+            check(fit_err[name] <= atol, f"eval {mode} {name}: kernels {fit_got[name]} "
+                  f"vs plain {fit_want[name]}, tolerance {atol}")
+        print(json.dumps({"check": f"eval with implicit stack vs plain, {mode}",
+                          "abs_err": fit_err, "atol": EVAL_FIT_ATOL}), flush=True)
+    del eval_plain
+
+    # clouds per second of evaluate() and the ms of one eval step with the
+    # implicit stack; the decoder alone on the fitting metrics' points
+    cfg8, implicit8, encoder8 = stacks["sketch"]
+    eval8_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluator.evaluate(eval_model, eval_batches, cfg8, TB, log=quiet,
+                           implicit=implicit8, encoder=encoder8)
+        eval8_s.append(time.perf_counter() - t0)
+    gen = torch.Generator(dev).manual_seed(0)
+    step8_ms = {}
+    for mode, (cfg_m, implicit_m, encoder_m) in stacks.items():
+        step_m = evaluator.make_eval_step(eval_model, cfg_m, SK, implicit_m, encoder_m)
+        step8_ms[mode] = time_ms(lambda: step_m(eval_batches[0], gen), runs=10)
+    torch.cuda.reset_peak_memory_stats()
+    step8 = evaluator.make_eval_step(eval_model, cfg8, SK, implicit8, encoder8)
+    step8(eval_batches[0], gen)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    sdf_points = TB * K * (SK + cfg.num_points)
+    macs = sum(m.in_features * m.out_features for m in implicit8.modules()
+               if isinstance(m, torch.nn.Linear))
+    with torch.no_grad():
+        x_cyl = torch.randn(TB * K, SK, 258, device=dev)
+        x_glob = torch.randn(TB * K, cfg.num_points, 258, device=dev)
+        sdf_ms = time_ms(lambda: (implicit8(x_cyl), implicit8(x_glob)), runs=10)
+    del x_cyl, x_glob
+    sdf_flop = 2.0 * macs * sdf_points
+    print(json.dumps({"rate": "evaluate with implicit stack", "batch": TB,
+                      "num_points": cfg.num_points, "num_sk_point": SK,
+                      "clouds_per_s": 8 / statistics.median(eval8_s), "evaluate_s": eval8_s,
+                      "ms_per_eval_step": step8_ms, "peak_gib_eval_step": peak_gib,
+                      "card": card}), flush=True)
+    print(json.dumps({"gemm": "ImplicitNet on the fitting metrics' points, B=4",
+                      "points": sdf_points, "macs_per_point": macs, "flop": sdf_flop,
+                      "ms": sdf_ms, "bound_ms": sdf_flop / FP32_OPS_PER_S * 1e3,
+                      "tflop_per_s": sdf_flop / sdf_ms / 1e9, "card": card}), flush=True)
+    if args.profile:
+        profile_steps("eval step with implicit stack", lambda: step8(eval_batches[0], gen),
+                      card, step8_ms["sketch"])
+    del eval_model, eval_batches, eval_pipe, stacks, step8
     work.cleanup()
+    print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
     for row in rows:
         kernel = row["name"].split("@")[0]
         row["eval_launches"] = {"n8192": eval_launches[kernel],
-                                "n512": eval_launches_512[kernel]}
+                                "n512": eval_launches_512[kernel],
+                                "n8192_implicit": im_launches["sketch"][kernel],
+                                "n8192_implicit_whole_pc": im_launches["whole pc, axis"][kernel]}
+        row["serve_latents_launches"] = lat_launches[kernel]
         if kernel == "ball_query":
             row["launches"] = launches_512[kernel]
         elif kernel == "ball_query_grouped_backward":

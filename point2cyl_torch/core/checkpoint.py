@@ -7,6 +7,13 @@ Reference cadence (``train_Point2Cyl_without_sketch.py:395-430``):
 plus what an exact resume needs: ``optimizer`` (Adam's moments and
 count), ``step``, ``epoch`` and ``best_loss``. The backbone weights load
 into the reference model as they are.
+
+The implicit stack (decoder and sketch encoder) is read from
+``<im_logdir>/model.pth``, then ``im_model.pth``, in either of the
+reference's layouts (``torch_compat.py:3-7``): the IGR pretrainer's
+``{"model_state_dict", "encoder_state_dict"}`` (``eval.py:206-210``) or
+the joint trainer's ``{"implicit_net", "pn_encoder"}``
+(``train_Point2Cyl.py:753-777``).
 """
 
 from __future__ import annotations
@@ -48,3 +55,50 @@ class CheckpointManager:
             self.save(f"checkpoint_{epoch:04d}", full)
             self.save("model", full)
         return best_loss
+
+
+IMPLICIT_NAMES = ("model", "im_model")
+IMPLICIT_LAYOUTS = (("model_state_dict", "encoder_state_dict"),
+                    ("implicit_net", "pn_encoder"))
+
+
+def _first_checkpoint(logdir: str, names: tuple[str, ...]) -> tuple[str, dict] | None:
+    """The name and contents (on the CPU) of the first ``<name>.pth`` in
+    ``logdir``, or None where there is none."""
+    for name in names:
+        path = os.path.join(logdir, f"{name}.pth")
+        if os.path.isfile(path):
+            return name, torch.load(path, map_location="cpu", weights_only=True)
+    return None
+
+
+def restore_backbone(logdir: str, model: torch.nn.Module) -> str | None:
+    """Load ``model`` from ``<logdir>/model.pth``, else ``pc_model.pth``
+    (``{"model": state_dict}``) with ``strict=True``. Returns the name, or
+    None where there is neither (the model keeps its weights)."""
+    found = _first_checkpoint(logdir, ("model", "pc_model"))
+    if found is None:
+        return None
+    model.load_state_dict(found[1]["model"], strict=True)
+    return found[0]
+
+
+def restore_implicit_stack(im_logdir: str, implicit: torch.nn.Module | None,
+                           encoder: torch.nn.Module | None) -> str | None:
+    """Load the decoder and the encoder, each where given, from the first
+    of ``model.pth`` and ``im_model.pth`` in ``im_logdir`` with
+    ``strict=True``: mismatched keys or shapes, or a file in neither
+    layout, raise. Returns the name, or None where there is neither (the
+    modules keep their weights)."""
+    found = _first_checkpoint(im_logdir, IMPLICIT_NAMES)
+    if found is None:
+        return None
+    name, state = found
+    for dec_key, enc_key in IMPLICIT_LAYOUTS:
+        if dec_key in state and enc_key in state:
+            for module, key in ((implicit, dec_key), (encoder, enc_key)):
+                if module is not None:
+                    module.load_state_dict(state[key], strict=True)
+            return name
+    raise KeyError(f"{im_logdir}/{name}.pth holds neither implicit layout "
+                   f"{IMPLICIT_LAYOUTS}: keys {sorted(state)}")

@@ -1,4 +1,5 @@
-"""Backbone weights from the JAX package's variable trees.
+"""Weights from the JAX package's variable trees: the backbone, the
+implicit decoder and the sketch encoder.
 
 ``backbone_state_dict_from_jax`` takes the JAX backbone's ``params`` and
 ``batch_stats`` as nested dicts of numpy arrays (what
@@ -17,6 +18,13 @@ reference ``.pth`` too. The mapping (flax scope -> reference module):
 Dense kernels (in, out) become conv weights (out, in, 1, 1) for the
 set-abstraction stages (Conv2d in the reference) and (out, in, 1) for the
 rest (Conv1d).
+
+``implicit_state_dict_from_jax`` maps the JAX ``ImplicitNet``'s
+``Dense_{i}`` to the reference's ``lin{i}`` (Linear weights (out, in)),
+and ``encoder_state_dict_from_jax`` the JAX ``PointNetEncoder``'s
+``TorchDense_{j}`` / ``TorchBatchNorm_{j}`` to the reference's
+``mlp1`` / ``mlp2`` Sequential indices (Conv1d weights (out, in, 1),
+BatchNorm1d with ``num_batches_tracked``) and ``fc``.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from point2cyl_torch.models.implicit import ENCODER_BNS, ENCODER_CONVS
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -104,7 +114,53 @@ def backbone_state_dict_from_jax(
             out[f"bn1.{leaf}"] = val
         else:
             raise KeyError(f"unexpected backbone statistic {key}")
-    return {
-        k: torch.tensor(np.asarray(v, dtype=np.float32))
-        for k, v in out.items()
-    }
+    return _tensors(out)
+
+
+def _tensors(out: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def implicit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``ImplicitNet`` ``params`` -> the port's ``ImplicitNet``
+    state_dict (``lin{i}.weight`` (out, in), ``lin{i}.bias``)."""
+    out: dict[str, np.ndarray] = {}
+    for key, val in _flatten(params).items():
+        layer, leaf = key.split("/")
+        if not layer.startswith("Dense_") or leaf not in ("kernel", "bias"):
+            raise KeyError(f"unexpected implicit parameter {key}")
+        i = int(layer.split("_")[1])
+        out[f"lin{i}.weight" if leaf == "kernel" else f"lin{i}.bias"] = (
+            val.T if leaf == "kernel" else val)
+    return _tensors(out)
+
+
+def encoder_state_dict_from_jax(
+    params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+) -> dict[str, torch.Tensor]:
+    """JAX ``PointNetEncoder`` ``params``/``batch_stats`` -> the port's
+    ``PointNetEncoder`` state_dict, ``num_batches_tracked`` 0."""
+    flat_p = _flatten(params)
+    flat_s = _flatten(batch_stats)
+    fc = len(ENCODER_CONVS)
+    expected = ({f"TorchDense_{j}/{leaf}" for j in range(fc + 1)
+                 for leaf in ("kernel", "bias")}
+                | {f"TorchBatchNorm_{j}/{leaf}" for j in range(fc)
+                   for leaf in ("scale", "bias")})
+    if set(flat_p) != expected:
+        raise KeyError(f"unexpected encoder parameters {sorted(set(flat_p) ^ expected)}")
+    out: dict[str, np.ndarray] = {}
+    for j, (mod, idx) in enumerate(ENCODER_CONVS):
+        out[f"{mod}.{idx}.weight"] = _conv_weight(flat_p[f"TorchDense_{j}/kernel"], 3)
+        out[f"{mod}.{idx}.bias"] = flat_p[f"TorchDense_{j}/bias"]
+    for j, (mod, idx) in enumerate(ENCODER_BNS):
+        out[f"{mod}.{idx}.weight"] = flat_p[f"TorchBatchNorm_{j}/scale"]
+        out[f"{mod}.{idx}.bias"] = flat_p[f"TorchBatchNorm_{j}/bias"]
+        out[f"{mod}.{idx}.running_mean"] = flat_s[f"TorchBatchNorm_{j}/mean"]
+        out[f"{mod}.{idx}.running_var"] = flat_s[f"TorchBatchNorm_{j}/var"]
+    out["fc.weight"] = flat_p[f"TorchDense_{fc}/kernel"].T
+    out["fc.bias"] = flat_p[f"TorchDense_{fc}/bias"]
+    sd = _tensors(out)
+    for mod, idx in ENCODER_BNS:
+        sd[f"{mod}.{idx}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd

@@ -4,6 +4,8 @@ JAX ``eval/evaluator.py``).
     python -m point2cyl_torch.eval.evaluator --logdir runs/ab_s5 \
         --data_dir ab_data --data_split test --num_point 512 \
         --batch_size 8 --no_implicit --seed 0          # on the card
+    python -m point2cyl_torch.eval.evaluator --logdir runs/joint \
+        --im_logdir runs/igr ...                  # with the fitting metrics
     python -m point2cyl_torch.eval.evaluator ... --device cpu
 
 The flag names are the reference's (``eval.py:36-75``), including its
@@ -12,12 +14,15 @@ switch a head OFF. ``--synthetic N`` evaluates N generated solids,
 ``--device`` picks the device (default the card). The backbone is
 restored from ``<logdir>/model.pth`` or ``pc_model.pth``
 (``{"model": state_dict}``, the port trainer's and the reference's
-format). The metric block of ``eval.py:705-722`` is printed and written
-to ``<logdir>/log_evaluate.txt``.
+format). Unless ``--no_implicit``, the implicit stack (``ImplicitNet``
+and the sketch encoder: 4 channels, or with ``--use_whole_pc`` 4 or,
+with ``--use_extrusion_axis_feat``, 7) is restored from
+``<im_logdir>/model.pth`` or ``im_model.pth`` in either reference layout
+(``core/checkpoint.py``) and the two fitting metrics are computed. The
+metric block of ``eval.py:705-722`` is printed and written to
+``<logdir>/log_evaluate.txt``.
 
-Not ported yet, and raising: the implicit-fitting metrics and the
-encoder flags (run with ``--no_implicit``; ROADMAP queue 1 item 3) and
-``--visu`` (item 4).
+Not ported yet, and raising: ``--visu`` (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from typing import Callable, Iterable
 
 import torch
 
-from point2cyl_torch.core.checkpoint import CheckpointManager
+from point2cyl_torch.core.checkpoint import (CheckpointManager, restore_backbone,
+                                             restore_implicit_stack)
 from point2cyl_torch.core.config import BackboneConfig, EvalConfig
 from point2cyl_torch.core.device import resolve_device
 from point2cyl_torch.data.h5_io import load_h5
@@ -39,30 +45,54 @@ from point2cyl_torch.eval import metrics as M
 from point2cyl_torch.losses.normal import normal_difference
 from point2cyl_torch.losses.segmentation import reorder_w
 from point2cyl_torch.models.backbone import Backbone
-from point2cyl_torch.ops.geometry import add_noise, extrusion_extents
+from point2cyl_torch.models.implicit import ImplicitNet, PointNetEncoder
+from point2cyl_torch.ops.geometry import add_noise, extrusion_extents, sketch_projection
+from point2cyl_torch.ops.matching import one_hot_labels
 from point2cyl_torch.serve.export import head_output_sizes
 from point2cyl_torch.train.steps import assemble_heads
 
 # metrics kept per cloud, not averaged
-PER_SAMPLE_KEYS = ("pred_labels", "pred_bb_labels", "extents")
+PER_SAMPLE_KEYS = ("pred_labels", "pred_bb_labels", "extents", "latents")
 
 
-def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int) -> Callable:
+def encoder_for(cfg: EvalConfig, latent: int = 256) -> PointNetEncoder:
+    """The sketch encoder the evaluator's flags call for: the 4-channel
+    sketch ``[p2d / scale | n2d]``, or with ``use_whole_pc`` the cloud and
+    its weight channel (4), with ``use_extrusion_axis_feat`` also the axis
+    (7)."""
+    if cfg.use_whole_pc:
+        return PointNetEncoder(latent, 7 if cfg.use_extrusion_axis_feat else 4,
+                               with_normals=False)
+    return PointNetEncoder(latent, 2, with_normals=True)
+
+
+def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int,
+                   implicit: ImplicitNet | None = None,
+                   encoder: PointNetEncoder | None = None) -> Callable:
     """The per-batch evaluation: ``step(batch, generator)`` returns the
     per-cloud metrics (miou, normal_error_deg, bb_accuracy,
     axis_error_deg, centroid_difference), the labels (pred_labels with
-    the seg head, pred_bb_labels with the bb head) and the extents.
+    the seg head, pred_bb_labels with the bb head) and the extents. With
+    ``implicit`` and ``encoder`` (in eval mode, on the model's device) it
+    also returns the latents (B, K, L) and the two fitting metrics,
+    fit_cyl_loss and fit_global_loss (``eval.py:463-590``).
 
-    ``generator`` (on the model's device) draws the input noise and the
-    extents' segment samples; ``None`` takes the deterministic segment
-    draw and needs ``cfg.add_noise`` off.
+    ``generator`` (on the model's device) draws, in this order: the input
+    noise (with ``cfg.add_noise``), the extents' segment samples, the
+    latents' sketch samples, the per-cylinder fitting samples and the
+    global fitting samples. ``None`` takes the deterministic segment draw
+    and needs ``cfg.add_noise`` off.
     """
+    if (implicit is None) != (encoder is None):
+        raise ValueError("the fitting metrics need both implicit and encoder")
     if not (cfg.pred_normal or cfg.use_gt_normals):
         # the JAX evaluator builds 3x3 axis matrices from the 1-wide
         # dummy normal head by clamped out-of-range indexing
         raise ValueError("the axis error needs 3-channel normals: with the normal "
                          "head off, evaluate with use_gt_normals")
-    model.eval()
+    for module in (model, implicit, encoder):
+        if module is not None:
+            module.eval()
 
     @torch.no_grad()
     def eval_step(batch: dict, generator: torch.Generator | None = None) -> dict:
@@ -108,12 +138,47 @@ def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int) -> Call
 
         wb, wc, ea_w = M.axis_estimation_weights(
             cfg, seg, heads.w, heads.w_barrel, heads.w_base, heads.w_2k, i_gt, gt_bb)
-        out["axis_error_deg"], _ = M.axis_metrics(
+        out["axis_error_deg"], axes = M.axis_metrics(
             cfg, heads.normals, batch["normals"], wb, wc, i_gt, gt_bb, gt_axes)
         centers, _ = M.hard_segment_centers(pts, ea_w)
         out["centroid_difference"] = M.centroid_metric(centers, gt_centers, i_gt)
         out["extents"], _ = extrusion_extents(generator, pts, i_gt, gt_bb, gt_axes,
                                               gt_centers, num_samples=num_sk_points)
+        if implicit is None:
+            return out
+
+        # latent extraction (eval.py:463-543)
+        w_re = reorder_w(heads.w, seg.matching)
+        w_re = torch.where(seg.mask[:, None, :], w_re, torch.zeros_like(w_re))
+        pred_label = torch.argmax(w_re, dim=-1)
+        pred_bb = torch.argmax(M.base_barrel_probs(heads.w_2k), dim=-1)
+        if cfg.use_whole_pc:
+            # the whole cloud with instance k's weight channel (and its axis)
+            # (eval.py:468-486,511-531)
+            n = pts.shape[1]
+            if cfg.use_gt_im:
+                w_chan, ax_feat = one_hot_labels(i_gt, k, pts.dtype), gt_axes
+            else:
+                w_chan, ax_feat = w_re, axes
+            parts = [pts[:, None].expand(b, k, n, 3), w_chan.transpose(1, 2)[..., None]]
+            if cfg.use_extrusion_axis_feat:
+                parts.append(ax_feat[:, :, None, :].expand(b, k, n, 3))
+            enc_in = torch.cat(parts, dim=-1).reshape(b * k, n, -1)
+            latents = encoder(enc_in).reshape(b, k, -1)
+            _, _, scales, _ = sketch_projection(generator, pts, heads.normals, pred_label,
+                                                pred_bb, axes, centers,
+                                                num_samples=num_sk_points)
+        else:
+            proj = ((batch["normals"], i_gt, gt_bb, gt_axes, gt_centers) if cfg.use_gt_im
+                    else (heads.normals, pred_label, pred_bb, axes, centers))
+            p2d, n2d, scales, _ = sketch_projection(generator, pts, *proj,
+                                                    num_samples=num_sk_points)
+            enc_in = torch.cat([p2d / scales[..., None, None], n2d], dim=-1)
+            latents = encoder(enc_in.reshape(b * k, num_sk_points, 4)).reshape(b, k, -1)
+        out["fit_cyl_loss"], out["fit_global_loss"] = M.fitting_losses(
+            implicit, generator, pts, batch["normals"], i_gt, gt_bb, axes, centers,
+            scales, latents, seg.mask, num_sk_points)
+        out["latents"] = latents
         return out
 
     return eval_step
@@ -126,8 +191,11 @@ def evaluate(
     batch_size: int,
     seed: int = 0,
     log: Callable[[str], None] = print,
+    implicit: ImplicitNet | None = None,
+    encoder: PointNetEncoder | None = None,
 ) -> dict[str, float]:
-    """The metric sweep; returns the metric means (``eval.py:697-722``).
+    """The metric sweep; returns the metric means (``eval.py:697-722``),
+    with ``implicit`` and ``encoder`` also the fitting metrics'.
 
     ``batches`` is an ``InputPipeline``, read in row order in batches of
     ``batch_size``, or any iterable of batch dicts on the model's device.
@@ -136,7 +204,7 @@ def evaluate(
     sweep ends, so the loop never waits for the card.
     """
     dev = next(model.parameters()).device
-    step = make_eval_step(model, cfg, cfg.num_sketch_samples)
+    step = make_eval_step(model, cfg, cfg.num_sketch_samples, implicit, encoder)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if isinstance(batches, InputPipeline):
         batches = batches.epochs(batch_size, gen, shuffle=False)
@@ -208,15 +276,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _check_ported(args: argparse.Namespace) -> None:
     """Raise for the flags whose modules the port does not have yet."""
-    if not args.no_implicit:
-        raise NotImplementedError(
-            "the implicit-fitting metrics need ImplicitNet and PointNetEncoder "
-            "(ROADMAP queue 1 item 3, the joint implicit-sketch stack); run "
-            "with --no_implicit")
-    for flag in ("use_gt_im", "use_whole_pc", "use_extrusion_axis_feat"):
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} feeds only the encoder (ROADMAP queue 1 item 3)")
     if args.visu:
         raise NotImplementedError(
             "--visu needs recon/render_scripts.py and recon/plots.py (ROADMAP "
@@ -234,6 +293,9 @@ def cli_main(argv: list[str] | None = None) -> dict[str, float]:
         use_gt_normals=args.use_gt_normals,
         use_gt_segmentation=args.use_gt_segmentation,
         use_gt_bb=args.use_gt_bb,
+        use_gt_im=args.use_gt_im,
+        use_whole_pc=args.use_whole_pc,
+        use_extrusion_axis_feat=args.use_extrusion_axis_feat,
         num_sketch_samples=args.num_sk_point,
         norm_eig=args.norm_eig,
         add_noise=args.add_noise,
@@ -260,16 +322,28 @@ def cli_main(argv: list[str] | None = None) -> dict[str, float]:
         fout.flush()
         print(msg, flush=True)
 
-    for name in ("model", "pc_model"):
-        if ckpt.exists(name):
-            model.load_state_dict(ckpt.load(name, "cpu")["model"], strict=True)
-            log(f"Restored backbone from {args.logdir}/{name}")
-            break
-    else:
+    name = restore_backbone(args.logdir, model)
+    if name is None:
         log(f"WARNING: no checkpoint at {args.logdir}/model — fresh init")
+    else:
+        log(f"Restored backbone from {args.logdir}/{name}")
+    implicit = encoder = None
     try:
+        if not args.no_implicit:
+            gen = torch.Generator().manual_seed(args.seed)
+            implicit = ImplicitNet(d_in=258)
+            implicit.reset_parameters(gen)
+            encoder = encoder_for(cfg)
+            encoder.reset_parameters(gen)
+            name = restore_implicit_stack(args.im_logdir, implicit, encoder)
+            if name is None:
+                log(f"WARNING: no implicit checkpoint at {args.im_logdir} — "
+                    "fresh init (fitting metrics not meaningful)")
+            else:
+                log(f"Restored implicit stack from {args.im_logdir}/{name}")
+            implicit, encoder = implicit.to(dev), encoder.to(dev)
         return evaluate(model.to(dev), pipeline, cfg, args.batch_size, seed=args.seed,
-                        log=log)
+                        log=log, implicit=implicit, encoder=encoder)
     finally:
         fout.close()
 

@@ -3,20 +3,22 @@
 mIoU, base/barrel accuracy, the extrusion-axis error under the
 oracle-substitution flags (``eval.py:63-69,348-405``) and hard
 per-segment centroids. The serving decomposition reuses
-``base_barrel_probs`` and ``hard_segment_centers``. The implicit-fitting
-losses (JAX ``fitting_losses``) need the implicit network, which the port
-does not have yet.
+``base_barrel_probs`` and ``hard_segment_centers``. ``fitting_losses``
+scores the implicit decoder on the projected sketches
+(``eval.py:553-590``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from point2cyl_torch.core.config import EvalConfig
 from point2cyl_torch.losses.normal import normal_difference
 from point2cyl_torch.losses.segmentation import reorder_w, segmentation_iou
+from point2cyl_torch.models.implicit import add_latent
+from point2cyl_torch.ops.geometry import sketch_projection
 from point2cyl_torch.ops.linalg import estimate_extrusion_axis
 from point2cyl_torch.ops.matching import (hard_w_encoding, hungarian_matching,
                                           mask_gt_from_labels, one_hot_labels,
@@ -127,3 +129,64 @@ def centroid_metric(
     found)."""
     diff = ((centers - gt_centers) ** 2).sum(dim=-1)
     return reduce_mean_masked_instance(diff, mask_gt_from_labels(i_gt, gt_centers.shape[1]))
+
+
+@torch.no_grad()
+def fitting_losses(
+    sdf_fn: Callable[[torch.Tensor], torch.Tensor],
+    generator: torch.Generator | None,
+    points: torch.Tensor,
+    gt_normals: torch.Tensor,
+    i_gt: torch.Tensor,
+    gt_bb: torch.Tensor,
+    axes: torch.Tensor,
+    centers: torch.Tensor,
+    scales: torch.Tensor,
+    latents: torch.Tensor,
+    valid_mask: torch.Tensor,
+    num_sk_points: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Implicit-fitting metrics (``eval.py:553-590``), as the JAX
+    ``fitting_losses`` computes them.
+
+    Per cylinder: ``num_sk_points`` GT-labelled barrel points of each
+    instance (GT normals) projected onto its PREDICTED sketch plane
+    (``axes``, ``centers``), divided by ``scales``, and |SDF| under its
+    latent, zeroed where the slot is invalid or not found; the mean over
+    samples, summed over K and divided by ``max(i_gt) + 1``.
+
+    Global: every point of each instance (``bb_labels=None``, N samples)
+    the same way; |SDF| is 1e4 where the slot is invalid or not found,
+    the min over K is taken per sample, and the mean over the barrel
+    points of ``gt_bb`` (indexed by the cloud's point order, as the
+    reference indexes it).
+
+    ``generator`` draws the per-cylinder samples, then the global ones;
+    ``None`` takes the deterministic draw. No autograd graph is kept.
+
+    Args: sdf_fn (M, S, L+2) -> (M, S, 1); scales (B, K); latents
+    (B, K, L); valid_mask (B, K) bool. Returns (per_cyl (B,), global (B,)).
+    """
+    b, n, _ = points.shape
+    k = axes.shape[1]
+    flat_lat = latents.reshape(b * k, -1)
+
+    def run_sdf(p2d: torch.Tensor) -> torch.Tensor:
+        s = p2d.shape[2]
+        return sdf_fn(add_latent(p2d.reshape(b * k, s, 2), flat_lat)).reshape(b, k, s)
+
+    p2d, _, _, found2 = sketch_projection(generator, points, gt_normals, i_gt, gt_bb,
+                                          axes, centers, num_samples=num_sk_points)
+    sk_out = run_sdf(p2d / scales[..., None, None])
+    mask2 = (valid_mask & found2).to(points.dtype)
+    n_inst = i_gt.amax(dim=1) + 1
+    per_cyl = (sk_out * mask2[..., None]).abs().mean(dim=-1).sum(dim=-1) / n_inst
+
+    p2d3, _, _, found3 = sketch_projection(generator, points, gt_normals, i_gt, None,
+                                           axes, centers, num_samples=n)
+    sk_out3 = run_sdf(p2d3 / scales[..., None, None]).abs()  # (B, K, N)
+    mask3 = (valid_mask & found3)[..., None]
+    min_over_k = torch.where(mask3, sk_out3, torch.full_like(sk_out3, 1e4)).amin(dim=1)
+    barrel = (gt_bb == 0).to(points.dtype)
+    glob = (min_over_k * barrel).sum(dim=-1) / torch.clamp(barrel.sum(dim=-1), min=1.0)
+    return per_cyl, glob

@@ -3,8 +3,9 @@
 Requests of any batch size are served by chunking to the largest bucket
 and zero-padding the tail chunk up to the smallest bucket that fits, as
 the JAX session does; the padding rows are sliced off before returning.
-At inference the backbone is strictly per-sample (BatchNorm runs on
-stored statistics), so padding rows cannot perturb real rows.
+At inference the backbone and the sketch encoder are strictly per-sample
+(BatchNorm runs on stored statistics), so padding rows cannot perturb
+real rows.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from point2cyl_torch.core.config import BackboneConfig
 from point2cyl_torch.core.device import resolve_device
 from point2cyl_torch.models.backbone import build_backbone
+from point2cyl_torch.models.implicit import PointNetEncoder
 from point2cyl_torch.serve.export import (
     LoadedArtifact,
     _backbone_forward,
@@ -32,6 +34,7 @@ class InferenceSession:
     >>> sess = InferenceSession("model.p2ct")     # on the card
     >>> out = sess.decompose(points)               # (n, num_points, 3) any n
     >>> out["axes"].shape                          # (n, K, 3)
+    >>> out["latents"].shape                       # (n, K, 256), with_latents
     """
 
     def __init__(self, artifact: str | LoadedArtifact,
@@ -40,11 +43,6 @@ class InferenceSession:
         self.device = resolve_device(device)
         art = load_artifact(artifact) if isinstance(artifact, str) else artifact
         self.meta = art.meta
-        if self.meta.get("with_latents"):
-            raise NotImplementedError(
-                "artifacts with sketch-encoder latents are not served by the "
-                "port yet"
-            )
         if self.meta.get("backbone_config"):
             cfg = BackboneConfig.from_dict(self.meta["backbone_config"])
         else:
@@ -57,6 +55,12 @@ class InferenceSession:
                 ),
             )
         self.model = build_backbone(cfg, state_dict=art.weights, device=self.device)
+        self.encoder = None
+        if self.meta.get("with_latents"):
+            self.encoder = PointNetEncoder(int(self.meta["latent_size"]), 2,
+                                           with_normals=True)
+            self.encoder.load_state_dict(art.encoder_weights, strict=True)
+            self.encoder = self.encoder.to(self.device).eval()
         self._buckets = sorted(int(b) for b in self.meta["buckets"])
         self.stats = {"requests": 0, "clouds": 0, "padded": 0}
 
@@ -94,6 +98,7 @@ class InferenceSession:
                     self.model, x, k=int(meta["k"]),
                     pred_seg=bool(meta["pred_seg"]), pred_bb=bool(meta["pred_bb"]),
                     num_sk_points=meta["num_sk_points"] if decompose else None,
+                    encoder=self.encoder if decompose else None,
                 )
                 chunks.append({key: out[key].cpu().numpy()[:take] for key in keys})
                 i += take
@@ -119,11 +124,15 @@ class InferenceSession:
             out = {k: v[0] for k, v in out.items()}
         return out
 
-    def decompose(self, points: Any, include_labels: bool = True) -> dict:
+    def decompose(self, points: Any, include_labels: bool = True,
+                  exact_latents: bool = False) -> dict:
         """Extrusion-cylinder decompositions: per cloud, K slots of axes,
-        centers, extents, scales and ``found``, and (by default) int8
-        per-point ``labels`` / ``bb_labels``. The geometry comes to the
-        host as one packed tensor and unpacks bitwise."""
+        centers, extents, scales and ``found``, with a ``with_latents``
+        artifact each slot's sketch ``latents`` (K, L), and (by default)
+        int8 per-point ``labels`` / ``bb_labels``. The O(K) outputs come
+        to the host as one packed tensor: the geometry unpacks bitwise,
+        the latents at float16 precision; ``exact_latents=True`` fetches
+        the float32 arrays instead."""
         if not self.meta.get("decomposition"):
             raise ValueError(
                 "artifact was exported without decomposition outputs "
@@ -133,9 +142,16 @@ class InferenceSession:
         squeeze = pts.ndim == 2
         if squeeze:
             pts = pts[None]
-        keys = ("packed",) + (("labels", "bb_labels") if include_labels else ())
+        with_latents = self.encoder is not None
+        packed = not exact_latents
+        keys = (("packed",) if packed else
+                ("axes", "centers", "extents", "scales", "found")
+                + (("latents",) if with_latents else ()))
+        if include_labels:
+            keys += ("labels", "bb_labels")
         out = self._run_raw(pts, keys, decompose=True)
-        out.update(unpack_decomposition(out.pop("packed")))
+        if packed:
+            out.update(unpack_decomposition(out.pop("packed"), with_latents))
         if squeeze:
             out = {k: v[0] for k, v in out.items()}
         return out

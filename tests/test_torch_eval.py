@@ -50,6 +50,9 @@ from point2cyl_tpu.models.backbone import Backbone
 from point2cyl_tpu.ops import geometry as JG
 from point2cyl_tpu.ops.matching import hungarian_matching as jax_matching
 
+from test_torch_implicit import (draw_deterministically, jax_encoder, jax_implicit,
+                                 port_encoder, port_implicit)
+
 B, N, K, S = 3, 96, 4, 16
 CFG = BackboneConfig(
     num_points=N,
@@ -523,12 +526,14 @@ def test_cli_needs_the_card_unless_told(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    ([], "item 3"), (["--no_implicit", "--visu"], "item 4"),
-    (["--no_implicit", "--use_gt_im"], "item 3"),
-    (["--no_implicit", "--use_whole_pc"], "item 3"),
-    (["--no_implicit", "--use_extrusion_axis_feat"], "item 3"),
+    (["--visu"], "item 4"), (["--no_implicit", "--visu"], "item 4"),
+    (["--visu", "--use_gt_im"], "item 4"),
+    (["--visu", "--use_whole_pc"], "item 4"),
+    (["--visu", "--use_extrusion_axis_feat"], "item 4"),
 ])
 def test_cli_deferred_flags_raise(tmp_path, flags, match):
+    """Only --visu is still to port (with or without the implicit stack
+    and its encoder flags)."""
     args = [a for a in EVAL_ARGS if a != "--no_implicit"] + flags
     with pytest.raises(NotImplementedError, match=match):
         tev.cli_main(args + ["--device", "cpu", "--logdir", str(tmp_path)])
@@ -568,3 +573,132 @@ def test_ab_pack_runs_the_protocol(tmp_path, monkeypatch):
     assert ev.pred_seg and ev.pred_normal and ev.pred_bb
     assert rows[0]["seed"] == 7 and rows[0]["final_train_loss"] == 1.2345
     assert rows[0]["miou"] == 0.5 and "card" in rows[0]
+
+
+# ---- the implicit stack: latents and the fitting metrics -------------------
+
+L = 16  # latent width of the test's narrow stack
+IMPLICIT = dict(d_in=2 + L, hidden=(32,) * 4, skip_in=(2,))
+MODES = {
+    "sketch": {},
+    "gt im": dict(use_gt_im=True),
+    "whole pc": dict(use_whole_pc=True),
+    "whole pc, axis": dict(use_whole_pc=True, use_extrusion_axis_feat=True),
+    "whole pc, gt im": dict(use_whole_pc=True, use_gt_im=True),
+}
+# the fitting metrics' means: |SDF| of a narrow decoder (about 0.1-1)
+# at projected points, through axes within 2e-3 degrees of JAX's
+FIT_ATOL = {"fit_cyl_loss": 1e-4, "fit_global_loss": 1e-4}
+
+
+def implicit_stack(flags: dict):
+    """The JAX decoder and encoder for ``flags`` (narrow, random BN
+    statistics) and the port's on the same weights."""
+    cfg = TorchEvalConfig(**flags)
+    enc_args = (L, 2, True)
+    if cfg.use_whole_pc:
+        enc_args = (L, 7 if cfg.use_extrusion_axis_feat else 4, False)
+    implicit, im_params = jax_implicit(IMPLICIT, seed=13)
+    encoder, enc_params, enc_stats = jax_encoder(enc_args, seed=14)
+    return ((implicit, {"params": im_params}, encoder,
+             {"params": enc_params, "batch_stats": enc_stats}),
+            (port_implicit(IMPLICIT, im_params), port_encoder(enc_args, enc_params,
+                                                               enc_stats)))
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_evaluate_with_implicit_stack_matches_jax(weights, monkeypatch, mode):
+    """In each encoder mode, ``evaluate()``'s means against JAX
+    ``evaluate`` (MEAN_ATOL, the fitting metrics within 1e-4)
+    with the same block of lines, and one step's latents within 1e-5 and
+    per-cloud fitting metrics within 1e-4 of JAX's step."""
+    # every segment draw of both evaluators in the deterministic mode
+    draw_deterministically(monkeypatch, (jev, "sketch_projection"),
+                           (jev, "extrusion_extents"), (JM, "sketch_projection"),
+                           (tev, "sketch_projection"), (tev, "extrusion_extents"),
+                           (TM, "sketch_projection"))
+    flags = MODES[mode]
+    model, variables, torch_model = weights
+    (j_im, j_im_vars, j_enc, j_enc_vars), (t_im, t_enc) = implicit_stack(flags)
+    # JAX evaluate samples the pipeline's num_sketch_points (S), the port
+    # the config's (the CLIs set both from --num_sk_point)
+    jcfg = EvalConfig(**flags, num_sketch_samples=S)
+    tcfg = TorchEvalConfig(**flags, num_sketch_samples=S)
+    jlines, tlines = [], []
+    want = jev.evaluate(variables, j_im_vars, j_enc_vars, model, j_im, j_enc,
+                        jax_pipeline(), jcfg, B, seed=0, log=jlines.append)
+    batches = jax_batches()
+    got = tev.evaluate(torch_model, [to_torch(b) for b in batches], tcfg, B, seed=0,
+                       log=tlines.append, implicit=t_im, encoder=t_enc)
+    assert set(got) == set(want) and set(FIT_ATOL) <= set(got)
+    for name, atol in {**MEAN_ATOL, **FIT_ATOL}.items():
+        assert abs(got[name] - want[name]) <= atol, (name, got[name], want[name])
+    assert all(got[name] > 0 for name in FIT_ATOL)
+    block_j = [line for line in jlines if not line.startswith("Time elapsed")]
+    block_t = [line for line in tlines if not line.startswith("Time elapsed")]
+    assert [lt.rsplit("=", 1)[0] for lt in block_t] == [lj.rsplit("=", 1)[0]
+                                                         for lj in block_j]
+
+    step = tev.make_eval_step(torch_model, tcfg, S, t_im, t_enc)
+    out = step(to_torch(batches[0]), None)
+    want_step = jev.make_eval_step(model, j_im, j_enc, jcfg, S)(
+        variables, j_im_vars, j_enc_vars, batches[0], jax.random.key(0))
+    assert out["latents"].shape == (B, K, L)
+    close(out["latents"], want_step["latents"], atol=1e-5)
+    for name, atol in FIT_ATOL.items():
+        close(out[name], want_step[name], atol=atol)
+
+
+def test_eval_step_needs_both_implicit_modules(weights):
+    with pytest.raises(ValueError, match="both"):
+        tev.make_eval_step(weights[2], TorchEvalConfig(), S, port_implicit(
+            IMPLICIT, jax_implicit(IMPLICIT)[1]), None)
+
+
+@pytest.mark.parametrize("layout,name", [
+    (("model_state_dict", "encoder_state_dict"), "model"),
+    (("implicit_net", "pn_encoder"), "im_model"),
+])
+def test_cli_restores_the_implicit_stack(trained_logdir, tmp_path, capsys, layout, name):
+    """The CLI restores the reference's IGR layout (model.pth) and joint
+    layout (im_model.pth) at full width and prints a block with non-zero
+    fitting lines; with the whole cloud and its axis feature the encoder
+    has 7 channels."""
+    whole = name == "im_model"
+    gen = torch.Generator().manual_seed(3)
+    implicit = tev.ImplicitNet(d_in=258)
+    implicit.reset_parameters(gen)
+    encoder = tev.encoder_for(TorchEvalConfig(use_whole_pc=whole,
+                                              use_extrusion_axis_feat=whole))
+    encoder.reset_parameters(gen)
+    torch.save({layout[0]: implicit.state_dict(), layout[1]: encoder.state_dict()},
+               tmp_path / f"{name}.pth")
+    flags = ["--use_whole_pc", "--use_extrusion_axis_feat"] if whole else []
+    args = [a for a in EVAL_ARGS if a != "--no_implicit"] + flags
+    means = tev.cli_main(args + ["--device", "cpu", "--logdir", trained_logdir,
+                                 "--im_logdir", str(tmp_path)])
+    out = capsys.readouterr().out.splitlines()
+    assert out[:2] == [f"Restored backbone from {trained_logdir}/model",
+                       f"Restored implicit stack from {tmp_path}/{name}"]
+    block = out[out.index("=" * 20) + 1:]
+    assert len(block) == 8 and all(np.isfinite(float(line.rsplit("=", 1)[1]))
+                                   for line in block)
+    assert means["fit_cyl_loss"] > 0 and means["fit_global_loss"] > 0
+    assert float(block[-1].rsplit("=", 1)[1]) == means["fit_global_loss"]
+
+
+def test_cli_implicit_stack_missing_warns_and_mismatch_raises(trained_logdir, tmp_path,
+                                                              capsys):
+    args = [a for a in EVAL_ARGS if a != "--no_implicit"]
+    args += ["--device", "cpu", "--logdir", trained_logdir, "--im_logdir", str(tmp_path)]
+    means = tev.cli_main(args)
+    assert capsys.readouterr().out.splitlines()[1] == (
+        f"WARNING: no implicit checkpoint at {tmp_path} — fresh init "
+        "(fitting metrics not meaningful)")
+    assert np.isfinite(means["fit_cyl_loss"])
+    # a 4-channel encoder's checkpoint does not load into the 7-channel one
+    torch.save({"model_state_dict": tev.ImplicitNet().state_dict(),
+                "encoder_state_dict": tev.PointNetEncoder(256, 2, True).state_dict()},
+               tmp_path / "model.pth")
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        tev.cli_main(args + ["--use_whole_pc", "--use_extrusion_axis_feat"])
