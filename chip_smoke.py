@@ -110,15 +110,34 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    CPU tests' tolerances, clouds per second of ``evaluate``, the ms of an
    eval step in both modes, its peak memory, and the decoder alone on
    the fitting metrics' 327,680 points against its float32 bound.
+9. The joint trainer at full width: ``python -m
+   point2cyl_torch.train.train_joint``'s ``cli_main`` with
+   ``--pretrain_im`` on ``--synthetic 8`` (K=8, B=4, 2,048 sketch points,
+   2 epochs; no backbone kernel launched, finite losses, the IGR layout),
+   then the joint CLI from phase 5's backbone and that stack
+   (``--is_pc_init --is_im_init --is_pc_train --is_im_train
+   --with_im_loss --init_global_step -1``, 2 epochs: both load lines, the
+   carried step, finite losses, the launches of 4 steps, the three
+   written files) and its ``--resume`` to epoch 3. One joint step from the
+   resumed weights against the same step with every ``*_impl="plain"``:
+   the loss and its parts within 1e-5, every backbone and encoder
+   gradient within phase 5's rule and non-zero, none on the decoder, the
+   BN statistics; the launches of a step with and without
+   ``--is_pc_train``. The ms per joint step and per pretrain step (and
+   the pretrain step at B=16 in chunks of 32 instances and whole), their
+   peak memory, and the IGR block alone (forward and double backward)
+   against its float32 bound. Then the evaluator's ``cli_main`` and the export
+   CLI read the joint logdir (restore lines, a finite block with
+   non-zero fitting lines, served latents).
 
 The line before the last is the kernel table as JSON (each row also
-with its launches in the evaluations, ``eval_launches``, and in the
-requests with latents, ``serve_latents_launches``); the last line is
-``{"ok": true, "device": {...}}``.
+with its launches in the evaluations, ``eval_launches``, in the requests
+with latents, ``serve_latents_launches``, and in the joint trainer,
+``joint_launches``); the last line is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
-full-width train steps and of full-width eval steps without and with the
-implicit stack.
+full-width train steps, of full-width eval steps without and with the
+implicit stack and of joint steps.
 """
 
 from __future__ import annotations
@@ -127,6 +146,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -276,6 +296,13 @@ def clouds(seed: int, n: int, num_points: int) -> np.ndarray:
     return (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
 
 
+def logged_losses(logdir: str) -> list[float]:
+    """Every epoch mean a trainer wrote to ``<logdir>/log.txt``
+    (``Loss/<name>: value``), in order."""
+    with open(os.path.join(logdir, "log.txt")) as f:
+        return [float(v) for v in re.findall(r"Loss/\w+: (\S+)", f.read())]
+
+
 def profile_steps(label: str, step, card: str, step_ms: float) -> None:
     """Device time by kernel name over three traced calls of ``step``, the
     busy share against the untraced time of one, and the host's time by
@@ -332,9 +359,10 @@ def main() -> None:
     from point2cyl_torch.serve import export as export_cli
     from point2cyl_torch.serve.export import _backbone_forward, export_artifact
     from point2cyl_torch.serve.session import InferenceSession
-    from point2cyl_torch.train import steps
+    from point2cyl_torch.losses.igr import igr_losses
+    from point2cyl_torch.train import steps, train_joint
     from point2cyl_torch.train.train_pc import (build_pipeline, build_trainer,
-                                                epoch_generator, train)
+                                                config_from_args, epoch_generator, train)
 
     # ---- 1. set-up -------------------------------------------------------
     script_t0 = time.perf_counter()
@@ -1554,6 +1582,243 @@ def main() -> None:
         profile_steps("eval step with implicit stack", lambda: step8(eval_batches[0], gen),
                       card, step8_ms["sketch"])
     del eval_model, eval_batches, eval_pipe, stacks, step8
+
+    # ---- 9. the joint trainer at full width --------------------------------
+    # IGR pretraining through the CLI: 2 epochs of --synthetic 8 at B=4,
+    # which launches no backbone kernel
+    igr_dir = os.path.join(work.name, "igr_pretrain")
+    joint_dir = os.path.join(work.name, "joint")
+    sk_argv = ["--synthetic", "8", "--K", str(K), "--batch_size", str(TB),
+               "--num_sk_point", str(SK), "--num_point", str(cfg.num_points)]
+    for fn in counters.values():
+        fn.launches = 0
+    pre = train_joint.cli_main(sk_argv + ["--pretrain_im", "--num_epochs", "2",
+                                          "--logdir", igr_dir])
+    torch.cuda.synchronize()
+    pretrain_launches = {name: fn.launches for name, fn in counters.items()}
+    check(not any(pretrain_launches.values()), f"pretraining launched {pretrain_launches}")
+    check(pre.step == 4, f"2 epochs of 8 sketch sets at B=4 took {pre.step} steps")
+    igr_state = torch.load(os.path.join(igr_dir, "model.pth"), map_location="cpu",
+                           weights_only=True)
+    check(set(igr_state) == {"model_state_dict", "encoder_state_dict"},
+          f"the IGR checkpoint's keys {sorted(igr_state)}")
+    pre_losses = logged_losses(igr_dir)
+    check(len(pre_losses) == 2 * 4 and all(np.isfinite(pre_losses)),
+          f"pretrain losses {pre_losses}")
+
+    # the joint CLI at full width from phase 5's backbone (carrying its
+    # step, 6) and the pretrained stack, 2 epochs, then a resume
+    joint_argv = sk_argv + [
+        "--logdir", joint_dir, "--is_pc_init", "--pc_logdir", logdir, "--is_im_init",
+        "--im_logdir", igr_dir, "--is_pc_train", "--is_im_train", "--with_im_loss",
+        "--init_global_step", "-1", "--pred_seg", "--pred_normal", "--pred_bb",
+        "--pred_extrusion", "--pred_center"]
+    for fn in counters.values():
+        fn.launches = 0
+    joint = train_joint.cli_main(joint_argv + ["--num_epochs", "2"])
+    torch.cuda.synchronize()
+    joint_cli_launches = {name: fn.launches for name, fn in counters.items()}
+    for name, count in joint_cli_launches.items():
+        check(count == per_step[name] * 4, f"joint CLI: {name} launched {count} times "
+              f"over 4 steps, expected {per_step[name] * 4}")
+    with open(os.path.join(joint_dir, "log.txt")) as f:
+        log = f.read()
+    check("carrying trainer-A global step 6" in log and "3D model loaded." in log
+          and "Pre-trained fixed implicit model loaded." in log,
+          "the joint CLI did not load both stages or carry the step")
+    check(joint.step == 10, f"the joint run ended at step {joint.step}, not 6 + 4")
+    joint_losses = logged_losses(joint_dir)
+    check(len(joint_losses) == 2 * 11 and all(np.isfinite(joint_losses)),
+          f"joint losses {joint_losses}")
+    layouts = {"model": {"model", "implicit_net", "pn_encoder"}, "pc_model": {"model"},
+               "im_model": {"implicit_net", "pn_encoder"}}
+    for name, keys in layouts.items():
+        state = torch.load(os.path.join(joint_dir, f"{name}.pth"), map_location="cpu",
+                           weights_only=True)
+        check(keys <= set(state), f"{name}.pth keys {sorted(state)}")
+    resumed = train_joint.cli_main(joint_argv + ["--num_epochs", "3", "--resume"])
+    with open(os.path.join(joint_dir, "log.txt")) as f:
+        log = f.read()
+    check(resumed.step == 12 and "epoch 2, step 10" in log and "> Epoch 0003 done" in log,
+          f"the resumed joint run did not continue at epoch 3, step 10 ({resumed.step})")
+    print(json.dumps({"train": "joint CLI, full width", "steps": [joint.step, resumed.step],
+                      "pretrain_steps": pre.step, "launches": joint_cli_launches,
+                      "pretrain_launches": pretrain_launches, "loss": joint_losses[-11:],
+                      "pretrain_loss": pre_losses[-4:]}), flush=True)
+
+    # one joint step against the same step with every *_impl="plain", from
+    # the resumed run's weights, batch and generator; then the launches of
+    # a step with and without --is_pc_train
+    jcfg = config_from_args(train_joint.build_argparser().parse_args(joint_argv))
+    pipe9 = InputPipeline(generate_dataset(8, resolution=cfg.num_points, max_instances=K,
+                                           num_sketch_points=SK, seed=0),
+                          cfg.num_points, K, dev, num_sketch_points=SK)
+    state9 = resumed.state_dict()
+    del joint, resumed
+
+    def joint_trainer(plain: bool, is_pc_train: bool = True) -> train_joint.JointTrainer:
+        """The resumed run's nets in a joint trainer with a fresh Adam."""
+        nets = train_joint.build_nets(jcfg, cfg.num_points, K, False, False, dev)
+        if plain:
+            nets = (Backbone(dataclasses.replace(nets[0].cfg, fps_impl="plain",
+                                                 ballquery_impl="plain",
+                                                 knn_impl="plain")).to(dev), *nets[1:])
+        for net, key in zip(nets, ("model", "implicit_net", "pn_encoder", "loaded_encoder")):
+            net.load_state_dict(state9[key], strict=True)
+        return train_joint.JointTrainer(*nets, jcfg, num_sk_points=SK,
+                                        is_pc_train=is_pc_train, is_im_train=True,
+                                        with_im_loss=True, step=state9["step"])
+
+    batch9 = pipe9.batch(torch.arange(TB, device=dev), epoch_generator(0, 97, dev))
+    kernel9, plain9 = joint_trainer(False), joint_trainer(True)
+    for fn in counters.values():
+        fn.launches = 0
+    got = kernel9.train_step(batch9, torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    step_launches = {name: fn.launches for name, fn in counters.items()}
+    want = plain9.train_step(batch9, torch.Generator(dev).manual_seed(7))
+    part_err = {key: abs(float(got[key]) - float(want[key])) for key in want}
+    for key in ("total", "normal", "miou", "bb", "extrusion", "center", "manifold",
+                "eikonal", "sald", "latent", "im_total"):
+        check(part_err[key] <= 1e-5 * max(abs(float(want[key])), 1.0),
+              f"joint {key}: kernel {float(got[key])} vs plain {float(want[key])}")
+    pairs = [(name, pk, pp) for net in ("backbone", "encoder")
+             for (name, pk), (_, pp) in zip(getattr(kernel9, net).named_parameters(),
+                                             getattr(plain9, net).named_parameters())]
+    top = max(float(pp.grad.abs().max()) for _, _, pp in pairs)
+    grad_err = 0.0
+    for name, pk, pp in pairs:
+        check(pk.grad is not None and bool((pk.grad != 0).any()),
+              f"joint: {name} has no gradient")
+        scale = float(pp.grad.abs().max())
+        err = float((pk.grad - pp.grad).abs().max())
+        check(err <= 1e-3 * scale + 1e-4 * top,
+              f"joint gradient of {name}: {err} vs its scale {scale}, largest {top}")
+        grad_err = max(grad_err, err / (1e-3 * scale + 1e-4 * top))
+    check(all(p.grad is None for net in (kernel9.implicit, kernel9.loaded_encoder)
+              for p in net.parameters()), "a frozen net got a gradient")
+    bn_err = 0.0
+    for net in ("backbone", "encoder"):
+        for (name, bk), (_, bp) in zip(getattr(kernel9, net).named_buffers(),
+                                       getattr(plain9, net).named_buffers()):
+            torch.testing.assert_close(bk, bp, rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f"joint BN {net}.{name}: {m}")
+            bn_err = max(bn_err, float((bk.double() - bp.double()).abs().max()))
+    for key, count in step_launches.items():
+        check(count == per_step[key], f"joint step: {key} launched {count} times, "
+              f"expected {per_step[key]}")
+    del plain9
+    frozen9 = joint_trainer(False, is_pc_train=False)
+    for fn in counters.values():
+        fn.launches = 0
+    frozen9.train_step(batch9, torch.Generator(dev).manual_seed(7))
+    torch.cuda.synchronize()
+    frozen_launches = {name: fn.launches for name, fn in counters.items()}
+    for key, count in frozen_launches.items():
+        check(count == per_forward[key], f"frozen joint step: {key} launched {count} "
+              f"times, expected {per_forward[key]}")
+    check(all(p.grad is None for p in frozen9.backbone.parameters()),
+          "the frozen backbone got a gradient")
+    del frozen9
+    print(json.dumps({"check": "joint step vs plain", "abs_err": part_err,
+                      "grad_err_over_tolerance": grad_err, "largest_grad": top,
+                      "bn_max_abs_err": bn_err, "launches_pc_train": step_launches,
+                      "launches_pc_frozen": frozen_launches}), flush=True)
+
+    # ms per joint step and per pretrain step (CUDA events, after a
+    # warm-up), their peak memory, and the pretrain step at the reference's
+    # B=16 in chunks of 32 instances
+    def step_times(step, pipe, batch_size: int, epochs=(2, 3)):
+        times = []
+        for epoch in epochs:
+            gen9 = epoch_generator(0, epoch, dev)
+            for batch in pipe.epochs(batch_size, gen9):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(batch, gen9)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+        torch.cuda.reset_peak_memory_stats()
+        step(pipe.batch(torch.arange(batch_size, device=dev), gen9), gen9)
+        torch.cuda.synchronize()
+        return times, torch.cuda.max_memory_allocated() / 2**30
+
+    joint_ms, joint_gib = step_times(kernel9.train_step, pipe9, TB)
+    pre_ms, pre_gib = step_times(pre.train_step, pipe9, TB)
+    pipe16 = InputPipeline(generate_dataset(16, resolution=cfg.num_points,
+                                            max_instances=K, num_sketch_points=SK, seed=0),
+                           cfg.num_points, K, dev, num_sketch_points=SK)
+    pre.igr_chunk = train_joint.resolve_igr_chunk(0, 16 * K)
+    pre16_ms, pre16_gib = step_times(pre.train_step, pipe16, 16)
+    pre.igr_chunk = None
+    pre16u_ms, pre16u_gib = step_times(pre.train_step, pipe16, 16)
+    print(json.dumps({"rate": "joint step", "batch": TB, "num_points": cfg.num_points,
+                      "num_sk_point": SK, "ms_per_step": statistics.median(joint_ms),
+                      "steps": len(joint_ms), "peak_gib": joint_gib,
+                      "pretrain_ms_per_step": statistics.median(pre_ms),
+                      "pretrain_peak_gib": pre_gib,
+                      "pretrain_b16_chunk32_ms_per_step": statistics.median(pre16_ms),
+                      "pretrain_b16_chunk32_peak_gib": pre16_gib,
+                      "pretrain_b16_unchunked_ms_per_step": statistics.median(pre16u_ms),
+                      "pretrain_b16_unchunked_peak_gib": pre16u_gib, "card": card}),
+          flush=True)
+    del pipe16
+
+    # the IGR block alone at the joint step's shapes (32 instances of 2,048
+    # sketch points and 2,304 off-surface points, latents that need a
+    # gradient, the decoder frozen): its forward and its double backward
+    sk9 = batch9["sketches"]
+    mask9 = torch.ones(TB, K, dtype=torch.bool, device=dev)
+    lat9 = torch.nn.functional.normalize(torch.randn(TB, K, 256, device=dev), dim=-1)
+    lat9.requires_grad_()
+
+    def igr_block():
+        igr_losses(kernel9.implicit, torch.Generator(dev).manual_seed(1), sk9[..., :2],
+                   sk9[..., 2:], lat9, mask9).total.backward()
+
+    igr_ms = time_ms(igr_block, runs=10)
+    igr_points = TB * K * (SK + SK + SK // 8)
+    igr_macs = sum(m.in_features * m.out_features for m in kernel9.implicit.modules()
+                   if isinstance(m, torch.nn.Linear))
+    # forward, the input gradient and the double backward's two passes, each
+    # one GEMM a layer; the frozen decoder takes no weight gradient
+    igr_flop = 4 * 2.0 * igr_macs * igr_points
+    print(json.dumps({"gemm": "IGR block (forward + double backward), joint step, B=4",
+                      "points": igr_points, "macs_per_point": igr_macs, "flop": igr_flop,
+                      "ms": igr_ms, "bound_ms": igr_flop / FP32_OPS_PER_S * 1e3,
+                      "tflop_per_s": igr_flop / igr_ms / 1e9, "card": card}), flush=True)
+    if args.profile:
+        gen9 = epoch_generator(0, 4, dev)
+        batches9 = iter([batch for _ in range(2) for batch in pipe9.epochs(TB, gen9)])
+        profile_steps("joint step", lambda: kernel9.train_step(next(batches9), gen9), card,
+                      statistics.median(joint_ms))
+    del kernel9, pre, pipe9, batch9, sk9, lat9
+
+    # the joint logdir read back: the evaluator with the implicit stack and
+    # the export CLI with the trained encoder
+    means9 = evaluator.cli_main(["--synthetic", "8", "--num_point", str(cfg.num_points),
+                                 "--K", str(K), "--batch_size", str(TB), "--num_sk_point",
+                                 str(SK), "--logdir", joint_dir, "--im_logdir", joint_dir])
+    with open(os.path.join(joint_dir, "log_evaluate.txt")) as f:
+        eval_log = f.read().splitlines()
+    check(eval_log[:2] == [f"Restored backbone from {joint_dir}/model",
+                           f"Restored implicit stack from {joint_dir}/model"],
+          f"the evaluator did not restore the joint logdir: {eval_log[:2]}")
+    block = eval_log[eval_log.index("=" * 20) + 1:]
+    values = [float(line.rsplit("=", 1)[1]) for line in block]
+    check(len(block) == 8 and all(np.isfinite(values)) and values[-2] > 0
+          and values[-1] > 0, f"joint logdir: metric block {block}")
+    art9 = os.path.join(work.name, "joint.p2ct")
+    meta9 = export_cli.cli_main(["--logdir", joint_dir, "--num_point", str(cfg.num_points),
+                                 "--K", str(K), "--num_sk_point", str(SK), "--buckets", "1",
+                                 "4", "--out", art9, "--im_logdir", joint_dir])
+    lat_out = InferenceSession(art9).decompose(requests[5])["latents"]
+    check(meta9["with_latents"] and lat_out.shape == (5, K, 256)
+          and bool(np.isfinite(lat_out).all()), f"joint artifact latents {lat_out.shape}")
+    print(json.dumps({"eval": "the joint logdir, implicit stack", "clouds": 8, **means9,
+                      "export_latents": list(lat_out.shape)}), flush=True)
     work.cleanup()
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
@@ -1564,6 +1829,10 @@ def main() -> None:
                                 "n8192_implicit": im_launches["sketch"][kernel],
                                 "n8192_implicit_whole_pc": im_launches["whole pc, axis"][kernel]}
         row["serve_latents_launches"] = lat_launches[kernel]
+        row["joint_launches"] = {"step_pc_train": step_launches[kernel],
+                                 "step_pc_frozen": frozen_launches[kernel],
+                                 "cli_4_steps": joint_cli_launches[kernel],
+                                 "pretrain_cli_4_steps": pretrain_launches[kernel]}
         if kernel == "ball_query":
             row["launches"] = launches_512[kernel]
         elif kernel == "ball_query_grouped_backward":

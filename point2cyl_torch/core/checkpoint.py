@@ -9,11 +9,11 @@ count), ``step``, ``epoch`` and ``best_loss``. The backbone weights load
 into the reference model as they are.
 
 The implicit stack (decoder and sketch encoder) is read from
-``<im_logdir>/model.pth``, then ``im_model.pth``, in either of the
-reference's layouts (``torch_compat.py:3-7``): the IGR pretrainer's
-``{"model_state_dict", "encoder_state_dict"}`` (``eval.py:206-210``) or
-the joint trainer's ``{"implicit_net", "pn_encoder"}``
-(``train_Point2Cyl.py:753-777``).
+``<im_logdir>/model.pth``, then ``im_model.pth`` (or a named file), in
+either of the reference's layouts (``torch_compat.py:3-7``): the IGR
+pretrainer's ``{"model_state_dict", "encoder_state_dict"}``
+(``eval.py:206-210``) or the joint trainer's ``{"implicit_net",
+"pn_encoder"}`` (``train_Point2Cyl.py:753-777``).
 """
 
 from __future__ import annotations
@@ -84,13 +84,15 @@ def restore_backbone(logdir: str, model: torch.nn.Module) -> str | None:
 
 
 def restore_implicit_stack(im_logdir: str, implicit: torch.nn.Module | None,
-                           encoder: torch.nn.Module | None) -> str | None:
-    """Load the decoder and the encoder, each where given, from the first
-    of ``model.pth`` and ``im_model.pth`` in ``im_logdir`` with
-    ``strict=True``: mismatched keys or shapes, or a file in neither
-    layout, raise. Returns the name, or None where there is neither (the
-    modules keep their weights)."""
-    found = _first_checkpoint(im_logdir, IMPLICIT_NAMES)
+                           encoder: torch.nn.Module | None,
+                           name: str | None = None) -> str | None:
+    """Load the decoder and the encoder, each where given, from
+    ``<name>.pth`` in ``im_logdir``, or without a name from the first of
+    ``model.pth`` and ``im_model.pth``, with ``strict=True``: mismatched
+    keys or shapes, or a file in neither layout, raise. Returns the name,
+    or None where there is no such file (the modules keep their
+    weights)."""
+    found = _first_checkpoint(im_logdir, IMPLICIT_NAMES if name is None else (name,))
     if found is None:
         return None
     name, state = found

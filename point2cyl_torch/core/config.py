@@ -1,8 +1,8 @@
 """Backbone, trainer and evaluator configuration (the port's own copies of
 the JAX ``BackboneConfig``, ``LossWeights``, ``TrainConfig`` and
 ``EvalConfig``, same fields and
-defaults, less what the port does not run: the multi-device axis, the
-joint trainer's loss weights and the blocked ball query's oversampling).
+defaults, less what the port does not run: the multi-device axis and the
+blocked ball query's oversampling).
 
 The neighbour-op switches take ``"auto"`` (the kernel wrapper: a CUDA
 tensor launches the kernel, a CPU tensor takes the plain version),
@@ -82,6 +82,12 @@ class LossWeights:
     base_barrel: float = 1.0
     extrusion_axis: float = 1.0
     center: float = 1.0
+    # the joint trainer's (reference: train_Point2Cyl.py:60-68); the
+    # manifold term enters the IGR total unweighted, as in the JAX package
+    sketch_latent: float = 1.0
+    igr_manifold: float = 1.0
+    igr_eikonal: float = 0.1
+    igr_normal: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

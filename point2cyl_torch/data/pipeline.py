@@ -1,11 +1,13 @@
 """Device-resident input pipeline (the port of the JAX
-``data/pipeline.py:30-237``, without the multi-host slicing and the
-sketch subsampling that only the joint trainer reads).
+``data/pipeline.py:30-237``, without the multi-host slicing).
 
 The packed dataset is copied to the device once. Each step selects batch
 rows, draws a fresh random subsample of each cloud and gathers the
 per-point labels there; the host sends nothing but the row indices of the
-epoch order, which is drawn on the device as well. Every draw comes from
+epoch order, which is drawn on the device as well. With
+``num_sketch_points`` each batch also carries the GT sketches of its
+rows, each item's points in a fresh random order cut to that count (the
+joint trainer's input). Every draw comes from
 the caller's ``torch.Generator``, so a run seeded per epoch replays the
 same batches after a resume.
 """
@@ -43,15 +45,22 @@ class InputPipeline:
     (B, K, 3); extrusion_distances (B, K); per_point_axes (B, N, 3);
     per_point_distances (B, N); and, where the pack has them,
     extrusion_centers (B, K, 3), extrusion_extents (B, K, 2) and
-    extrusion_operation (B, N).
+    extrusion_operation (B, N); with ``num_sketch_points`` S also sketches
+    (B, K, S, 4) (2D points and normals) and sketches_norms (B, K).
     """
 
     def __init__(self, ds: PackedDataset, num_points: int, max_instances: int,
-                 device: str | torch.device):
+                 device: str | torch.device, num_sketch_points: int = 0):
         if ds.resolution < num_points:
             raise ValueError(f"cannot sample {num_points} points from resolution "
                              f"{ds.resolution} clouds")
+        if num_sketch_points and ds.sketches is None:
+            raise ValueError("num_sketch_points needs a pack with sketches")
+        if num_sketch_points and ds.sketches.shape[2] < num_sketch_points:
+            raise ValueError(f"cannot sample {num_sketch_points} sketch points from "
+                             f"sketches of {ds.sketches.shape[2]}")
         self.num_points = num_points
+        self.num_sketch_points = num_sketch_points
         self.k = max_instances
         self.num_samples = ds.num_samples
         self.resolution = ds.resolution
@@ -70,12 +79,17 @@ class InputPipeline:
             host["extrusion_extents"] = _pad_k(ds.extrusion_extents, max_instances)
         if ds.extrusion_operation is not None:
             host["extrusion_operation"] = ds.extrusion_operation.astype(np.int32)
+        if num_sketch_points:
+            host["sketches"] = _pad_k(ds.sketches, max_instances)
+            host["sketches_norms"] = _pad_k(ds.sketches_norms, max_instances)
         self._dev = {key: torch.from_numpy(np.ascontiguousarray(val)).to(self.device)
                      for key, val in host.items()}
 
-    def gather(self, rows: torch.Tensor, sub_idx: torch.Tensor) -> dict:
+    def gather(self, rows: torch.Tensor, sub_idx: torch.Tensor,
+               sketch_idx: torch.Tensor | None = None) -> dict:
         """The batch of dataset ``rows`` (B,) subsampled at ``sub_idx``
-        (B, N) (``_gather_batch``, ``dataloader.py:69-87``)."""
+        (B, N) (``_gather_batch``, ``dataloader.py:69-87``), and with
+        sketches, their points at ``sketch_idx`` (B, S) of each item."""
         rows = rows.to(self.device, torch.int64)
         sub_idx = sub_idx.to(self.device, torch.int64)
         dev = self._dev
@@ -104,13 +118,26 @@ class InputPipeline:
                 out[key] = dev[key][rows]
         if "extrusion_operation" in dev:
             out["extrusion_operation"] = sub_points(dev["extrusion_operation"])
+        if self.num_sketch_points:
+            sk = dev["sketches"][rows]  # (B, K, Ssk, 4)
+            idx = sketch_idx.to(self.device, torch.int64)[:, None, :, None]
+            out["sketches"] = torch.gather(
+                sk, 2, idx.expand(-1, sk.shape[1], -1, sk.shape[3]))
+            out["sketches_norms"] = dev["sketches_norms"][rows]
         return out
 
     def batch(self, rows: torch.Tensor, generator: torch.Generator) -> dict:
-        """The batch of ``rows`` with a fresh random subsample of each cloud."""
+        """The batch of ``rows`` with a fresh random subsample of each cloud
+        and, with sketches, a fresh order of each item's sketch points
+        (JAX ``_gather_batch``, ``pipeline.py:222-236``)."""
         sub_idx = random_subsample_indices(generator, self.resolution,
                                            self.num_points, len(rows))
-        return self.gather(rows, sub_idx)
+        sketch_idx = None
+        if self.num_sketch_points:
+            sketch_idx = random_subsample_indices(
+                generator, self._dev["sketches"].shape[2], self.num_sketch_points,
+                len(rows))
+        return self.gather(rows, sub_idx, sketch_idx)
 
     def epochs(self, batch_size: int, generator: torch.Generator,
                shuffle: bool = True) -> Iterator[dict]:

@@ -78,7 +78,7 @@ def hungarian_matching(
     with torch.no_grad():
         cost = relaxed_iou_cost(w_pred, i_gt)  # (B, K, K)
         perms, onehot = _permutations(k, str(w_pred.device))
-        scores = cost.reshape(cost.shape[0], k * k) @ onehot  # (B, K!)
+        scores = cost.reshape(cost.shape[0], k * k) @ onehot.to(cost.dtype)  # (B, K!)
         matching = perms[torch.argmax(scores, dim=-1)]  # (B, K)
         mask = mask_gt_from_labels(i_gt, k)
         return torch.where(mask, matching, torch.zeros_like(matching)), mask

@@ -13,7 +13,7 @@ is not finite (JAX ``steps.py:242-256``).
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple
+from typing import Iterable, NamedTuple, Sequence
 
 import torch
 
@@ -91,6 +91,15 @@ def proxy_losses(
     """All proxy losses of the without-sketch trainer
     (``train_Point2Cyl_without_sketch.py:280-353``): the weighted total
     and the per-loss scalars."""
+    return proxy_losses_and_matching(heads, batch, cfg)[:2]
+
+
+def proxy_losses_and_matching(
+    heads: HeadOutputs, batch: dict, cfg: TrainConfig
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """``proxy_losses`` and the Hungarian matching (B, K) and its mask
+    (B, K) that they solved, for a caller that needs the matching too
+    (the joint step)."""
     w = cfg.weights
     i_gt = batch["extrusion_labels"]
     k = heads.w.shape[-1]
@@ -132,7 +141,7 @@ def proxy_losses(
 
     aux = {"total": total, "normal": out.normal, "miou": out.miou, "bb": bb_loss,
            "extrusion": ext_loss, "center": center_loss}
-    return total, aux
+    return total, aux, out.matching, out.mask
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter],
@@ -187,13 +196,17 @@ class Trainer:
                                k=batch["extrusion_axes"].shape[1])
         total, aux = proxy_losses(heads, batch, cfg)
         total.backward()
-        skipped = not guard_finite(total, self.model, self._stats)
+        skipped = not guard_finite(total, [self.model], self._stats)
         if not skipped:
             apply_update(self.optimizer, cfg, self.step)
             self.step += 1
         aux = {key: val.detach() for key, val in aux.items()}
         aux["skipped"] = total.new_tensor(float(skipped))
         return aux
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.model.parameters()).device
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
@@ -205,19 +218,26 @@ class Trainer:
         self.step = int(state["step"])
 
 
-def guard_finite(loss: torch.Tensor, model: torch.nn.Module,
+def guard_finite(loss: torch.Tensor, modules: Sequence[torch.nn.Module],
                  stats: list[torch.Tensor]) -> bool:
-    """The non-finite guard: True when the loss and every gradient are
-    finite. Otherwise the BN statistics go back to ``stats`` (what they
-    were before the forward updated them in place) and False is returned;
-    the caller then applies no update. One host sync."""
-    grads = [p.grad.reshape(-1) for p in model.parameters() if p.grad is not None]
+    """The non-finite guard: True when the loss and every gradient of the
+    ``modules`` are finite. Otherwise their buffers (BN statistics and
+    counts) go back to ``stats``, what they were before the forward
+    updated them in place, in the order of ``module_buffers(modules)``,
+    and False is returned; the caller then applies no update. One host
+    sync."""
+    grads = [p.grad.reshape(-1) for mod in modules for p in mod.parameters()
+             if p.grad is not None]
     if bool(torch.isfinite(torch.cat([loss.reshape(1), *grads])).all()):
         return True
     with torch.no_grad():
-        for buf, old in zip(model.buffers(), stats):
-            buf.copy_(old)
+        torch._foreach_copy_(module_buffers(modules), stats)
     return False
+
+
+def module_buffers(modules: Sequence[torch.nn.Module]) -> list[torch.Tensor]:
+    """Every buffer of ``modules``, in order: what the guard restores."""
+    return [buf for mod in modules for buf in mod.buffers()]
 
 
 def log_epoch_aux(logger, aux_steps: list[dict[str, torch.Tensor]], gstep0: int) -> int:
@@ -239,7 +259,7 @@ def log_epoch_aux(logger, aux_steps: list[dict[str, torch.Tensor]], gstep0: int)
     return skipped
 
 
-def handle_skipped_epoch(logger, ckpt, trainer: Trainer, skipped: int,
+def handle_skipped_epoch(logger, ckpt, trainer, skipped: int,
                          steps_per_epoch: int, epoch: int) -> None:
     """Log skipped steps; when a whole epoch was skipped (a persistent
     fault, not a transient), roll back to the last checkpoint on disk."""
@@ -248,5 +268,5 @@ def handle_skipped_epoch(logger, ckpt, trainer: Trainer, skipped: int,
     logger.log(f"! Epoch {epoch:04d}: {skipped}/{steps_per_epoch} non-finite "
                "steps skipped (state kept)")
     if skipped >= steps_per_epoch and ckpt.exists("model"):
-        trainer.load_state_dict(ckpt.load("model", next(trainer.model.parameters()).device))
+        trainer.load_state_dict(ckpt.load("model", trainer.device))
         logger.log("! Entire epoch non-finite: restored last checkpoint")

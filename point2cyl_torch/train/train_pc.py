@@ -35,10 +35,10 @@ from point2cyl_torch.serve.export import head_output_sizes
 from point2cyl_torch.train import steps
 
 
-def build_trainer(cfg: TrainConfig, num_points: int, k: int,
-                  device: str | torch.device | None = None) -> steps.Trainer:
-    """A Trainer with a fresh full-width backbone on ``device`` (default
-    the card), its weights drawn from ``cfg.seed``."""
+def build_model(cfg: TrainConfig, num_points: int, k: int,
+                device: str | torch.device | None = None) -> Backbone:
+    """A fresh full-width backbone on ``device`` (default the card), its
+    weights drawn from ``cfg.seed``."""
     dev = resolve_device(device)
     model = Backbone(BackboneConfig(num_points=num_points,
                                     output_sizes=head_output_sizes(
@@ -47,7 +47,13 @@ def build_trainer(cfg: TrainConfig, num_points: int, k: int,
                                     approx_neighbors=False,
                                     ballquery_impl=cfg.ballquery_impl))
     model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-    return steps.Trainer(model.to(dev), cfg)
+    return model.to(dev)
+
+
+def build_trainer(cfg: TrainConfig, num_points: int, k: int,
+                  device: str | torch.device | None = None) -> steps.Trainer:
+    """A Trainer with a fresh full-width backbone (``build_model``)."""
+    return steps.Trainer(build_model(cfg, num_points, k, device), cfg)
 
 
 def build_pipeline(cfg: TrainConfig, num_points: int, k: int, device: torch.device,
