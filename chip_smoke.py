@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving, training and evaluation on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation and reconstruction on one NVIDIA GPU.
 
     python3 chip_smoke.py            # what a check of the port runs
     python3 chip_smoke.py --profile  # also print device-time breakdowns
@@ -129,15 +129,37 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    against its float32 bound. Then the evaluator's ``cli_main`` and the export
    CLI read the joint logdir (restore lines, a finite block with
    non-zero fitting lines, served latents).
+10. Reconstruction at full width: ``python -m
+   point2cyl_torch.recon.reconstruct``'s ``cli_main`` on phase 9's joint
+   logdir (its backbone and implicit stack; ``--synthetic --model_id 0
+   --K 8 --num_points 2048 --num_sk_point 2048 --resolution 256``): both
+   load lines, 2 FPS, 1 SA1, 1 SA2 and 2 3-NN launches a reconstruction
+   and no other, a non-empty mesh inside the grid's box with its
+   statistics (``mesh`` line, ``data/meshutil.py``), one intermediate
+   PLY per composited instance, the render scripts and the wall seconds
+   of each stage. ``extract_extrusion_params`` against every
+   ``*_impl="plain"`` (labels on 0.999 of points, axes, centres and
+   extents within 1e-4); ``composite_volume`` at R=64 and
+   ``eval_sdf_grid_2d`` on the card against the CPU (1e-5 of the largest
+   magnitude); the CLI with the three post-process flags and design
+   option 2 (a cut) and with ``--use_gt_3d`` at R=128 (non-empty
+   meshes); ``igr_finetune`` of one instance for 200 steps (the loss
+   falls, ms a step) and one step's gradients against the CPU's (phase
+   5's rule); the evaluator's ``--visu --no_implicit`` on phase 5's
+   checkpoint (render scripts, 8 labelled clouds); one instance
+   composited at R=512 (seconds, TFLOP/s against the float32 bound, peak
+   memory) and marching tetrahedra of its volume on the host.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
-with latents, ``serve_latents_launches``, and in the joint trainer,
-``joint_launches``); the last line is ``{"ok": true, "device": {...}}``.
+with latents, ``serve_latents_launches``, in the joint trainer,
+``joint_launches``, and in one reconstruction, ``recon_launches``); the
+last line is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
 full-width train steps, of full-width eval steps without and with the
-implicit stack and of joint steps.
+implicit stack, of joint steps and of one instance composited at
+R=256.
 """
 
 from __future__ import annotations
@@ -332,6 +354,250 @@ def profile_steps(label: str, step, card: str, step_ms: float) -> None:
         print(json.dumps({"host_op": e.key[:100],
                           "host_ms_per_step": e.self_cpu_time_total / 1e3 / traced,
                           "calls_per_step": e.count / traced}), flush=True)
+
+
+def mesh_stats(verts: np.ndarray, faces: np.ndarray) -> dict:
+    """A mesh's invariants as ``tools/mesh_stats.py`` computes them, from
+    the port's ``data/meshutil.py``."""
+    from point2cyl_torch.data import meshutil
+
+    mv, mf = meshutil.merge_vertices(verts, faces)
+    comps = meshutil.connected_component_labels(meshutil.face_adjacency(mf), mf.shape[0])
+    tri = mv[mf]
+    volume = float(np.einsum("ij,ij->i", tri[:, 0], np.cross(tri[:, 1], tri[:, 2])).sum()
+                   / 6.0)
+    return {"verts": int(verts.shape[0]), "faces": int(faces.shape[0]),
+            "components": int(comps.max() + 1) if mf.size else 0,
+            "area": float(meshutil.face_areas(mv, mf).sum()), "signed_volume": volume}
+
+
+def reconstruction_phase(args, card: str, dev: torch.device, counters: dict,
+                         per_forward: dict, work: str, pc_logdir: str,
+                         joint_dir: str) -> dict:
+    """Phase 10: reconstruction at full width on phase 9's joint logdir.
+    Returns the kernels' launches in the main reconstruction."""
+    import contextlib
+    import copy
+    import io
+
+    from point2cyl_torch.core.config import BackboneConfig
+    from point2cyl_torch.data.synthetic import generate_dataset
+    from point2cyl_torch.eval import evaluator
+    from point2cyl_torch.losses.igr import igr_losses
+    from point2cyl_torch.models.backbone import Backbone
+    from point2cyl_torch.models.implicit import ImplicitNet, PointNetEncoder
+    from point2cyl_torch.recon import isosurface, plots
+    from point2cyl_torch.recon import reconstruct as recon
+    from point2cyl_torch.recon.ply import read_ply
+
+    t_phase = time.perf_counter()
+    n10, sk10, res10 = 2048, SK, 256
+    joint_im = torch.load(os.path.join(joint_dir, "im_model.pth"), map_location="cpu",
+                          weights_only=True)
+
+    def run(name: str, flags: list[str], resolution: int):
+        out_dir = os.path.join(work, f"recon_{name}")
+        argv = ["--logdir", joint_dir, "--synthetic", "--K", str(K), "--num_points",
+                str(n10), "--num_sk_point", str(sk10), "--resolution", str(resolution),
+                "--output_dir", os.path.join(out_dir, "out"),
+                "--dump_dir", os.path.join(out_dir, "dump"), *flags]
+        text = io.StringIO()
+        for fn in counters.values():
+            fn.launches = 0
+        with contextlib.redirect_stdout(text):
+            res = recon.cli_main(argv)
+        torch.cuda.synchronize()
+        launched = {key: fn.launches for key, fn in counters.items()}
+        print(text.getvalue(), end="", flush=True)
+        lines = text.getvalue().splitlines()
+        check(lines[:2] == ["Model loaded.",
+                            f"Pre-trained fixed implicit model loaded ({joint_dir})."],
+              f"{name}: load lines {lines[:2]}")
+        check(res["faces"] > 0, f"{name}: empty mesh")
+        return res, launched, out_dir
+
+    # 1. the CLI on phase 9's joint logdir (its backbone and implicit stack)
+    res, launched, out_dir = run("main", ["--model_id", "0"], res10)
+    for name, count in launched.items():
+        check(count == per_forward[name], f"reconstruction: {name} launched {count} "
+              f"times, expected {per_forward[name]}")
+    verts, faces = read_ply(res["out_ply"])
+    box = 2.0 * (res10 - 1) / res10
+    check(len(faces) == res["faces"] and bool(np.isfinite(verts).all())
+          and verts.min() >= 0.0 and verts.max() <= box,
+          f"reconstruction mesh: {len(faces)} faces in [{verts.min()}, {verts.max()}]")
+    inter = os.listdir(os.path.join(out_dir, "out", "intermediate_volumes"))
+    check(res["intermediates"] >= 1 and len(inter) == res["intermediates"],
+          f"{len(inter)} intermediate PLYs for {res['intermediates']} instances")
+    dump = os.listdir(os.path.join(out_dir, "dump"))
+    check({"render.sh", "image_files.sh", "0_pred.pts", "0_gt.pts"} <= set(dump),
+          f"render scripts: {dump}")
+    print(json.dumps({"mesh": "reconstruction, model 0, R=256", **mesh_stats(verts, faces),
+                      "instances": res["intermediates"]}), flush=True)
+    print(json.dumps({"recon": "CLI, full width", "resolution": res10, "launches": launched,
+                      "wall_s": res["timings"], "card": card}), flush=True)
+
+    # 2. the kernel path against the all-plain path: the same weights and
+    # points, the deterministic draw
+    ds = generate_dataset(1, resolution=8192, max_instances=K, num_sketch_points=sk10, seed=0)
+    sel = np.random.default_rng(0).permutation(8192)[:n10]
+    pts = torch.from_numpy(np.ascontiguousarray(ds.point_cloud[0][sel][None])).to(dev)
+    gt = torch.from_numpy(ds.extrusion_labels[0][sel][None].astype(np.int64)).to(dev)
+    bcfg = BackboneConfig(num_points=n10, output_sizes=(3, 2 * K), approx_neighbors=False)
+    pc_state = torch.load(os.path.join(joint_dir, "pc_model.pth"), map_location="cpu",
+                          weights_only=True)["model"]
+    models = {}
+    for route, c in (("kernel", bcfg), ("plain", dataclasses.replace(
+            bcfg, fps_impl="plain", ballquery_impl="plain", knn_impl="plain"))):
+        models[route] = Backbone(c)
+        models[route].load_state_dict(pc_state, strict=True)
+        models[route].to(dev).eval()
+    got = recon.extract_extrusion_params(models["kernel"], pts, gt, K)
+    want = recon.extract_extrusion_params(models["plain"], pts, gt, K)
+    agree = float((got["label"] == want["label"]).float().mean())
+    check(agree >= 0.999, f"extraction labels agree on {agree} of points")
+    same = [k for k in range(K) if bool(((got["label"] == k) == (want["label"] == k)).all())]
+    err = {key: float((got[key][0, same] - want[key][0, same]).abs().max())
+           for key in ("axes", "centers", "extents")}
+    for key, e in err.items():
+        check(e <= 1e-4, f"extraction {key}: kernel vs plain {e}")
+    print(json.dumps({"check": "recon extraction vs plain", "label_agreement": agree,
+                      "instances_compared": len(same), "max_abs_err": err,
+                      "atol": 1e-4}), flush=True)
+
+    # 3. the card against the CPU: the volume at R=64 from the same
+    # parameters and latents (up to three instances deep enough to
+    # composite), and one latent's 2D grid
+    encoder = PointNetEncoder(256, 2, with_normals=True)
+    encoder.load_state_dict(joint_im["pn_encoder"], strict=True)
+    encoder.to(dev).eval()
+    latents, scales, p2d_n, n2d, _ = recon.extract_sketch_latents(
+        encoder, None, pts, got["normals"], got["label"], got["pred_bb"], got["axes"],
+        got["centers"], sk10)
+    decoder = ImplicitNet(d_in=258)
+    decoder.load_state_dict(joint_im["implicit_net"], strict=True)
+    decoder.eval()
+    decoder_dev = copy.deepcopy(decoder).to(dev)
+    ops, perm = recon.DESIGN_OPTIONS[1]
+    sc, ext = scales[0].cpu().numpy(), got["extents"][0].cpu().numpy()
+    deep = [k for k in range(int(ds.n_instances[0])) if abs(ext[k, 0] - ext[k, 1]) >= 0.01][:3]
+    check(len(deep) > 0, f"no instance to composite: extents {ext.tolist()}")
+    sel_k = torch.tensor(deep, device=dev)
+    args64 = (latents[0, sel_k], got["axes"][0, sel_k], got["centers"][0, sel_k])
+    vol_card, inter_card = recon.composite_volume(
+        [decoder_dev] * len(deep), *args64, sc[deep], ext[deep], ops, perm, len(deep),
+        resolution=64)
+    vol_cpu, inter_cpu = recon.composite_volume(
+        [decoder] * len(deep), *(t.cpu() for t in args64), sc[deep], ext[deep], ops, perm,
+        len(deep), resolution=64)
+    top = float(np.abs(vol_cpu).max())
+    vol_err = float(np.abs(vol_card - vol_cpu).max())
+    check(len(inter_card) == len(inter_cpu) and vol_err <= 1e-5 * top,
+          f"volume card vs CPU: {vol_err} of {top}, {len(inter_card)} instances")
+    grid_card = plots.eval_sdf_grid_2d(decoder_dev, latents[0, 0], 128)
+    grid_cpu = plots.eval_sdf_grid_2d(decoder, latents[0, 0].cpu(), 128)
+    grid_err = float(np.abs(grid_card - grid_cpu).max())
+    check(grid_err <= 1e-5, f"2D grid card vs CPU: {grid_err}")
+    print(json.dumps({"check": "volume card vs CPU, R=64", "max_abs_err": vol_err,
+                      "largest": top, "instances": len(inter_card),
+                      "grid_max_abs_err": grid_err}), flush=True)
+
+    # 4. post-processing with a cut (model 3 has 3 instances), and GT params
+    for name, flags in (("postprocess", ["--seg_post_process", "--scale_post_process",
+                                         "--extent_post_process", "--design_option", "2",
+                                         "--model_id", "3"]),
+                        ("gt_3d", ["--use_gt_3d", "--model_id", "0"])):
+        res_o, _, _ = run(name, flags, 128)
+        print(json.dumps({"recon": name, "faces": res_o["faces"],
+                          "instances": res_o["intermediates"],
+                          "wall_s": sum(res_o["timings"].values())}), flush=True)
+
+    # 5. IGR fine-tune of one instance: 200 steps on the card, the loss on
+    # fixed off-surface points before and after, ms per step; one step's
+    # gradients against the CPU port's from the same weights and points
+    j = int(torch.argmax(scales[0] * (scales[0] != 1.0)))
+    # clones: autograd cannot save the inference tensors they come from
+    lat, sk_p, sk_n = (t.clone() for t in (latents[0, j], p2d_n[0, j], n2d[0, j]))
+    off = torch.randn(1, sk10 + sk10 // 8, 2, generator=torch.Generator().manual_seed(5))
+    mask = torch.ones(1, 1, dtype=torch.bool)
+
+    def igr(decoder, device):
+        return igr_losses(decoder, None, sk_p.to(device)[None, None],
+                          sk_n.to(device)[None, None], lat.to(device)[None, None],
+                          mask.to(device), off_pts=off.to(device)).total
+
+    loss_start = float(igr(decoder_dev, dev).detach())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tuned, steps = recon.igr_finetune(decoder_dev, lat, sk_p, sk_n,
+                                      torch.Generator(dev).manual_seed(1), max_steps=200)
+    torch.cuda.synchronize()
+    ft_ms = (time.perf_counter() - t0) / steps * 1e3
+    loss_end = float(igr(tuned, dev).detach())
+    check(np.isfinite(loss_end) and loss_end < loss_start,
+          f"fine-tune loss {loss_start} -> {loss_end}")
+    grads = {}
+    for device, net in ((dev, decoder_dev), ("cpu", decoder)):
+        net.zero_grad(set_to_none=True)
+        igr(net, device).backward()
+        grads[str(device)] = {n: p.grad.cpu() for n, p in net.named_parameters()}
+    top_g = max(float(g.abs().max()) for g in grads["cpu"].values())
+    grad_ratio = 0.0
+    for name, want_g in grads["cpu"].items():
+        e = float((grads[str(dev)][name] - want_g).abs().max())
+        tol = 1e-3 * float(want_g.abs().max()) + 1e-4 * top_g
+        check(e <= tol, f"fine-tune gradient of {name}: {e}, tolerance {tol}")
+        grad_ratio = max(grad_ratio, e / tol)
+    print(json.dumps({"recon": "IGR fine-tune, one instance", "steps": steps,
+                      "loss": [loss_start, loss_end], "ms_per_step": ft_ms,
+                      "grad_err_over_tolerance": grad_ratio, "card": card}), flush=True)
+
+    # 6. the evaluator's --visu on phase 5's checkpoint
+    visu_dir = os.path.join(work, "visu")
+    evaluator.cli_main(["--synthetic", "8", "--num_point", "8192", "--K", str(K),
+                        "--batch_size", str(TB), "--logdir", pc_logdir, "--no_implicit",
+                        "--visu", "--dump_dir", visu_dir])
+    visu = os.listdir(visu_dir)
+    clouds_written = [f for f in visu if f.endswith("_pred.pts")]
+    check({"render.sh", "image_files.sh"} <= set(visu) and len(clouds_written) == 8,
+          f"--visu wrote {sorted(visu)}")
+    print(json.dumps({"eval": "--visu --no_implicit", "labelled_clouds": len(clouds_written)}),
+          flush=True)
+
+    # 7. one instance composited at R=512 (the CLI's default) against its
+    # float32 bound, its peak memory, and marching tetrahedra of its volume
+    macs = sum(m.in_features * m.out_features for m in decoder_dev.modules()
+               if isinstance(m, torch.nn.Linear))
+    one = dict(decoders=[decoder_dev], latents=latents[0, j:j + 1], axes=got["axes"][0, j:j + 1],
+               centers=got["centers"][0, j:j + 1], scales=sc[j:j + 1],
+               extents=np.array([[-0.3, 0.3]], np.float32), ops=ops, perm=perm,
+               n_instances=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vol512, _ = recon.composite_volume(**one, resolution=512)
+    torch.cuda.synchronize()
+    comp_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flop = 2.0 * macs * 512**3
+    t0 = time.perf_counter()
+    v512, f512 = isosurface.marching_tetrahedra(vol512, 0.0, spacing=(2 / 512,) * 3)
+    mt_s = time.perf_counter() - t0
+    check(len(f512) > 0 and bool(np.isfinite(vol512).all()), "the R=512 volume has no surface")
+    print(json.dumps({"recon": "one instance, R=512", "points": 512**3, "macs_per_point": macs,
+                      "flop": flop, "composite_s": comp_s, "tflop_per_s": flop / comp_s / 1e12,
+                      "bound_s": flop / FP32_OPS_PER_S, "peak_gib": peak,
+                      "marching_tetrahedra_s": mt_s, "faces": len(f512), "card": card}),
+          flush=True)
+    del vol512, v512, f512
+    if args.profile:
+        composite256 = lambda: recon.composite_volume(**one, resolution=256)  # noqa: E731
+        t0 = time.perf_counter()
+        composite256()
+        profile_steps("composite one instance, R=256", composite256, card,
+                      (time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"phase10_s": time.perf_counter() - t_phase}), flush=True)
+    return launched
 
 
 def main() -> None:
@@ -1819,6 +2085,8 @@ def main() -> None:
           and bool(np.isfinite(lat_out).all()), f"joint artifact latents {lat_out.shape}")
     print(json.dumps({"eval": "the joint logdir, implicit stack", "clouds": 8, **means9,
                       "export_latents": list(lat_out.shape)}), flush=True)
+    recon_launches = reconstruction_phase(args, card, dev, counters, per_forward, work.name,
+                                          logdir, joint_dir)
     work.cleanup()
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
@@ -1829,6 +2097,7 @@ def main() -> None:
                                 "n8192_implicit": im_launches["sketch"][kernel],
                                 "n8192_implicit_whole_pc": im_launches["whole pc, axis"][kernel]}
         row["serve_latents_launches"] = lat_launches[kernel]
+        row["recon_launches"] = recon_launches[kernel]
         row["joint_launches"] = {"step_pc_train": step_launches[kernel],
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],

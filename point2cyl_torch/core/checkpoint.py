@@ -72,11 +72,12 @@ def _first_checkpoint(logdir: str, names: tuple[str, ...]) -> tuple[str, dict] |
     return None
 
 
-def restore_backbone(logdir: str, model: torch.nn.Module) -> str | None:
-    """Load ``model`` from ``<logdir>/model.pth``, else ``pc_model.pth``
+def restore_backbone(logdir: str, model: torch.nn.Module,
+                     names: tuple[str, ...] = ("model", "pc_model")) -> str | None:
+    """Load ``model`` from the first ``<logdir>/<name>.pth`` of ``names``
     (``{"model": state_dict}``) with ``strict=True``. Returns the name, or
-    None where there is neither (the model keeps its weights)."""
-    found = _first_checkpoint(logdir, ("model", "pc_model"))
+    None where there is none (the model keeps its weights)."""
+    found = _first_checkpoint(logdir, names)
     if found is None:
         return None
     model.load_state_dict(found[1]["model"], strict=True)
@@ -96,11 +97,35 @@ def restore_implicit_stack(im_logdir: str, implicit: torch.nn.Module | None,
     if found is None:
         return None
     name, state = found
+    if not _load_implicit(state, implicit, encoder):
+        raise KeyError(f"{im_logdir}/{name}.pth holds neither implicit layout "
+                       f"{IMPLICIT_LAYOUTS}: keys {sorted(state)}")
+    return name
+
+
+def _load_implicit(state: dict, implicit: torch.nn.Module | None,
+                   encoder: torch.nn.Module | None) -> bool:
+    """Load the decoder and the encoder, each where given, from ``state``
+    in either layout (``strict=True``); False where it holds neither."""
     for dec_key, enc_key in IMPLICIT_LAYOUTS:
         if dec_key in state and enc_key in state:
             for module, key in ((implicit, dec_key), (encoder, enc_key)):
                 if module is not None:
                     module.load_state_dict(state[key], strict=True)
-            return name
-    raise KeyError(f"{im_logdir}/{name}.pth holds neither implicit layout "
-                   f"{IMPLICIT_LAYOUTS}: keys {sorted(state)}")
+            return True
+    return False
+
+
+def restore_implicit_stack_from(sources: list[tuple[str, str]],
+                                implicit: torch.nn.Module | None,
+                                encoder: torch.nn.Module | None) -> str | None:
+    """Load the decoder and the encoder from the first ``(logdir, name)``
+    of ``sources`` whose ``<logdir>/<name>.pth`` holds an implicit layout
+    (a file in neither, such as Trainer A's ``model.pth``, is passed
+    over; mismatched keys or shapes raise). Returns that logdir, or None
+    where no source has one."""
+    for logdir, name in sources:
+        found = _first_checkpoint(logdir, (name,))
+        if found is not None and _load_implicit(found[1], implicit, encoder):
+            return logdir
+    return None

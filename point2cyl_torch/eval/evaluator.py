@@ -20,9 +20,11 @@ with ``--use_extrusion_axis_feat``, 7) is restored from
 ``<im_logdir>/model.pth`` or ``im_model.pth`` in either reference layout
 (``core/checkpoint.py``) and the two fitting metrics are computed. The
 metric block of ``eval.py:705-722`` is printed and written to
-``<logdir>/log_evaluate.txt``.
-
-Not ported yet, and raising: ``--visu`` (ROADMAP queue 1 item 4).
+``<logdir>/log_evaluate.txt``. ``--visu`` writes a labelled cloud of
+each sample and the render scripts into ``--dump_dir`` and, with the
+implicit stack, an SDF contour plot of each ground-truth instance
+(which needs matplotlib: without it the run raises before its first
+batch).
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ from point2cyl_torch.models.backbone import Backbone
 from point2cyl_torch.models.implicit import ImplicitNet, PointNetEncoder
 from point2cyl_torch.ops.geometry import add_noise, extrusion_extents, sketch_projection
 from point2cyl_torch.ops.matching import one_hot_labels
+from point2cyl_torch.recon import plots
+from point2cyl_torch.recon.render_scripts import RenderScriptWriter
 from point2cyl_torch.serve.export import head_output_sizes
 from point2cyl_torch.train.steps import assemble_heads
 
@@ -193,9 +197,13 @@ def evaluate(
     log: Callable[[str], None] = print,
     implicit: ImplicitNet | None = None,
     encoder: PointNetEncoder | None = None,
+    visu_dir: str | None = None,
 ) -> dict[str, float]:
     """The metric sweep; returns the metric means (``eval.py:697-722``),
-    with ``implicit`` and ``encoder`` also the fitting metrics'.
+    with ``implicit`` and ``encoder`` also the fitting metrics'. With
+    ``visu_dir``, also emit labelled point clouds + render.sh
+    (``eval.py:659-664``) and, with the implicit stack, per-instance SDF
+    contour plots (``eval.py:667-692``).
 
     ``batches`` is an ``InputPipeline``, read in row order in batches of
     ``batch_size``, or any iterable of batch dicts on the model's device.
@@ -204,6 +212,11 @@ def evaluate(
     sweep ends, so the loop never waits for the card.
     """
     dev = next(model.parameters()).device
+    writer = None
+    if visu_dir:
+        if implicit is not None:
+            plots.require_matplotlib()
+        writer = RenderScriptWriter(visu_dir)
     step = make_eval_step(model, cfg, cfg.num_sketch_samples, implicit, encoder)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if isinstance(batches, InputPipeline):
@@ -215,9 +228,14 @@ def evaluate(
         if names is None:
             names = [name for name in out if name not in PER_SAMPLE_KEYS]
         sums.append(torch.stack([out[name].sum() for name in names]))
+        if writer is not None:
+            _visualize(writer, i, batch, out, implicit)
         count += int(batch["point_cloud"].shape[0])
         if i % 20 == 0:
             log(f"Time elapsed: {time.time() - t0:.1f} sec for batch {i}.")
+    if writer is not None:
+        render_sh, image_sh = writer.finalize()
+        log(f"Wrote {render_sh} and {image_sh}")
     totals = {name: 0.0 for name in names or ()}
     for row in torch.stack(sums).tolist() if sums else ():
         for name, val in zip(names, row):
@@ -234,6 +252,27 @@ def evaluate(
     log(f"Mean per-extrusion cylinder fitting loss= {means.get('fit_cyl_loss', 0.0)}")
     log(f"Mean global fitting loss= {means.get('fit_global_loss', 0.0)}")
     return means
+
+
+def _visualize(writer: RenderScriptWriter, i: int, batch: dict, out: dict,
+               implicit: ImplicitNet | None) -> None:
+    """Batch ``i``'s labelled clouds, named ``{i}_{j}_{miou:.3f}``, and with
+    latents one SDF contour plot (resolution 128) of each ground-truth
+    instance, as the JAX evaluator draws them."""
+    pts = batch["point_cloud"].cpu().numpy()
+    gt = batch["extrusion_labels"].cpu().numpy()
+    miou = out["miou"].cpu().numpy()
+    pred = out["pred_labels"].cpu().numpy() if "pred_labels" in out else gt
+    for j in range(len(pts)):
+        writer.add_pointcloud(f"{i}_{j}_{miou[j]:.3f}", pts[j], pred[j], gt[j])
+    if implicit is None or "latents" not in out:
+        return
+    lat = out["latents"]
+    n_inst = gt.max(axis=1) + 1
+    for j in range(len(pts)):
+        for kk in range(int(n_inst[j])):
+            plots.plot_surface_2d(implicit, writer.dump_dir, f"{i}_{j}", str(kk),
+                                  lat[j, kk], resolution=128)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -274,17 +313,8 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(args: argparse.Namespace) -> None:
-    """Raise for the flags whose modules the port does not have yet."""
-    if args.visu:
-        raise NotImplementedError(
-            "--visu needs recon/render_scripts.py and recon/plots.py (ROADMAP "
-            "queue 1 item 4, reconstruction)")
-
-
 def cli_main(argv: list[str] | None = None) -> dict[str, float]:
     args = build_argparser().parse_args(argv)
-    _check_ported(args)
     dev = resolve_device(args.device)
     cfg = EvalConfig(
         pred_seg=args.pred_seg,
@@ -343,7 +373,8 @@ def cli_main(argv: list[str] | None = None) -> dict[str, float]:
                 log(f"Restored implicit stack from {args.im_logdir}/{name}")
             implicit, encoder = implicit.to(dev), encoder.to(dev)
         return evaluate(model.to(dev), pipeline, cfg, args.batch_size, seed=args.seed,
-                        log=log, implicit=implicit, encoder=encoder)
+                        log=log, implicit=implicit, encoder=encoder,
+                        visu_dir=args.dump_dir if args.visu else None)
     finally:
         fout.close()
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -526,17 +527,69 @@ def test_cli_needs_the_card_unless_told(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--visu"], "item 4"), (["--no_implicit", "--visu"], "item 4"),
-    (["--visu", "--use_gt_im"], "item 4"),
-    (["--visu", "--use_whole_pc"], "item 4"),
-    (["--visu", "--use_extrusion_axis_feat"], "item 4"),
+    (["--visu"], "matplotlib"), (["--visu", "--use_gt_im"], "matplotlib"),
+    (["--visu", "--use_whole_pc"], "matplotlib"),
+    (["--visu", "--use_extrusion_axis_feat"], "matplotlib"),
 ])
-def test_cli_deferred_flags_raise(tmp_path, flags, match):
-    """Only --visu is still to port (with or without the implicit stack
-    and its encoder flags)."""
+def test_cli_deferred_flags_raise(tmp_path, monkeypatch, flags, match):
+    """--visu with the implicit stack draws SDF contour plots: where
+    matplotlib cannot be imported, each mode raises before its first
+    batch (no plot is skipped quietly)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
+    def no_batch(*args, **kwargs):
+        raise AssertionError("the sweep started")
+
+    monkeypatch.setattr(tev, "make_eval_step", no_batch)
     args = [a for a in EVAL_ARGS if a != "--no_implicit"] + flags
-    with pytest.raises(NotImplementedError, match=match):
-        tev.cli_main(args + ["--device", "cpu", "--logdir", str(tmp_path)])
+    with pytest.raises(ImportError, match=match):
+        tev.cli_main(args + ["--device", "cpu", "--logdir", str(tmp_path),
+                             "--dump_dir", str(tmp_path / "dump")])
+
+
+def test_cli_visu_writes_labelled_clouds_and_render_scripts(trained_logdir, tmp_path,
+                                                            capsys):
+    """Without the implicit stack: one pred and one gt cloud per sample,
+    named ``{batch}_{row}_{miou:.3f}``, render.sh and image_files.sh, as
+    the JAX evaluator writes them; no plot."""
+    dump = tmp_path / "dump"
+    means = tev.cli_main(EVAL_ARGS + ["--visu", "--device", "cpu", "--logdir",
+                                      trained_logdir, "--dump_dir", str(dump)])
+    files = sorted(os.listdir(dump))
+    clouds = [f for f in files if f.endswith("_pred.pts")]
+    assert len(clouds) == 4 and len([f for f in files if f.endswith("_gt.pts")]) == 4
+    assert {f.rsplit("_", 2)[0] for f in clouds} == {"0_0", "0_1", "1_0", "1_1"}
+    assert not [f for f in files if f.endswith(".png")]
+    render = (dump / "render.sh").read_text().splitlines()
+    assert render[0] == "#!/bin/sh" and len(render) == 1 + 8
+    out = capsys.readouterr().out
+    assert f"Wrote {dump}/render.sh and {dump}/image_files.sh" in out
+    assert np.isfinite(means["miou"])
+
+
+def test_cli_visu_plots_each_instance_with_the_implicit_stack(trained_logdir, tmp_path):
+    """With the implicit stack, also one SDF contour plot (PNG) per
+    ground-truth instance of each sample."""
+    gen = torch.Generator().manual_seed(3)
+    implicit, encoder = tev.ImplicitNet(d_in=258), tev.encoder_for(TorchEvalConfig())
+    implicit.reset_parameters(gen)
+    encoder.reset_parameters(gen)
+    im_dir = tmp_path / "igr"
+    im_dir.mkdir()
+    torch.save({"model_state_dict": implicit.state_dict(),
+                "encoder_state_dict": encoder.state_dict()}, im_dir / "model.pth")
+    dump = tmp_path / "dump"
+    args = [a for a in EVAL_ARGS if a != "--no_implicit"]
+    args[args.index("--synthetic") + 1] = "2"  # one batch: a plot takes ~0.3 s
+    tev.cli_main(args + ["--visu", "--device", "cpu", "--logdir", trained_logdir,
+                         "--im_logdir", str(im_dir), "--dump_dir", str(dump)])
+    ds = torch_generate(2, resolution=512, max_instances=K, num_sketch_points=2048)
+    want = sorted(f"igr_2d_0_{i}_{kk}.png" for i in range(2)
+                  for kk in range(int(ds.n_instances[i])))
+    pngs = sorted(f for f in os.listdir(dump) if f.endswith(".png"))
+    assert pngs == want
+    assert all((dump / f).stat().st_size > 0 for f in pngs)
+    assert (dump / "render.sh").exists()
 
 
 def test_cli_store_false_quirk():

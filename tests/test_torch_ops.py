@@ -954,14 +954,15 @@ def test_kernel_launchers_reject_cpu_tensors(launch, monkeypatch):
 
 def test_port_imports_no_jax():
     """Importing every point2cyl_torch module pulls in no JAX, flax or
-    point2cyl_tpu."""
+    point2cyl_tpu, and neither scikit-learn (the card's machine has none)
+    nor matplotlib (imported only where a plot is drawn)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import point2cyl_torch\n"
         "for m in pkgutil.walk_packages(point2cyl_torch.__path__, 'point2cyl_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'point2cyl_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'point2cyl_tpu', 'sklearn', 'matplotlib')]\n"
         "print(len([m for m in sys.modules if m.startswith('point2cyl_torch')]))\n"
         "assert not bad, bad\n"
     )
