@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving, training, evaluation and reconstruction on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction and preprocessing on one NVIDIA GPU.
 
     python3 chip_smoke.py            # what a check of the port runs
     python3 chip_smoke.py --profile  # also print device-time breakdowns
@@ -149,12 +149,33 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    checkpoint (render scripts, 8 labelled clouds); one instance
    composited at R=512 (seconds, TFLOP/s against the float32 bound, peak
    memory) and marching tetrahedra of its volume on the host.
+11. Preprocessing, packs and K > 8: 15 Fusion 360 Gallery-style models
+   written by ``write_fusion_models`` (joins of 1-4 extrusions on
+   axis-aligned and oblique axes, a two-profile extrusion, a cut that
+   splits faces, 9 and 10 instances, a tapered extrusion) through
+   ``python -m point2cyl_torch.data.preprocess``'s ``cli_main`` (16,384
+   points, 2,048 sketch points) at ``--K 8`` and ``--K 10`` into a train
+   and a test pack each, without h5py: the kept/total lines, exactly the
+   expected models rejected, every key, shape and dtype read back by
+   ``load_h5``, labels in [0, n_instances), host seconds a model. Trainer
+   A's CLI from the K=8 pack (N=8192, B=4, 2 epochs: finite losses, the
+   checkpoint, phase 5's launches a step), the pretrainer
+   (``--pretrain_im``, 1 epoch) on its sketches and the evaluator
+   (``--no_implicit``) on its test split. ``StepTimer``'s steps/s beside
+   the CUDA-event median of the same steps, and ``trace()`` around two
+   steps (the trace names the hand kernels). At K=10 (heads [3, 20]): one
+   step on a batch with the 9- and 10-instance models held against the
+   all-plain step (phase 5's rule), ``hungarian_matching`` on the card
+   equal to the CPU's and at scipy's optimum, with no host sync under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the ms of the
+   matching and of a K=10 step beside a K=8 step.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
 with latents, ``serve_latents_launches``, in the joint trainer,
-``joint_launches``, and in one reconstruction, ``recon_launches``); the
-last line is ``{"ok": true, "device": {...}}``.
+``joint_launches``, in one reconstruction, ``recon_launches``, and over
+the 4 steps trained from the K=8 pack, ``pack_launches``); the last line
+is ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
 full-width train steps, of full-width eval steps without and with the
@@ -369,6 +390,418 @@ def mesh_stats(verts: np.ndarray, faces: np.ndarray) -> dict:
     return {"verts": int(verts.shape[0]), "faces": int(faces.shape[0]),
             "components": int(comps.max() + 1) if mf.size else 0,
             "area": float(meshutil.face_areas(mv, mf).sum()), "signed_volume": volume}
+
+
+# ---- Fusion 360 Gallery-style models for the preprocessing phase ------------
+
+_BOX_QUADS = {  # local corner indices of each face, outward winding
+    "bottom": (1, 4, 3, 2), "top": (5, 6, 7, 8), "s1": (1, 2, 6, 5),
+    "s2": (2, 3, 7, 6), "s3": (3, 4, 8, 7), "s4": (4, 1, 5, 8),
+}
+
+
+def _unit(v) -> list[float]:
+    v = np.asarray(v, np.float64)
+    return (v / np.linalg.norm(v)).tolist()
+
+
+def _box(obj: dict, center, half, axis, names: dict) -> None:
+    """Append a box to an OBJ being built: half sizes ``half`` along a frame
+    whose third axis is ``axis`` (the extrusion's), one group per face."""
+    a = np.asarray(axis, np.float64)
+    helper = np.array([1.0, 0.0, 0.0]) if abs(a[0]) < 0.9 else np.array([0.0, 1.0, 0.0])
+    u = helper - (helper @ a) * a  # the identity frame for axis z
+    u /= np.linalg.norm(u)
+    frame = np.stack([u, np.cross(a, u), a], axis=1)
+    (x0, y0, z0), (x1, y1, z1) = -np.asarray(half), np.asarray(half)
+    local = [(x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+             (x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1)]
+    base = len(obj["v"])
+    obj["v"] += [np.asarray(center, np.float64) + frame @ np.asarray(p) for p in local]
+    for face, (a_, b_, c_, d_) in _BOX_QUADS.items():
+        a_, b_, c_, d_ = a_ + base, b_ + base, c_ + base, d_ + base
+        obj["g"].append((names[face], [(a_, b_, c_), (a_, c_, d_)]))
+
+
+def _box_names(prefix: str) -> dict:
+    return {face: f"{prefix}_{face}" for face in _BOX_QUADS}
+
+
+def _write_obj(path: str, obj: dict) -> None:
+    lines = [f"v {float(p[0])!r} {float(p[1])!r} {float(p[2])!r}" for p in obj["v"]]
+    for group, tris in obj["g"]:
+        lines.append(f"g {group}")
+        lines += [f"f {a} {b} {c}" for a, b, c in tris]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _entity(groups: list[str], body: list[str], distance: float,
+            operation: str = "JoinFeatureOperation", taper: float = 0.0) -> dict:
+    return {"extent_one": {"distance": {"value": distance},
+                           "taper_angle": {"value": taper}},
+            "operation": operation, "extrude_faces": groups,
+            "bodies": {"b1": {"faces": list(body)}}}
+
+
+def _write_model(root: str, mid: str, steps: list[tuple[dict, dict, tuple]]) -> None:
+    """One model: each step an OBJ of the body after it, its entity and
+    its sketch plane's normal; the JSON sequence, entities and sketches in
+    the Fusion 360 Gallery layout that ``data/preprocess.py`` parses."""
+    doc = {"sequence": [], "timeline": [], "entities": {}}
+    for i, (obj, entity, axis) in enumerate(steps):
+        obj_name = f"{mid}_{i}.obj"
+        _write_obj(os.path.join(root, obj_name), obj)
+        doc["entities"][f"e{i}"] = dict(entity, profiles=[{"sketch": f"sk{i}"}])
+        doc["entities"][f"sk{i}"] = {"reference_plane": {"plane": {"normal": dict(
+            zip("xyz", axis))}}}
+        doc["sequence"].append({"obj": obj_name, "type": "ExtrudeFeature",
+                                "entity": f"e{i}"})
+    with open(os.path.join(root, mid + ".json"), "w") as f:
+        json.dump(doc, f)
+
+
+def _joined_boxes(root: str, mid: str, axes: list, taper: float = 0.0,
+                  loops: int = 1) -> None:
+    """One extrusion a box (``loops`` disjoint boxes for a multi-loop
+    profile) along each axis, on a grid far enough apart to be disjoint;
+    each step's OBJ is the union so far."""
+    obj = {"v": [], "g": []}
+    body, steps = [], []
+    rng = np.random.default_rng(len(mid) * 1000 + sum(map(ord, mid)))
+    for i, axis in enumerate(axes):
+        groups = []
+        half = rng.uniform(0.3, 0.9, 3)
+        for loop in range(loops):
+            cell = i * loops + loop
+            names = _box_names(f"e{i}l{loop}")
+            _box(obj, (4.0 * (cell % 4), 4.0 * (cell // 4), 0.5 * i), half, axis, names)
+            groups += list(names.values())
+        body += groups
+        steps.append(({"v": list(obj["v"]), "g": list(obj["g"])},
+                      _entity(groups, body, 2.0 * half[2],
+                              "NewBodyFeatureOperation" if i == 0
+                              else "JoinFeatureOperation", taper), axis))
+    _write_model(root, mid, steps)
+
+
+def _slot_cut(root: str, mid: str) -> None:
+    """A box along z, then a cut through its middle: the cut splits the
+    box's top, bottom and two side faces, whose far halves belong to no
+    extrusion (split faces, found on the first step's surface), and leaves
+    two lumps, so both the box's and the cut's barrels are two loops."""
+    first = {"v": [], "g": []}
+    names = _box_names("g0")
+    _box(first, (1.0, 0.5, 0.5), (1.0, 0.5, 0.5), (0, 0, 1), names)
+    lumps = {"v": [], "g": []}
+    _box(lumps, (0.45, 0.5, 0.5), (0.45, 0.5, 0.5), (0, 0, 1),
+         dict(names, s2="cut_w1"))
+    _box(lumps, (1.55, 0.5, 0.5), (0.45, 0.5, 0.5), (0, 0, 1),
+         {"bottom": "sp_bottom", "top": "sp_top", "s1": "sp_s1", "s2": "g0_s2",
+          "s3": "sp_s3", "s4": "cut_w2"})
+    body = [g for g, _ in lumps["g"]]
+    _write_model(root, mid, [
+        (first, _entity(list(names.values()), list(names.values()), 1.0,
+                        "NewBodyFeatureOperation"), (0, 0, 1)),
+        (lumps, _entity(["cut_w1", "cut_w2"], body, 1.0, "CutFeatureOperation"),
+         (0, 0, 1)),
+    ])
+
+
+def write_fusion_models(root: str) -> dict[str, int | None]:
+    """Write Fusion 360 Gallery-style models (OBJ per step plus JSON) under
+    ``root``; returns each id's instance count after preprocessing, None
+    for a model every ``--K`` rejects. Axis-aligned and oblique joins of
+    1-4 extrusions, a two-profile extrusion, a cut that splits faces, 9
+    and 10 instances, and a tapered extrusion."""
+    diag = [_unit(v) for v in ((1, 1, 0), (1, 0, 1), (1, 1, 1), (0, 1, 1),
+                               (1, -2, 0.5), (2, 1, -1))]
+    x, y, z = (1, 0, 0), (0, 1, 0), (0, 0, 1)
+    joins = {
+        "m00": [z], "m01": [z, x], "m02": [x, y, diag[0]], "m03": [z, y, diag[1], diag[2]],
+        "m06": [diag[3], y], "m07": [diag[4], z, x],
+        "m08": [z, x, y, diag[0], diag[1], diag[2], diag[3], diag[4], diag[5]],
+        "m09": [z, x, y, diag[0], diag[1], diag[2], diag[3], diag[4], diag[5], z],
+        "m11": [y, z, x], "m12": [diag[5]], "m13": [z, z], "m14": [x, diag[1], y, diag[3]],
+    }
+    for mid, axes in joins.items():
+        _joined_boxes(root, mid, axes)
+    _joined_boxes(root, "m04", [z], loops=2)
+    _slot_cut(root, "m05")
+    _joined_boxes(root, "m10", [z, x], taper=0.1)
+    expected = {mid: len(axes) for mid, axes in joins.items()}
+    expected.update(m04=2, m05=4, m10=None)
+    return dict(sorted(expected.items()))
+
+
+def step_against_plain(trainer, tcfg, dev: torch.device, batch: dict) -> dict:
+    """One train step of ``trainer`` held against the same step (weights,
+    batch, generator) with every ``*_impl="plain"``: the loss, every
+    gradient and the BN statistics; returns the errors."""
+    from point2cyl_torch.models.backbone import Backbone
+    from point2cyl_torch.train import steps
+
+    plain_train_cfg = dataclasses.replace(trainer.model.cfg, fps_impl="plain",
+                                          ballquery_impl="plain", knn_impl="plain")
+    plain_trainer = steps.Trainer(Backbone(plain_train_cfg).to(dev), tcfg)
+    plain_trainer.load_state_dict(trainer.state_dict())
+    got = trainer.train_step(batch, torch.Generator(dev).manual_seed(7))
+    want = plain_trainer.train_step(batch, torch.Generator(dev).manual_seed(7))
+    loss_err = abs(float(got["total"]) - float(want["total"]))
+    check(loss_err <= 1e-5 * abs(float(want["total"])), f"loss kernel {float(got['total'])} "
+          f"vs plain {float(want['total'])}")
+    # Tolerance for each parameter: 1e-3 of its largest gradient plus 1e-4
+    # of the largest gradient of any parameter. Float atomics (the kernels,
+    # and autograd's own scatters on the plain side) add in no fixed order,
+    # and a bias in front of batch-statistics BN has an analytic gradient
+    # of 0: what it holds is that summation noise, about 1e-5 of the
+    # largest gradient, which the plain path alone shows from run to run.
+    pairs = list(zip(trainer.model.named_parameters(),
+                     plain_trainer.model.named_parameters()))
+    top = max(float(pp.grad.abs().max()) for _, (_, pp) in pairs)
+    grad_err = 0.0
+    for (name, pk), (_, pp) in pairs:
+        scale = float(pp.grad.abs().max())
+        err = float((pk.grad - pp.grad).abs().max())
+        check(err <= 1e-3 * scale + 1e-4 * top,
+              f"gradient of {name}: {err} vs its scale {scale}, largest {top}")
+        grad_err = max(grad_err, err / (1e-3 * scale + 1e-4 * top))
+    bn_err = 0.0
+    for (name, bk), (_, bp) in zip(trainer.model.named_buffers(),
+                                   plain_trainer.model.named_buffers()):
+        torch.testing.assert_close(bk, bp, rtol=1e-5, atol=1e-6,
+                                   msg=lambda m: f"BN statistic {name}: {m}")
+        bn_err = max(bn_err, float((bk - bp).abs().max()))
+    return {"loss_abs_err": loss_err, "grad_err_over_tolerance": grad_err,
+            "largest_grad": top, "bn_max_abs_err": bn_err}
+
+
+def preprocessing_phase(card: str, dev: torch.device, counters: dict, per_step: dict,
+                        work: str, pack_points: int = 16384, num_point: int = 8192,
+                        sketch_points: int = SK) -> dict:
+    """Phase 11: preprocessing at full width into packs written without
+    h5py, Trainer A, the pretrainer and the evaluator from them, a K=10
+    step and matching, and the profiling utilities. Returns the kernels'
+    launches over the pack-trained CLI's steps."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from scipy.optimize import linear_sum_assignment
+
+    from point2cyl_torch.core.config import TrainConfig
+    from point2cyl_torch.core.profiling import StepTimer, trace
+    from point2cyl_torch.data import preprocess
+    from point2cyl_torch.data.h5_io import load_h5
+    from point2cyl_torch.eval import evaluator
+    from point2cyl_torch.ops.matching import hungarian_matching, relaxed_iou_cost
+    from point2cyl_torch.train import steps, train_joint, train_pc
+
+    t_phase = time.perf_counter()
+    had_h5py = importlib.util.find_spec("h5py") is not None
+    raw = os.path.join(work, "fusion")
+    os.makedirs(raw)
+    expected = write_fusion_models(raw)
+    train_ids, test_ids = list(expected)[:11], list(expected)[11:]
+
+    # 1. the CLI at its defaults (16,384 points, 2,048 sketch points) at
+    # --K 8 and 10, a train and a test pack each
+    packs, pre_s = {}, {}
+    for k in (8, 10):
+        packs[k] = os.path.join(work, f"pack_k{k}")
+        os.makedirs(packs[k])
+        t0 = time.perf_counter()
+        for split, ids in (("train", train_ids), ("test", test_ids)):
+            out = os.path.join(packs[k], f"{split}.h5")
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                kept = preprocess.cli_main(["--raw_dir", raw, "--out", out,
+                                            "--num_points", str(pack_points),
+                                            "--num_sk_point", str(sketch_points),
+                                            "--K", str(k), "--model_ids", *ids])
+            print(text.getvalue(), end="", flush=True)
+            want = [m for m in ids if expected[m] is not None and expected[m] <= k]
+            check(kept == want, f"K={k} {split}: kept {kept}, expected {want}")
+            check(text.getvalue().splitlines()[-1]
+                  == f"Preprocessed {len(want)}/{len(ids)} models -> {out}",
+                  f"K={k} {split}: {text.getvalue()!r}")
+            ds = load_h5(out)
+            m = len(want)
+            r = pack_points
+            shapes = {"point_cloud": ((m, r, 3), np.float32),
+                      "normals": ((m, r, 3), np.float32),
+                      "extrusion_labels": ((m, r), np.int32),
+                      "base_barrel_labels": ((m, r), np.int32),
+                      "n_instances": ((m,), np.int32),
+                      "extrusion_axes": ((m, k, 3), np.float32),
+                      "extrusion_distances": ((m, k), np.float32),
+                      "extrusion_operation": ((m, r), np.int32),
+                      "extrusion_centers": ((m, k, 3), np.float32),
+                      "extrusion_extents": ((m, k, 2), np.float32),
+                      "sketches": ((m, k, sketch_points, 4), np.float32),
+                      "sketches_norms": ((m, k), np.float32)}
+            for key, (shape, dtype) in shapes.items():
+                val = getattr(ds, key)
+                check(val is not None and val.shape == shape and val.dtype == dtype,
+                      f"K={k} {split} {key}: {None if val is None else (val.shape, val.dtype)}")
+                check(np.isfinite(val).all(), f"K={k} {split} {key} is not finite")
+            check(ds.n_instances.tolist() == [expected[i] for i in want],
+                  f"K={k} {split}: instances {ds.n_instances.tolist()}")
+            labels = ds.extrusion_labels
+            check(bool((labels >= 0).all() and (labels < ds.n_instances[:, None]).all()),
+                  f"K={k} {split}: a label outside [0, n_instances)")
+        pre_s[k] = (time.perf_counter() - t0) / len(expected)
+    check("h5py" not in sys.modules, "h5py was imported")
+    print(json.dumps({"preprocess": f"{pack_points} points, {sketch_points} sketch points",
+                      "models": len(expected), "host_s_per_model": pre_s,
+                      "h5py": "present, not used" if had_h5py else "absent",
+                      "card": card}), flush=True)
+
+    # 2. Trainer A through its CLI from the K=8 pack: 2 epochs of 8 models
+    # at B=4, launches per step as in phase 5
+    pc_dir = os.path.join(work, "pack_trainer")
+    flags = ["--pred_seg", "--pred_normal", "--pred_bb", "--pred_extrusion",
+             "--pred_center"]
+    for fn in counters.values():
+        fn.launches = 0
+    trained = train_pc.cli_main(["--data_dir", packs[8], "--num_point", str(num_point),
+                                 "--K", "8",
+                                 "--batch_size", str(TB), "--num_epochs", "2",
+                                 "--logdir", pc_dir, *flags])
+    torch.cuda.synchronize()
+    pack_launches = {name: fn.launches for name, fn in counters.items()}
+    check(trained.step == 4, f"2 epochs of 8 models at B=4 took {trained.step} steps")
+    for name, count in pack_launches.items():
+        check(count == per_step[name] * trained.step,
+              f"pack: {name} launched {count} times over {trained.step} steps")
+    pc_losses = logged_losses(pc_dir)
+    check(pc_losses and all(np.isfinite(pc_losses)), f"pack losses {pc_losses}")
+    check(os.path.exists(os.path.join(pc_dir, "model.pth")), "no checkpoint written")
+    print(json.dumps({"train": "Trainer A CLI, K=8 pack", "steps": trained.step,
+                      "launches": pack_launches, "loss": pc_losses}), flush=True)
+
+    # the pretrainer on the same pack's sketches (no backbone kernel) and the
+    # evaluator on its test split with the trained checkpoint
+    igr_dir = os.path.join(work, "pack_igr")
+    for fn in counters.values():
+        fn.launches = 0
+    pre = train_joint.cli_main(["--pretrain_im", "--data_dir", packs[8], "--K", "8",
+                                "--batch_size", str(TB), "--num_sk_point", str(sketch_points),
+                                "--num_point", str(num_point), "--num_epochs", "1",
+                                "--logdir", igr_dir])
+    torch.cuda.synchronize()
+    check(not any(fn.launches for fn in counters.values()), "pretraining launched a kernel")
+    pre_losses = logged_losses(igr_dir)
+    check(pre.step == 2 and pre_losses and all(np.isfinite(pre_losses)),
+          f"pretrain: {pre.step} steps, losses {pre_losses}")
+    means = evaluator.cli_main(["--data_dir", packs[8], "--data_split", "test",
+                                "--num_point", str(num_point), "--K", "8", "--batch_size",
+                                str(TB), "--no_implicit", "--logdir", pc_dir])
+    with open(os.path.join(pc_dir, "log_evaluate.txt")) as f:
+        first = f.readline().strip()
+    check(first == f"Restored backbone from {pc_dir}/model", f"eval restore: {first!r}")
+    check(all(np.isfinite(v) for v in means.values()), f"pack eval means {means}")
+    print(json.dumps({"pretrain": "K=8 pack", "steps": pre.step, "loss": pre_losses}),
+          flush=True)
+    print(json.dumps({"eval": "K=8 pack, test split", **means}), flush=True)
+
+    # 3. the profiling utilities around steps from the K=8 pack: StepTimer's
+    # steps/s beside the CUDA-event median, and a trace of two steps
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    trainer8 = train_pc.build_trainer(tcfg, num_point, 8, dev)
+    pipe8 = train_pc.build_pipeline(tcfg, num_point, 8, dev,
+                                    h5_path=os.path.join(packs[8], "train.h5"))
+    timer, rates, k8_ms = StepTimer(fence_every=2), [], []
+    for epoch in range(1, 6):
+        gen = train_pc.epoch_generator(0, epoch, dev)
+        for batch in pipe8.epochs(TB, gen):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            aux = trainer8.train_step(batch, gen)
+            end.record()
+            end.synchronize()
+            k8_ms.append(start.elapsed_time(end))
+            rates.append(timer.step(aux))
+    k8_ms = k8_ms[2:]
+    fenced = [r for r in rates if r is not None]
+    check(rates[1] is None and len(fenced) == 4 and all(r > 0 for r in fenced),
+          f"StepTimer rates {rates}")
+    trace_dir = os.path.join(work, "trace")
+    gen = train_pc.epoch_generator(0, 9, dev)
+    batches = pipe8.epochs(TB, gen)
+    with trace(trace_dir):
+        for _ in range(2):
+            trainer8.train_step(next(batches), gen)
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"trace files {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        text = f.read()
+    names = ("fps_kernel", "ball_query_grid_kernel", "sa_group_kernel", "knn3_kernel",
+             "target_sum_kernel")
+    check(all(name in text for name in names),
+          f"the trace lacks {[n for n in names if n not in text]}")
+    print(json.dumps({"profiling": "K=8 pack steps", "steptimer_steps_per_s": fenced,
+                      "cuda_event_steps_per_s": 1e3 / statistics.median(k8_ms),
+                      "trace_mb": len(text) / 1e6, "trace_kernels": list(names),
+                      "card": card}), flush=True)
+    del trainer8, pipe8
+
+    # 4. K=10 from the K=10 pack (heads [3, 20]): a batch of the 9- and
+    # 10-instance models and two others, one step against all-plain
+    trainer10 = train_pc.build_trainer(tcfg, num_point, 10, dev)
+    pipe10 = train_pc.build_pipeline(tcfg, num_point, 10, dev,
+                                     h5_path=os.path.join(packs[10], "train.h5"))
+    rows = torch.tensor([8, 9, 0, 5], device=dev)
+    batch = pipe10.batch(rows, train_pc.epoch_generator(0, 97, dev))
+    check(int(batch["extrusion_labels"].max()) + 1 == 10, "the K=10 batch has no 10 instances")
+    print(json.dumps({"check": "K=10 train step vs plain",
+                      **step_against_plain(trainer10, tcfg, dev, batch)}), flush=True)
+
+    # hungarian_matching at K=10 on the card: the CPU's columns, scipy's
+    # optimum over each sample's instances, no host sync
+    trainer10.model.eval()
+    with torch.no_grad():
+        heads = steps.assemble_heads(*trainer10.model(batch["point_cloud"]), True, True, k=10)
+    w, labels = heads.w.contiguous(), batch["extrusion_labels"]
+    got, mask = hungarian_matching(w, labels)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hungarian_matching(w, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want, _ = hungarian_matching(w.cpu(), labels.cpu())
+    check(torch.equal(got.cpu(), want), f"K=10 matching card {got.tolist()} vs CPU "
+          f"{want.tolist()}")
+    cost = relaxed_iou_cost(w, labels).double().cpu().numpy()
+    gaps = []
+    for c, cols, valid in zip(cost, got.cpu().numpy(), mask.cpu().numpy()):
+        n = int(valid.sum())
+        r, cc = linear_sum_assignment(c[:n], maximize=True)
+        gaps.append(float(c[r, cc].sum() - c[np.arange(n), cols[:n]].sum()))
+    check(max(gaps) <= 1e-5, f"K=10 matching short of scipy's optimum by {gaps}")
+    match_ms = time_ms(lambda: hungarian_matching(w, labels))
+    trainer10.model.train()
+    k10_ms = []
+    for epoch in range(1, 6):
+        gen = train_pc.epoch_generator(0, epoch, dev)
+        for batch in pipe10.epochs(TB, gen):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer10.train_step(batch, gen)
+            end.record()
+            end.synchronize()
+            k10_ms.append(start.elapsed_time(end))
+    print(json.dumps({"rate": "K=10 matching and step", "matching_ms": match_ms,
+                      "matching_gap_to_scipy": max(gaps),
+                      "k10_ms_per_step": statistics.median(k10_ms[2:]),
+                      "k8_ms_per_step": statistics.median(k8_ms), "batch": TB,
+                      "num_points": num_point, "card": card}), flush=True)
+    print(json.dumps({"phase11_s": time.perf_counter() - t_phase}), flush=True)
+    return pack_launches
 
 
 def reconstruction_phase(args, card: str, dev: torch.device, counters: dict,
@@ -1443,42 +1876,9 @@ def main() -> None:
                           1 for _ in trainer.model.parameters())}), flush=True)
 
     # one step held against the same step with every *_impl="plain"
-    plain_train_cfg = dataclasses.replace(trainer.model.cfg, fps_impl="plain",
-                                          ballquery_impl="plain", knn_impl="plain")
-    plain_trainer = steps.Trainer(Backbone(plain_train_cfg).to(dev), tcfg)
-    plain_trainer.load_state_dict(trainer.state_dict())
     batch = pipeline.batch(torch.arange(TB, device=dev), epoch_generator(0, 99, dev))
-    got = trainer.train_step(batch, torch.Generator(dev).manual_seed(7))
-    want = plain_trainer.train_step(batch, torch.Generator(dev).manual_seed(7))
-    loss_err = abs(float(got["total"]) - float(want["total"]))
-    check(loss_err <= 1e-5 * abs(float(want["total"])), f"loss kernel {float(got['total'])} "
-          f"vs plain {float(want['total'])}")
-    # Tolerance for each parameter: 1e-3 of its largest gradient plus 1e-4
-    # of the largest gradient of any parameter. Float atomics (the kernels,
-    # and autograd's own scatters on the plain side) add in no fixed order,
-    # and a bias in front of batch-statistics BN has an analytic gradient
-    # of 0: what it holds is that summation noise, about 1e-5 of the
-    # largest gradient, which the plain path alone shows from run to run.
-    pairs = list(zip(trainer.model.named_parameters(),
-                     plain_trainer.model.named_parameters()))
-    top = max(float(pp.grad.abs().max()) for _, (_, pp) in pairs)
-    grad_err = 0.0
-    for (name, pk), (_, pp) in pairs:
-        scale = float(pp.grad.abs().max())
-        err = float((pk.grad - pp.grad).abs().max())
-        check(err <= 1e-3 * scale + 1e-4 * top,
-              f"gradient of {name}: {err} vs its scale {scale}, largest {top}")
-        grad_err = max(grad_err, err / (1e-3 * scale + 1e-4 * top))
-    bn_err = 0.0
-    for (name, bk), (_, bp) in zip(trainer.model.named_buffers(),
-                                   plain_trainer.model.named_buffers()):
-        torch.testing.assert_close(bk, bp, rtol=1e-5, atol=1e-6,
-                                   msg=lambda m: f"BN statistic {name}: {m}")
-        bn_err = max(bn_err, float((bk - bp).abs().max()))
-    print(json.dumps({"check": "train step vs plain", "loss_abs_err": loss_err,
-                      "grad_err_over_tolerance": grad_err, "largest_grad": top,
-                      "bn_max_abs_err": bn_err}), flush=True)
-    del plain_trainer
+    print(json.dumps({"check": "train step vs plain",
+                      **step_against_plain(trainer, tcfg, dev, batch)}), flush=True)
 
     step_ms = []
     for epoch in (2, 3):
@@ -2087,6 +2487,7 @@ def main() -> None:
                       "export_latents": list(lat_out.shape)}), flush=True)
     recon_launches = reconstruction_phase(args, card, dev, counters, per_forward, work.name,
                                           logdir, joint_dir)
+    pack_launches = preprocessing_phase(card, dev, counters, per_step, work.name)
     work.cleanup()
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
@@ -2098,6 +2499,7 @@ def main() -> None:
                                 "n8192_implicit_whole_pc": im_launches["whole pc, axis"][kernel]}
         row["serve_latents_launches"] = lat_launches[kernel]
         row["recon_launches"] = recon_launches[kernel]
+        row["pack_launches"] = pack_launches[kernel]
         row["joint_launches"] = {"step_pc_train": step_launches[kernel],
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],

@@ -2,7 +2,8 @@
 the JAX ``BackboneConfig``, ``LossWeights``, ``TrainConfig`` and
 ``EvalConfig``, same fields and
 defaults, less what the port does not run: the multi-device axis and the
-blocked ball query's oversampling).
+blocked ball query's oversampling), and the reference's constants that
+geometry and preprocessing read (``ZERO_TOL``, ``EXTRUSION_OPERATIONS``).
 
 The neighbour-op switches take ``"auto"`` (the kernel wrapper: a CUDA
 tensor launches the kernel, a CPU tensor takes the plain version),
@@ -18,6 +19,18 @@ import dataclasses
 from typing import Sequence
 
 IMPLS = ("auto", "kernel", "plain")
+
+# Tolerance below which an angle/quantity is treated as zero
+# (reference: global_variables.py:15, g_zero_tol = 1e-6).
+ZERO_TOL = 1e-6
+
+# Extrusion CSG operation codes (reference: global_variables.py:19-22).
+EXTRUSION_OPERATIONS = {
+    "NewBodyFeatureOperation": 0,
+    "JoinFeatureOperation": 0,
+    "CutFeatureOperation": 1,
+    "IntersectFeatureOperation": 2,
+}
 
 
 def check_compute_dtype(compute_dtype: str) -> None:

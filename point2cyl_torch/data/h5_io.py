@@ -1,12 +1,13 @@
-"""h5 dataset input, schema-compatible with the reference packed files
-(the port's copy of the loader half of the JAX ``data/h5_io.py``).
+"""h5 dataset I/O, schema-compatible with the reference packed files
+(the port of the JAX ``data/h5_io.py``).
 
 Dataset keys follow ``utils.py:1159-1315``: point_cloud, normals,
 extrusion_labels, base_barrel_labels, n_instances, extrusion_axes,
 extrusion_distances, and optionally extrusion_operation, extrusion_centers,
-extrusion_extents, sketches, sketches_norms. The files are read by the
-port's own numpy reader (``data/h5_reader.py``): the card's machine has
-no ``h5py``.
+extrusion_extents, sketches, sketches_norms. The files are read and
+written by the port's own numpy reader and writer (``data/h5_reader.py``,
+``data/h5_writer.py``): the card's machine has no ``h5py``. What the
+port writes is uncompressed, where JAX's ``save_h5`` deflates.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 import numpy as np
 
 from point2cyl_torch.data.h5_reader import read_datasets
+from point2cyl_torch.data.h5_writer import write_datasets
 
 _REQUIRED = (
     "point_cloud",
@@ -96,3 +98,41 @@ def load_h5(path: str) -> PackedDataset:
                           if key in arrays})
     ds.validate()
     return ds
+
+
+def _stored(val) -> np.ndarray:
+    """JAX's dtype rule: integers are stored as int32, all else float32."""
+    val = np.asarray(val)
+    return val.astype(np.int32 if np.issubdtype(val.dtype, np.integer) else np.float32,
+                      copy=False)
+
+
+def save_h5(path: str, ds: PackedDataset) -> None:
+    """Write a reference-schema h5 file (``utils.py:1159-1193,1233-1274``):
+    the keys that are set."""
+    write_datasets(path, {key: _stored(getattr(ds, key)) for key in _REQUIRED + _OPTIONAL
+                          if getattr(ds, key) is not None})
+
+
+def save_model_h5(path: str, model: dict) -> None:
+    """Write a single-model h5 in the ``get_model`` schema."""
+    write_datasets(path, {key: _stored(val) for key, val in model.items()})
+
+
+def load_model_h5(path: str, mesh_info: bool = False) -> dict:
+    """Single-model h5 loader (``utils.py:1115-1154``): keys point_cloud,
+    normals, extrusion_labels, extrusion_axes, extrusion_distances,
+    n_instances, plus optional mesh arrays (vertices, faces, face_normals,
+    face_extrusion_labels, norm_factor) and operation."""
+    arrays = read_datasets(path)
+    keys = ["point_cloud", "normals", "extrusion_labels", "extrusion_axes",
+            "extrusion_distances", "n_instances"]
+    if "operation" in arrays:
+        keys.append("operation")
+    if mesh_info:
+        keys += ["vertices", "faces", "face_normals", "face_extrusion_labels",
+                 "norm_factor"]
+    missing = [key for key in keys if key not in arrays]
+    if missing:
+        raise KeyError(f"{path} lacks {missing}")
+    return {key: arrays[key] for key in keys}

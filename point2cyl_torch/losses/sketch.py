@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from point2cyl_torch.core.config import ZERO_TOL
 from point2cyl_torch.ops.chamfer import chamfer_distances
-from point2cyl_torch.ops.geometry import ZERO_TOL
 from point2cyl_torch.ops.matching import one_hot_labels
 
 

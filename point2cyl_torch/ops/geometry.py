@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-ZERO_TOL = 1e-6
+from point2cyl_torch.core.config import ZERO_TOL
 
 
 def add_noise(

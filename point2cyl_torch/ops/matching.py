@@ -6,8 +6,9 @@ relaxed-IoU cost is found, for K <= 8, by scoring all K! permutations with
 one (B, K^2) x (K^2, K!) product and taking the argmax (ties to the first
 permutation, as in JAX), all on the device. Rows past a sample's instance
 count cost zero for every column, so the optimum restricted to the valid
-rows is the rectangular Hungarian optimum. K > 8 needs the
-Jonker-Volgenant solver (JAX ``ops/lap.py``), not ported yet.
+rows is the rectangular Hungarian optimum. Past K=8 the Jonker-Volgenant
+solver of ``ops/lap.py`` finds it, as JAX's matching does, still on the
+device with no host sync.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import functools
 import itertools
 
 import torch
+
+from point2cyl_torch.ops.lap import solve_lap_max
 
 MAX_ENUM_K = 8
 
@@ -70,16 +73,14 @@ def hungarian_matching(
     the valid rows. Carries no gradient.
     """
     k = w_pred.shape[-1]
-    if k > MAX_ENUM_K:
-        raise NotImplementedError(
-            f"matching K={k} > {MAX_ENUM_K} needs the Jonker-Volgenant solver "
-            "(point2cyl_tpu/ops/lap.py), which waits in ROADMAP queue 1"
-        )
     with torch.no_grad():
         cost = relaxed_iou_cost(w_pred, i_gt)  # (B, K, K)
-        perms, onehot = _permutations(k, str(w_pred.device))
-        scores = cost.reshape(cost.shape[0], k * k) @ onehot.to(cost.dtype)  # (B, K!)
-        matching = perms[torch.argmax(scores, dim=-1)]  # (B, K)
+        if k > MAX_ENUM_K:
+            matching = solve_lap_max(cost)
+        else:
+            perms, onehot = _permutations(k, str(w_pred.device))
+            scores = cost.reshape(cost.shape[0], k * k) @ onehot.to(cost.dtype)  # (B, K!)
+            matching = perms[torch.argmax(scores, dim=-1)]  # (B, K)
         mask = mask_gt_from_labels(i_gt, k)
         return torch.where(mask, matching, torch.zeros_like(matching)), mask
 

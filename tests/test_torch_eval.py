@@ -293,14 +293,16 @@ def test_eval_metrics_substitution_matrix_match_jax(cloud, use_gt_normals, use_g
 # ---- the eval step and evaluate() -----------------------------------------
 
 
-def jax_and_port_weights():
-    """JAX variables and the port's model on the same weights: random
+def jax_and_port_weights(k: int = K, seed: int = 0):
+    """JAX variables and the port's model with K=``k`` (heads [3, 2k]) on
+    the same weights: random
     dense layers and BN affine parameters, and BN statistics taken from
     the evaluation's own clouds, as a trained model's are. (With a fresh
     model's arbitrary statistics the heads are the same at every point to
     1e-3, so every axis matrix has rank 1 and its axis is any vector in a
     plane: the float32 eigensolver picks one by rounding.)"""
-    model = Backbone(CFG)
+    cfg = dataclasses.replace(CFG, output_sizes=(3, 2 * k))
+    model = Backbone(cfg)
     key = jax.random.key(5)
     variables = model.init({"params": key, "sample": key, "dropout": key},
                            jnp.zeros((1, N, 3)), train=False)
@@ -315,10 +317,10 @@ def jax_and_port_weights():
 
     params = jax.tree_util.tree_map_with_path(bn, jax.device_get(variables["params"]))
     stats = jax.device_get(variables["batch_stats"])
-    torch_model = TorchBackbone(TorchConfig.from_dict(dataclasses.asdict(CFG)))
+    torch_model = TorchBackbone(TorchConfig.from_dict(dataclasses.asdict(cfg)))
     torch_model.load_state_dict(backbone_state_dict_from_jax(params, stats), strict=True)
     clouds = torch.from_numpy(np.concatenate(
-        [np.asarray(b["point_cloud"]) for b in jax_batches()]))
+        [np.asarray(b["point_cloud"]) for b in jax_batches(seed, k)]))
     with torch.no_grad():  # momentum 1: the running statistics become the batch's
         torch_model(clouds, train=True, bn_momentum=1.0,
                     generator=torch.Generator().manual_seed(0),
@@ -332,17 +334,17 @@ def weights():
     return jax_and_port_weights()
 
 
-def jax_pipeline() -> InputPipeline:
-    ds = generate_dataset(2 * B, resolution=256, max_instances=K, num_sketch_points=S,
+def jax_pipeline(k: int = K) -> InputPipeline:
+    ds = generate_dataset(2 * B, resolution=256, max_instances=k, num_sketch_points=S,
                           seed=1)
-    return InputPipeline(ds, N, K, num_sketch_points=S)
+    return InputPipeline(ds, N, k, num_sketch_points=S)
 
 
-def jax_batches(seed: int = 0) -> list[dict]:
+def jax_batches(seed: int = 0, k: int = K) -> list[dict]:
     """The batches JAX ``evaluate`` reads, with no point pair within 1e-5
     of a squared ball-query radius (the JAX CPU path measures distances by
     expansion, the port by differences)."""
-    batches = list(jax_pipeline().epochs(B, jax.random.key(seed), shuffle=False))
+    batches = list(jax_pipeline(k).epochs(B, jax.random.key(seed), shuffle=False))
     for batch in batches:
         pts = np.asarray(batch["point_cloud"], np.float64)
         d2 = ((pts[:, :, None] - pts[:, None]) ** 2).sum(-1)
@@ -440,6 +442,36 @@ def test_evaluate_matches_jax(weights, heads):
     heads_t = torch_assemble_heads(*torch_model(to_torch(batch)["point_cloud"]),
                                    tcfg.pred_seg, tcfg.pred_bb, k=K)
     close(heads_t.w.detach(), heads_j.w, atol=1e-5)
+
+
+def test_evaluate_above_eight_instances_matches_jax():
+    """K=10: the metric block's means against JAX ``evaluate`` on the JAX
+    pipeline's batches, both matching through the Jonker-Volgenant
+    solver, and one step's labels equal. (Epoch seeds 0-10 draw a pair
+    at a ball-query radius; 11 is the first that does not.)"""
+    k, seed = 10, 11
+    model, variables, torch_model = jax_and_port_weights(k, seed)
+    batches = jax_batches(seed, k)
+    assert max(int(np.asarray(b["extrusion_labels"]).max()) for b in batches) + 1 > 8
+    jlines, tlines = [], []
+    want = jev.evaluate(variables, None, None, model, None, None, jax_pipeline(k),
+                        EvalConfig(), B, seed=seed, log=jlines.append)
+    got = tev.evaluate(torch_model, [to_torch(b) for b in batches], TorchEvalConfig(), B,
+                       seed=seed, log=tlines.append)
+    assert set(got) == set(want)
+    for name, atol in MEAN_ATOL.items():
+        assert abs(got[name] - want[name]) <= atol, (name, got[name], want[name])
+    block_j = [line for line in jlines if not line.startswith("Time elapsed")]
+    block_t = [line for line in tlines if not line.startswith("Time elapsed")]
+    assert [line.rsplit("=", 1)[0] for line in block_t] \
+        == [line.rsplit("=", 1)[0] for line in block_j]
+    out = tev.make_eval_step(torch_model, TorchEvalConfig(), S)(to_torch(batches[0]), None)
+    x_raw, w_raw = model.apply(variables, batches[0]["point_cloud"], train=False)
+    heads_j = jev.assemble_heads(x_raw, w_raw, True, True, k=k)
+    seg = JM.segmentation_metrics(heads_j.w, batches[0]["extrusion_labels"])
+    w_vis = jnp.where(seg.mask[:, None, :], JLS.reorder_w(seg.w_hard, seg.matching), -1.0)
+    np.testing.assert_array_equal(out["pred_labels"].numpy(),
+                                  np.asarray(jnp.argmax(w_vis, axis=-1)))
 
 
 def test_eval_step_noise_and_normal_head_rules(weights):

@@ -953,20 +953,26 @@ def test_kernel_launchers_reject_cpu_tensors(launch, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every point2cyl_torch module pulls in no JAX, flax or
-    point2cyl_tpu, and neither scikit-learn (the card's machine has none)
-    nor matplotlib (imported only where a plot is drawn)."""
+    """Importing every point2cyl_torch module (preprocessing, the HDF5
+    writer, the assignment solver and profiling among them) pulls in no
+    JAX, flax or point2cyl_tpu, and neither scikit-learn nor h5py (the
+    card's machine has neither) nor matplotlib (imported only where a
+    plot is drawn)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import point2cyl_torch\n"
         "for m in pkgutil.walk_packages(point2cyl_torch.__path__, 'point2cyl_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'point2cyl_tpu', 'sklearn', 'matplotlib')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'point2cyl_tpu', 'sklearn', 'matplotlib', "
+        "'h5py')]\n"
+        "new = ['point2cyl_torch.' + m for m in ('data.preprocess', 'data.h5_writer', "
+        "'ops.lap', 'core.profiling')]\n"
+        "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('point2cyl_torch')]))\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    assert int(res.stdout.split()[-1]) >= 59
