@@ -1,7 +1,9 @@
-"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction and preprocessing on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing and parallel package on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # what a check of the port runs
-    python3 chip_smoke.py --profile  # also print device-time breakdowns
+    python3 chip_smoke.py                  # what a check of the port runs
+    python3 chip_smoke.py --profile        # also print device-time breakdowns
+    python3 chip_smoke.py --only-parallel  # the set-up and phase 12 alone
+    python3 chip_smoke.py --only-parallel multi-card  # only 12c (two cards)
 
 Phases, in order; any failure raises, exits non-zero and prints no result:
 
@@ -169,13 +171,39 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    equal to the CPU's and at scipy's optimum, with no host sync under
    ``torch.cuda.set_sync_debug_mode("error")``, and the ms of the
    matching and of a K=10 step beside a K=8 step.
+12. The parallel package (``point2cyl_torch/parallel``). a. One rank,
+   NCCL, world 1: Trainer A's CLI with ``--data_parallel 1`` (2 epochs of
+   ``--synthetic 8`` at B=4, then a resume), one full-width step through
+   the data-parallel path (BN and gradient all-reduces, global draws)
+   bit-equal to the one-process step under deterministic algorithms
+   (loss, every gradient, BN statistics; the one-process step repeated
+   bit-equal first), and the point-sharded forward at P=1 (N=8192, B=4,
+   heads [3, 16]) bit-equal to ``Backbone.forward``. b. Two ranks on this
+   card over gloo, every collective staged through host memory
+   (``torch.multiprocessing`` spawns them; NCCL refuses two ranks on one
+   card): Trainer A's and the joint trainer's step at B=4 (2 rows a rank,
+   2,048 sketch points) against the one-process card step at the JAX
+   tests' tolerances, the BN statistics within 1e-5, the gradients
+   reported against phase 5's rule; the sharded forward at P=2 with its
+   ring FPS, ball-query and 3-NN indices bit-equal to the FPS, SA1 and
+   3-NN kernels' and its heads within rtol 2e-4, atol 1e-5. c. Where there
+   are two cards, b over NCCL with a card a rank, and an
+   ``InferenceSession`` over two cards bit-equal to one; otherwise the
+   phase says it skipped c. d. CUDA-event medians: the world-1
+   data-parallel step beside the one-process step, the P=1 sharded
+   forward beside the forward, ring FPS at SA1 beside the FPS kernel, one
+   world-1 all-gather and all-reduce, and one cloud of 131,072 points at
+   P=1 (ms and peak GiB) beside the all-plain single-device forward. e.
+   Each kernel's launches a data-parallel step per rank and a sharded
+   forward.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
 with latents, ``serve_latents_launches``, in the joint trainer,
-``joint_launches``, in one reconstruction, ``recon_launches``, and over
-the 4 steps trained from the K=8 pack, ``pack_launches``); the last line
-is ``{"ok": true, "device": {...}}``.
+``joint_launches``, in one reconstruction, ``recon_launches``, over
+the 4 steps trained from the K=8 pack, ``pack_launches``, and in phase
+12, ``parallel_launches``); the last line is ``{"ok": true, "device":
+{...}}``.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
 full-width train steps, of full-width eval steps without and with the
@@ -1033,11 +1061,497 @@ def reconstruction_phase(args, card: str, dev: torch.device, counters: dict,
     return launched
 
 
+# ---- phase 12: the parallel package ----------------------------------------
+
+
+def kernel_counters() -> dict:
+    """Each hand kernel's launch counter, by name."""
+    from point2cyl_torch.ops import cuda_ballquery, cuda_fps, cuda_knn
+
+    return {
+        "fps": cuda_fps.farthest_point_sample_kernel,
+        "ball_query": cuda_ballquery.ball_query_kernel,
+        "ball_query_grouped": cuda_ballquery.ball_query_grouped_kernel,
+        "ball_query_grouped_backward": cuda_ballquery.ball_query_grouped_backward_kernel,
+        "sa_grouped_exact": cuda_ballquery.sa_grouped_exact_kernel,
+        "sa_grouped_backward": cuda_ballquery.sa_grouped_backward_kernel,
+        "three_nn": cuda_knn.three_nn_interpolate_kernel,
+        "three_nn_backward": cuda_knn.three_nn_backward_kernel,
+    }
+
+
+def counted(fn):
+    """``fn()`` and the kernel launches it made (counts set to 0 before,
+    read after a synchronise)."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items()}
+
+
+# the sharded forward's launches: SA1 runs on the ring (plain PyTorch), SA2
+# and the feature propagations through the model's kernels
+PER_SHARDED_FORWARD = {"fps": 1, "ball_query": 0, "ball_query_grouped": 0,
+                       "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
+                       "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0}
+# JAX test tolerances of the data-parallel steps (tests/test_parallel.py)
+DP_TOL = {"extrusion": 6e-3, "total": 6e-3}
+JOINT_AXIS_PATH = ("manifold", "eikonal", "sald", "latent", "im_total", "total")
+
+
+def step_record(modules, aux: dict) -> dict:
+    """A step's loss scalars, gradients and buffers, on the host."""
+    out = {"aux": {k: float(v) for k, v in aux.items()}}
+    for i, mod in enumerate(modules):
+        out[f"grads{i}"] = {n: p.grad.cpu() for n, p in mod.named_parameters()
+                            if p.grad is not None}
+        out[f"buffers{i}"] = {n: b.cpu() for n, b in mod.named_buffers()}
+    return out
+
+
+def grad_rule_ratio(got: dict, want: dict) -> tuple[float, str]:
+    """The largest gradient error over phase 5's tolerance (1e-3 of the
+    parameter's largest gradient plus 1e-4 of the largest of any), and
+    the parameter it falls on."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return max((float((got[n] - g).abs().max()) / (1e-3 * float(g.abs().max()) + 1e-4 * top),
+                n) for n, g in want.items())
+
+
+def full_width_config(num_points: int):
+    """The full-width backbone at ``num_points``, heads [3, 2K]."""
+    from point2cyl_torch.core.config import BackboneConfig
+
+    return BackboneConfig(num_points=num_points, output_sizes=(3, 2 * K),
+                          approx_neighbors=False)
+
+
+def parallel_inputs(cfg, dev, root: str) -> dict:
+    """Phase 12's shared inputs, written to ``root`` for the ranks: the
+    full-width weights, Trainer A's and the joint trainer's batches (B=4
+    from seed 0) and their configurations, and B=4 clouds."""
+    from point2cyl_torch.core.config import TrainConfig
+    from point2cyl_torch.data.pipeline import InputPipeline
+    from point2cyl_torch.data.synthetic import generate_dataset
+    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.train import train_joint
+    from point2cyl_torch.train.train_pc import build_model, config_from_args, epoch_generator
+
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    jargv = ["--synthetic", "8", "--K", str(K), "--batch_size", str(TB), "--num_sk_point",
+             str(SK), "--num_point", str(cfg.num_points), "--is_pc_train", "--is_im_train",
+             "--with_im_loss", "--pred_seg", "--pred_normal", "--pred_bb",
+             "--pred_extrusion", "--pred_center"]
+    jcfg = config_from_args(train_joint.build_argparser().parse_args(jargv))
+    pipe = InputPipeline(generate_dataset(8, resolution=cfg.num_points, max_instances=K,
+                                          num_sketch_points=SK, seed=0),
+                         cfg.num_points, K, dev, num_sketch_points=SK)
+    batch = pipe.batch(torch.arange(TB, device=dev), epoch_generator(0, 97, dev))
+    nets = train_joint.build_nets(jcfg, cfg.num_points, K, False, False, "cpu")
+    inp = {
+        "cfg": cfg, "tcfg": tcfg, "jcfg": jcfg,
+        "state": build_model(tcfg, cfg.num_points, K, "cpu").state_dict(),
+        "serve_state": build_backbone(cfg, generator=torch.Generator().manual_seed(12),
+                                      device="cpu").state_dict(),
+        "batch": {k: v.cpu() for k, v in batch.items()},
+        "joint_states": [n.state_dict() for n in nets],
+        "pts": torch.from_numpy(clouds(12, TB, cfg.num_points)),
+    }
+    torch.save(inp, os.path.join(root, "inputs.pt"))
+    return inp
+
+
+def joint_trainer_from(inp: dict, dev, mesh=None):
+    """The joint trainer of phase 12's nets on ``dev`` (data parallel over
+    ``mesh`` where given)."""
+    from point2cyl_torch.train import train_joint
+
+    nets = train_joint.build_nets(inp["jcfg"], inp["cfg"].num_points, K, False, False, dev)
+    for net, state in zip(nets, inp["joint_states"]):
+        net.load_state_dict(state, strict=True)
+    return train_joint.JointTrainer(*nets, inp["jcfg"], num_sk_points=SK, is_pc_train=True,
+                                    is_im_train=True, with_im_loss=True, mesh=mesh)
+
+
+def trainer_from(inp: dict, dev, mesh=None):
+    """Trainer A on phase 12's weights on ``dev`` (data parallel over
+    ``mesh`` where given)."""
+    from point2cyl_torch.train import steps
+    from point2cyl_torch.train.train_pc import build_model
+
+    model = build_model(inp["tcfg"], inp["cfg"].num_points, K, dev)
+    model.load_state_dict(inp["state"], strict=True)
+    return steps.Trainer(model, inp["tcfg"], mesh)
+
+
+def parallel_rank(rank: int, world: int, url: str, backend: str, root: str) -> None:
+    """One rank of phase 12's two-rank runs (``torch.multiprocessing``
+    spawns it): gloo on one card with host-staged collectives, or NCCL with
+    a card a rank. Runs Trainer A's and the joint trainer's data-parallel
+    step on its rows, and the point-sharded forward with the ring ops on
+    its half of the points; writes what it found to ``root``."""
+    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.parallel import point_sharding as ps
+    from point2cyl_torch.parallel.distributed import join
+    from point2cyl_torch.parallel.mesh import make_mesh, shard_batch
+    from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+
+    staged = backend == "gloo"
+    dev = torch.device("cuda", 0 if staged else rank)
+    torch.cuda.set_device(dev)
+    join(url, world, rank, backend)
+    try:
+        mesh = make_mesh(devices=[dev] * world if staged else None, host_staged=staged)
+        inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
+        out = {}
+        trainer = trainer_from(inp, dev, mesh)
+        local = shard_batch(mesh, inp["batch"])
+        aux, out["dp_launches"] = counted(
+            lambda: trainer.train_step(local, torch.Generator(dev).manual_seed(7)))
+        out["dp"] = step_record([trainer.model], aux)
+        del trainer
+        jtrainer = joint_trainer_from(inp, dev, mesh)
+        aux, out["joint_launches"] = counted(
+            lambda: jtrainer.train_step(local, torch.Generator(dev).manual_seed(7)))
+        out["joint"] = step_record([jtrainer.backbone, jtrainer.encoder], aux)
+        del jtrainer
+        model = build_backbone(inp["cfg"], state_dict=inp["serve_state"], device=dev)
+        n = inp["pts"].shape[1] // world
+        pts = inp["pts"][:, rank * n:(rank + 1) * n].to(dev)
+        heads, out["sharded_launches"] = counted(
+            lambda: backbone_apply_point_sharded(mesh, model, inp["cfg"], pts))
+        out["heads"] = [h.cpu() for h in heads]
+        np0 = inp["cfg"].sa_npoints[0]
+        fps = ps.farthest_point_sample_sharded(mesh, pts, np0)
+        centres = ps._owned_gather(pts, fps, mesh)
+        q = centres[:, rank * (np0 // world):(rank + 1) * (np0 // world)]
+        out["fps"] = fps.cpu()
+        out["ball_query"] = ps.ball_query_sharded(mesh, inp["cfg"].sa_radii[0],
+                                                  inp["cfg"].sa_nsamples[0], pts, q).cpu()
+        out["three_nn"] = ps._ring_three_nn_local(pts, q, mesh)[1].cpu()
+        torch.cuda.synchronize()
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(backend: str, root: str) -> list[dict]:
+    """Spawn phase 12's two ranks and wait for them; their results."""
+    import torch.multiprocessing as mp
+
+    url = "file://" + os.path.join(root, f"rdv_{backend}")
+    mp.spawn(parallel_rank, args=(2, url, backend, root), nprocs=2, join=True)
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def check_two_ranks(label: str, ranks: list[dict], inp: dict, dev) -> dict:
+    """Phase 12 b/c: the two ranks against the one-process card paths.
+    Trainer A's and the joint step's losses at the JAX tests' tolerances
+    (``tests/test_parallel.py``) and Trainer A's BN statistics within
+    1e-5; the ring's FPS, ball-query and 3-NN indices equal to the
+    single-device ops on the card; the heads of the sharded forward within
+    rtol 2e-4, atol 1e-5 of the forward. The gradients are reported
+    against phase 5's rule, not held to it: unlike the kernel against the
+    plain version (whose forwards are bit-equal), the ranks sum the BN
+    statistics in another order, and a 1e-7 change moves the winner of a
+    near-tied max-pool, which reroutes that channel's gradient (the worst
+    parameter is the group-all stage's first layer; the float32 joint
+    tests in tests/test_torch_joint.py meet the same). The CPU tests hold
+    the rule at a small size, and phase 12a the world-1 step bit for
+    bit."""
+    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.ops import cuda_ballquery, cuda_fps, cuda_knn
+    from point2cyl_torch.ops.grouping import index_points
+
+    report = {"phase": "12" + label}
+    batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+    trainer = trainer_from(inp, dev)
+    want = step_record([trainer.model], trainer.train_step(
+        batch, torch.Generator(dev).manual_seed(7)))
+    del trainer
+    err = {}
+    for r in ranks:
+        for key, val in want["aux"].items():
+            if key == "skipped":
+                check(r["dp"]["aux"][key] == val == 0.0, f"12{label}: a step was skipped")
+                continue
+            e = abs(r["dp"]["aux"][key] - val)
+            check(e <= 2e-4 * abs(val) + DP_TOL.get(key, 1e-4),
+                  f"12{label} Trainer A {key}: {r['dp']['aux'][key]} vs one process {val}")
+            err[key] = max(err.get(key, 0.0), e)
+        for name, buf in want["buffers0"].items():
+            torch.testing.assert_close(r["dp"]["buffers0"][name], buf, rtol=1e-5, atol=1e-6,
+                                       msg=lambda m: f"12{label} BN {name}: {m}")
+    report.update(trainer_a_abs_err=err,
+                  trainer_a_grad_over_rule=grad_rule_ratio(ranks[0]["dp"]["grads0"],
+                                                           want["grads0"]),
+                  dp_launches_per_rank=ranks[0]["dp_launches"])
+
+    jtrainer = joint_trainer_from(inp, dev)
+    jwant = step_record([jtrainer.backbone, jtrainer.encoder], jtrainer.train_step(
+        batch, torch.Generator(dev).manual_seed(7)))
+    del jtrainer
+    jerr = {}
+    for r in ranks:
+        for key, val in jwant["aux"].items():
+            if key == "skipped":
+                check(r["joint"]["aux"][key] == val == 0.0, f"12{label}: a joint step skipped")
+                continue
+            atol = 8e-3 if key in JOINT_AXIS_PATH else 2e-3
+            e = abs(r["joint"]["aux"][key] - val)
+            check(e <= 3e-4 * abs(val) + atol,
+                  f"12{label} joint {key}: {r['joint']['aux'][key]} vs one process {val}")
+            jerr[key] = max(jerr.get(key, 0.0), e)
+    report.update(joint_abs_err=jerr, joint_grad_over_rule=grad_rule_ratio(
+        ranks[0]["joint"]["grads0"], jwant["grads0"]),
+        joint_launches_per_rank=ranks[0]["joint_launches"])
+
+    cfg = inp["cfg"]
+    pts = inp["pts"].to(dev)
+    model = build_backbone(cfg, state_dict=inp["serve_state"], device=dev)
+    with torch.inference_mode():
+        heads = model(pts)
+        fps = cuda_fps.farthest_point_sample(pts, cfg.sa_npoints[0])
+        centres = index_points(pts, fps)
+        idx, _ = cuda_ballquery.ball_query_grouped(cfg.sa_radii[0], cfg.sa_nsamples[0], pts,
+                                                   centres)
+        nn_idx = torch.empty((TB, cfg.num_points, 3), dtype=torch.int32, device=dev)
+        nn_w = torch.empty((TB, cfg.num_points, 3), dtype=torch.float32, device=dev)
+        cuda_knn.three_nn_interpolate_kernel(pts, centres, centres, 1e-8, (nn_idx, nn_w))
+    for r in ranks:
+        check(torch.equal(r["fps"], fps.cpu()), f"12{label}: ring FPS indices differ")
+    check(torch.equal(torch.cat([r["ball_query"] for r in ranks], 1), idx.cpu()),
+          f"12{label}: ring ball-query indices differ from the SA1 kernel's")
+    check(torch.equal(torch.cat([r["three_nn"] for r in ranks], 1), nn_idx.long().cpu()),
+          f"12{label}: ring 3-NN indices differ from the 3-NN kernel's")
+    head_err = 0.0
+    for i, want_h in enumerate(heads):
+        got = torch.cat([r["heads"][i] for r in ranks], 1)
+        torch.testing.assert_close(got, want_h.cpu(), rtol=2e-4, atol=1e-5,
+                                   msg=lambda m: f"12{label} sharded head {i}: {m}")
+        head_err = max(head_err, float((got - want_h.cpu()).abs().max()))
+    report.update(sharded_heads_max_abs_err=head_err, indices_bit_equal=True,
+                  sharded_launches_per_rank=ranks[0]["sharded_launches"])
+    for r in ranks:
+        check(r["sharded_launches"] == PER_SHARDED_FORWARD,
+              f"12{label}: sharded forward launched {r['sharded_launches']}")
+    return report
+
+
+def bit_equal_steps(a: dict, b: dict) -> bool:
+    return (a["aux"] == b["aux"]
+            and all(torch.equal(a["grads0"][n], g) for n, g in b["grads0"].items())
+            and all(torch.equal(a["buffers0"][n], g) for n, g in b["buffers0"].items()))
+
+
+def two_card_phase(card: str, dev, root: str, inp: dict) -> None:
+    """Phase 12c: phase 12b's checks with two NCCL ranks on cuda:0 and
+    cuda:1, and an ``InferenceSession`` over both cards bit-equal to one
+    card's."""
+    from point2cyl_torch.serve.export import export_artifact
+    from point2cyl_torch.serve.session import InferenceSession
+
+    check(torch.cuda.device_count() >= 2, "phase 12c needs two cards")
+    report = check_two_ranks("c", run_ranks("nccl", root), inp, dev)
+    path = os.path.join(root, "two_cards.p2ct")
+    export_artifact(path, inp["serve_state"], k=K, backbone_config=inp["cfg"],
+                    buckets=(1, 4))
+    one = InferenceSession(path, device="cuda:0")
+    two = InferenceSession(path, devices=["cuda:0", "cuda:1"])
+    req = clouds(14, 9, inp["cfg"].num_points)  # chunks of 4, 4 and 1
+    a, b = one.predict(req, assemble=False), two.predict(req, assemble=False)
+    check(all(np.array_equal(a[k], b[k]) for k in a) and two._next_dev == 1,
+          "12c: the two-card session differs from one card")
+    print(json.dumps({**report, "world": 2, "backend": "nccl", "session_bit_equal": True,
+                      "card": card}), flush=True)
+
+
+def parallel_phase(card: str, dev, root: str) -> dict:
+    """Phase 12: the parallel package on the card. Returns the launches of
+    a data-parallel Trainer A step (per rank), of a joint step (per rank)
+    and of a point-sharded forward, by kernel."""
+    import warnings
+
+    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.ops import cuda_fps
+    from point2cyl_torch.parallel import collectives
+    from point2cyl_torch.parallel import point_sharding as ps
+    from point2cyl_torch.parallel.distributed import join
+    from point2cyl_torch.parallel.mesh import make_mesh
+    from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+    from point2cyl_torch.train import train_pc
+
+    t_phase = time.perf_counter()
+    cfg = full_width_config(8192)
+    inp = parallel_inputs(cfg, dev, root)
+    ran = []
+
+    # a. one rank, NCCL, world 1. The CLI first: it forms (and leaves) its
+    # own world-1 group, 2 epochs of --synthetic 8 at B=4, then a resume
+    logdir = os.path.join(root, "dp1")
+    argv = ["--synthetic", "8", "--num_point", str(cfg.num_points), "--K", str(K),
+            "--batch_size", str(TB), "--logdir", logdir, "--data_parallel", "1",
+            "--pred_seg", "--pred_normal", "--pred_bb", "--pred_extrusion", "--pred_center"]
+    done = train_pc.cli_main(argv + ["--num_epochs", "2"])
+    resumed = train_pc.cli_main(argv + ["--num_epochs", "3", "--resume"])
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    check(done.step == 4 and resumed.step == 6 and "epoch 2, step 4" in log
+          and "data-parallel over 1 rank(s)" in log,
+          f"--data_parallel 1: steps {done.step}, {resumed.step}")
+    del done, resumed
+    join("file://" + os.path.join(root, "rdv_world1"), 1, 0, "nccl")
+    try:
+        mesh = make_mesh()
+        batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+        records = {}
+        # both steps with deterministic algorithms, so that autograd's own
+        # scatters add in a fixed order and two runs of one step agree
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for name, m in (("single", None), ("single_again", None), ("dp", mesh)):
+                    trainer = trainer_from(inp, dev, m)
+                    aux, launches = counted(lambda: trainer.train_step(
+                        batch, torch.Generator(dev).manual_seed(7)))
+                    records[name] = step_record([trainer.model], aux)
+                    records[name + "_launches"] = launches
+                    del trainer
+            finally:
+                torch.use_deterministic_algorithms(False)
+        repeatable = bit_equal_steps(records["single_again"], records["single"])
+        check(repeatable, "12a: the one-process step does not repeat itself bit for bit "
+              "under deterministic algorithms")
+        check(bit_equal_steps(records["dp"], records["single"]),
+              "12a: the world-1 data-parallel step differs from the one-process step")
+        check(records["dp_launches"] == records["single_launches"],
+              f"12a: launches {records['dp_launches']} vs {records['single_launches']}")
+        model = build_backbone(cfg, state_dict=inp["serve_state"], device=dev)
+        pts = inp["pts"].to(dev)
+        with torch.inference_mode():
+            want = model(pts)
+        got, sharded_launches = counted(
+            lambda: backbone_apply_point_sharded(mesh, model, cfg, pts))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "12a: the P=1 sharded forward differs from Backbone.forward")
+        check(sharded_launches == PER_SHARDED_FORWARD,
+              f"12a: sharded forward launched {sharded_launches}")
+        ran.append("a")
+        print(json.dumps({"phase": "12a", "world": 1, "backend": "nccl",
+                          "dp_step_bit_equal": True, "single_step_repeats": repeatable,
+                          "cli_steps": [4, 6], "sharded_forward_bit_equal": True,
+                          "dp_launches": records["dp_launches"],
+                          "sharded_launches": sharded_launches}), flush=True)
+
+        # d. timings at world 1: the data-parallel step beside the
+        # one-process step (the BN and gradient all-reduces), the sharded
+        # forward beside the forward, ring FPS beside the kernel
+        single, dp_trainer = trainer_from(inp, dev), trainer_from(inp, dev, mesh)
+        gen = torch.Generator(dev).manual_seed(8)
+        step_ms = {"single": [], "dp": []}
+        for _ in range(6):
+            for name, tr in (("single", single), ("dp", dp_trainer), ("dp", dp_trainer),
+                             ("single", single)):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                tr.train_step(batch, gen)
+                end.record()
+                end.synchronize()
+                step_ms[name].append(start.elapsed_time(end))
+        del single, dp_trainer
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(pts))
+            sharded_ms = time_ms(lambda: backbone_apply_point_sharded(mesh, model, cfg, pts))
+            ring_fps_ms = time_ms(lambda: ps.farthest_point_sample_sharded(
+                mesh, pts, cfg.sa_npoints[0]))
+            fps_ms = time_ms(lambda: cuda_fps.farthest_point_sample(pts, cfg.sa_npoints[0]))
+            # one world-1 NCCL collective of the ring FPS's size (B x 4
+            # int64) and of a BN layer's sums (128 floats), in a run of 100
+            offer = torch.zeros((1, TB, 4), dtype=torch.int64, device=dev)
+            sums = torch.zeros(128, device=dev)
+            gather_us = time_ms(lambda: [collectives.all_gather(offer, mesh)
+                                         for _ in range(100)]) * 10
+            reduce_us = time_ms(lambda: [collectives.psum(sums, mesh)
+                                         for _ in range(100)]) * 10
+        # one cloud of 131,072 points on one rank against the single-device
+        # forward with every *_impl="plain"
+        big_cfg = full_width_config(131072)
+        big = build_backbone(big_cfg, state_dict=inp["serve_state"], device=dev)
+        plain = build_backbone(dataclasses.replace(big_cfg, fps_impl="plain",
+                                                   ballquery_impl="plain", knn_impl="plain"),
+                               state_dict=inp["serve_state"], device=dev)
+        big_pts = torch.from_numpy(clouds(13, 1, 131072)).to(dev)
+        peaks = {}
+        with torch.inference_mode():
+            for name, fn in (("sharded", lambda: backbone_apply_point_sharded(
+                    mesh, big, big_cfg, big_pts)), ("plain", lambda: plain(big_pts))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                fn()
+                torch.cuda.synchronize()
+                peaks[name] = (torch.cuda.max_memory_allocated() - before) / 2**30
+            big_ms = {"sharded": time_ms(lambda: backbone_apply_point_sharded(
+                mesh, big, big_cfg, big_pts), runs=5),
+                "plain": time_ms(lambda: plain(big_pts), runs=5)}
+            big_err = max(float((g - w).abs().max()) for g, w in zip(
+                backbone_apply_point_sharded(mesh, big, big_cfg, big_pts), plain(big_pts)))
+        check(big_err <= 1e-3, f"12d: N=131072 sharded vs plain heads differ by {big_err}")
+        del big, plain, big_pts
+        print(json.dumps({"phase": "12d", "card": card,
+                          "dp_world1_step_ms": statistics.median(step_ms["dp"]),
+                          "single_step_ms": statistics.median(step_ms["single"]),
+                          "sharded_forward_p1_ms": sharded_ms, "forward_ms": fwd_ms,
+                          "ring_fps_sa1_ms": ring_fps_ms, "fps_kernel_sa1_ms": fps_ms,
+                          "nccl_world1_all_gather_us": gather_us,
+                          "nccl_world1_all_reduce_us": reduce_us,
+                          "n131072_sharded_p1_ms": big_ms["sharded"],
+                          "n131072_plain_forward_ms": big_ms["plain"],
+                          "n131072_sharded_peak_gib": peaks["sharded"],
+                          "n131072_plain_peak_gib": peaks["plain"],
+                          "n131072_heads_max_abs_err": big_err, "batch": TB}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # b. two ranks on this one card over gloo (NCCL refuses two ranks on one
+    # card), every collective staged through host memory
+    ranks = run_ranks("gloo", root)
+    report = check_two_ranks("b", ranks, inp, dev)
+    ran.append("b")
+    print(json.dumps({**report, "world": 2, "backend": "gloo, host-staged", "card": card}),
+          flush=True)
+
+    # c. two cards over NCCL, and a session over two cards
+    if torch.cuda.device_count() >= 2:
+        two_card_phase(card, dev, root, inp)
+        ran.append("c")
+        why_c = "two or more cards"
+    else:
+        why_c = f"skipped: {torch.cuda.device_count()} card"
+    print(json.dumps({"phase": "12", "ran": ran, "a": "one rank, NCCL, world 1",
+                      "b": "two ranks on one card, gloo, host-staged", "c": why_c,
+                      "phase12_s": time.perf_counter() - t_phase}), flush=True)
+    return {"dp_step_per_rank": report["dp_launches_per_rank"],
+            "joint_step_per_rank": report["joint_launches_per_rank"],
+            "sharded_forward": sharded_launches}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="print torch.profiler device-time breakdowns of a "
                         "bucket-16 request and of full-width train and eval steps")
+    parser.add_argument("--only-parallel", nargs="?", const="all",
+                        choices=["all", "multi-card"],
+                        help="run the set-up and phase 12 (the parallel package) alone, "
+                        "without the kernel table; 'multi-card' runs only 12c, which "
+                        "needs two cards")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1073,9 +1587,20 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
           f"kernel build {build_s:.2f} s", flush=True)
     dev = torch.device("cuda")
+    if args.only_parallel:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            if args.only_parallel == "multi-card":
+                two_card_phase(card, dev, tmp, parallel_inputs(full_width_config(8192), dev,
+                                                                tmp))
+            else:
+                parallel_phase(card, dev, tmp)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
-    cfg = BackboneConfig(num_points=8192, output_sizes=(3, 2 * K),
-                         approx_neighbors=False)
+    cfg = full_width_config(8192)
     plain_cfg = dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
                                     knn_impl="plain")
     gen = torch.Generator().manual_seed(0)
@@ -1722,16 +2247,7 @@ def main() -> None:
         "us_per_step": slope * 1e3, "intercept_ms": intercept, "card": card}), flush=True)
 
     # ---- 3. the slice through the session ----------------------------------
-    counters = {
-        "fps": cuda_fps.farthest_point_sample_kernel,
-        "ball_query": cuda_ballquery.ball_query_kernel,
-        "ball_query_grouped": cuda_ballquery.ball_query_grouped_kernel,
-        "ball_query_grouped_backward": cuda_ballquery.ball_query_grouped_backward_kernel,
-        "sa_grouped_exact": cuda_ballquery.sa_grouped_exact_kernel,
-        "sa_grouped_backward": cuda_ballquery.sa_grouped_backward_kernel,
-        "three_nn": cuda_knn.three_nn_interpolate_kernel,
-        "three_nn_backward": cuda_knn.three_nn_backward_kernel,
-    }
+    counters = kernel_counters()
     # serving launches no idx-only query (its SA1 has N > 1024, its SA2
     # features) and no backward
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
@@ -2488,6 +3004,7 @@ def main() -> None:
     recon_launches = reconstruction_phase(args, card, dev, counters, per_forward, work.name,
                                           logdir, joint_dir)
     pack_launches = preprocessing_phase(card, dev, counters, per_step, work.name)
+    parallel_launches = parallel_phase(card, dev, work.name)
     work.cleanup()
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
@@ -2500,6 +3017,7 @@ def main() -> None:
         row["serve_latents_launches"] = lat_launches[kernel]
         row["recon_launches"] = recon_launches[kernel]
         row["pack_launches"] = pack_launches[kernel]
+        row["parallel_launches"] = {key: val[kernel] for key, val in parallel_launches.items()}
         row["joint_launches"] = {"step_pc_train": step_launches[kernel],
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],

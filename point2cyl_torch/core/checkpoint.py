@@ -14,18 +14,28 @@ either of the reference's layouts (``torch_compat.py:3-7``): the IGR
 pretrainer's ``{"model_state_dict", "encoder_state_dict"}``
 (``eval.py:206-210``) or the joint trainer's ``{"implicit_net",
 "pn_encoder"}`` (``train_Point2Cyl.py:753-777``).
+
+In a data-parallel run (a ``parallel.mesh.Mesh``) rank 0 alone writes,
+and every rank reads rank 0's view: :meth:`CheckpointManager.exists_global`
+and :meth:`CheckpointManager.load` broadcast it, so no rank enters a
+restore alone (JAX ``core/checkpoint.py:46-60, 92-105``).
 """
 
 from __future__ import annotations
 
+import io
 import os
 
 import torch
 
+from point2cyl_torch.parallel.collectives import broadcast_object
+
 
 class CheckpointManager:
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, mesh=None):
         self.logdir = os.path.abspath(logdir)
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.rank == 0
         os.makedirs(self.logdir, exist_ok=True)
 
     def path(self, name: str) -> str:
@@ -34,14 +44,32 @@ class CheckpointManager:
     def exists(self, name: str) -> bool:
         return os.path.isfile(self.path(name))
 
+    def exists_global(self, name: str) -> bool:
+        """Rank 0's :meth:`exists`, on every rank."""
+        if self.mesh is None:
+            return self.exists(name)
+        return broadcast_object(self.exists(name) if self.primary else None, self.mesh)
+
     def save(self, name: str, state: dict) -> None:
-        """Write ``state`` atomically (a crash never leaves half a file)."""
+        """Write ``state`` atomically (a crash never leaves half a file);
+        only rank 0 writes."""
+        if not self.primary:
+            return
         tmp = self.path(name) + ".tmp"
         torch.save(state, tmp)
         os.replace(tmp, self.path(name))
 
     def load(self, name: str, device: str | torch.device) -> dict:
-        return torch.load(self.path(name), map_location=device, weights_only=True)
+        """``<name>.pth`` on ``device``; in a data-parallel run rank 0's
+        file, broadcast (call it on every rank)."""
+        if self.mesh is None:
+            return torch.load(self.path(name), map_location=device, weights_only=True)
+        data = None
+        if self.primary:
+            with open(self.path(name), "rb") as f:
+                data = f.read()
+        data = broadcast_object(data, self.mesh)
+        return torch.load(io.BytesIO(data), map_location=device, weights_only=True)
 
     def save_epoch(self, epoch: int, state: dict, mean_loss: float,
                    best_loss: float, every: int = 10, best_after: int = 20) -> float:

@@ -2,7 +2,9 @@
 scalars when asked for (the port of the JAX ``core/logging.py``;
 reference ``train_Point2Cyl_without_sketch.py:137-140, 386-391``).
 
-Tensorboard is opt-in: asked for and not installed, it raises.
+Tensorboard is opt-in: asked for and not installed, it raises. In a
+data-parallel run only rank 0 (``primary``) writes the files; every rank
+prints (JAX ``core/logging.py:18-31``).
 """
 
 from __future__ import annotations
@@ -12,20 +14,21 @@ from collections import defaultdict
 
 
 class TrainLogger:
-    def __init__(self, logdir: str, use_tensorboard: bool = False):
+    def __init__(self, logdir: str, use_tensorboard: bool = False, primary: bool = True):
         os.makedirs(logdir, exist_ok=True)
         self.logdir = logdir
-        self._fout = open(os.path.join(logdir, "log.txt"), "a")
+        self._fout = open(os.path.join(logdir, "log.txt"), "a") if primary else None
         self.scalars: dict[str, list[float]] = defaultdict(list)
         self._tb = None
-        if use_tensorboard:
+        if use_tensorboard and primary:
             from torch.utils.tensorboard import SummaryWriter
 
             self._tb = SummaryWriter(os.path.join(logdir, "tb"))
 
     def log(self, msg: str) -> None:
-        self._fout.write(msg + "\n")
-        self._fout.flush()
+        if self._fout is not None:
+            self._fout.write(msg + "\n")
+            self._fout.flush()
         print(msg, flush=True)
 
     def scalar(self, tag: str, value: float, step: int) -> None:
@@ -39,6 +42,7 @@ class TrainLogger:
         return means
 
     def close(self) -> None:
-        self._fout.close()
+        if self._fout is not None:
+            self._fout.close()
         if self._tb is not None:
             self._tb.close()

@@ -1,5 +1,5 @@
 """Device-resident input pipeline (the port of the JAX
-``data/pipeline.py:30-237``, without the multi-host slicing).
+``data/pipeline.py:30-237``).
 
 The packed dataset is copied to the device once. Each step selects batch
 rows, draws a fresh random subsample of each cloud and gathers the
@@ -9,7 +9,9 @@ epoch order, which is drawn on the device as well. With
 rows, each item's points in a fresh random order cut to that count (the
 joint trainer's input). Every draw comes from
 the caller's ``torch.Generator``, so a run seeded per epoch replays the
-same batches after a resume.
+same batches after a resume. A data-parallel rank passes ``rows_slice``:
+every rank draws the epoch order and each global batch's subsamples, and
+keeps its own rows, so the ranks together see the one-process batches.
 """
 
 from __future__ import annotations
@@ -126,10 +128,13 @@ class InputPipeline:
             out["sketches_norms"] = dev["sketches_norms"][rows]
         return out
 
-    def batch(self, rows: torch.Tensor, generator: torch.Generator) -> dict:
+    def batch(self, rows: torch.Tensor, generator: torch.Generator,
+              rows_slice: slice | None = None) -> dict:
         """The batch of ``rows`` with a fresh random subsample of each cloud
         and, with sketches, a fresh order of each item's sketch points
-        (JAX ``_gather_batch``, ``pipeline.py:222-236``)."""
+        (JAX ``_gather_batch``, ``pipeline.py:222-236``). With
+        ``rows_slice`` the draws cover every row of ``rows`` (the global
+        batch) and the batch holds only that slice of them."""
         sub_idx = random_subsample_indices(generator, self.resolution,
                                            self.num_points, len(rows))
         sketch_idx = None
@@ -137,18 +142,25 @@ class InputPipeline:
             sketch_idx = random_subsample_indices(
                 generator, self._dev["sketches"].shape[2], self.num_sketch_points,
                 len(rows))
+        if rows_slice is not None:
+            rows, sub_idx = rows[rows_slice], sub_idx[rows_slice]
+            if sketch_idx is not None:
+                sketch_idx = sketch_idx[rows_slice]
         return self.gather(rows, sub_idx, sketch_idx)
 
     def epochs(self, batch_size: int, generator: torch.Generator,
-               shuffle: bool = True) -> Iterator[dict]:
+               shuffle: bool = True, rows_slice: slice | None = None) -> Iterator[dict]:
         """One epoch of batches in an order drawn from ``generator``, or in
         row order without ``shuffle`` (the evaluator's); each cloud's
         subsample is drawn from ``generator`` either way. The ragged tail
-        is dropped, as a drop_last loader does."""
+        is dropped, as a drop_last loader does. ``rows_slice`` keeps a
+        data-parallel rank's rows of each global batch of ``batch_size``
+        (``parallel.distributed.process_batch_slice``)."""
         if shuffle:
             order = torch.randperm(self.num_samples, generator=generator,
                                    device=generator.device)
         else:
             order = torch.arange(self.num_samples, device=generator.device)
         for i in range(self.num_samples // batch_size):
-            yield self.batch(order[i * batch_size:(i + 1) * batch_size], generator)
+            yield self.batch(order[i * batch_size:(i + 1) * batch_size], generator,
+                             rows_slice)

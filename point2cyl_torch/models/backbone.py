@@ -36,6 +36,7 @@ from point2cyl_torch.models.layers import BatchNorm, Dense, PointMLP, dropout
 from point2cyl_torch.ops import cuda_ballquery, cuda_fps, cuda_knn
 from point2cyl_torch.ops.grouping import (ball_query_plain, group_points,
                                           index_points, sample_and_group_all)
+from point2cyl_torch.parallel.distributed import batch_draw
 
 EXACT_N_MAX = 1024  # JAX's _EXACT_N_MAX: the fused SA kernels' dispatch bound
 
@@ -195,8 +196,8 @@ class Backbone(nn.Module):
                 if fps_starts is not None:
                     start = fps_starts[i]
                 else:
-                    start = torch.randint(0, xyz.shape[1], (xyz.shape[0],),
-                                          generator=generator, device=xyz.device)
+                    start = batch_draw(generator, torch.randint, 0, xyz.shape[1],
+                                       size=(xyz.shape[0],), device=xyz.device)
             xyz, f = getattr(self, f"sa{i + 1}")(xyz, f, train, bn_momentum, start)
             skips.append((xyz, f))
         xyz_up, feats_up = getattr(self, f"sa{num_sa + 1}")(xyz, f, train, bn_momentum)

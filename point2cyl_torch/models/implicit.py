@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from point2cyl_torch.models.layers import BatchNorm, Dense
+from point2cyl_torch.parallel.distributed import batch_draw
 
 
 class ImplicitNet(nn.Module):
@@ -185,8 +186,8 @@ def sample_off_surface(
     Args: points (B, S, D). Returns (B, S + S // 8, D).
     """
     b, s, d = points.shape
-    local = points + local_sigma * torch.randn(points.shape, generator=generator,
-                                               dtype=points.dtype, device=points.device)
-    glob = torch.rand((b, s // 8, d), generator=generator, dtype=points.dtype,
+    local = points + local_sigma * batch_draw(generator, torch.randn, size=points.shape,
+                                              dtype=points.dtype, device=points.device)
+    glob = batch_draw(generator, torch.rand, size=(b, s // 8, d), dtype=points.dtype,
                       device=points.device)
     return torch.cat([local, (2.0 * glob - 1.0) * global_sigma], dim=1)

@@ -13,6 +13,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from point2cyl_torch.parallel.collectives import psum
+from point2cyl_torch.parallel.distributed import batch_draw
+
 
 class Dense(nn.Module):
     """Per-point dense layer with a reference conv-shaped weight."""
@@ -47,6 +50,12 @@ class BatchNorm(nn.Module):
     (1 - m) * running + m * batch`` with the unbiased variance; the
     momentum ``m`` comes with each call (the staircase schedule).
 
+    With a ``group`` (a ``parallel.mesh.Mesh``, set by
+    ``parallel.mesh.use_global_batch_norm``) the train-mode statistics
+    are the global batch's, as under JAX's sharding: each pass's
+    per-feature sum is summed over the ranks (differentiably) and divided
+    by the global count.
+
     The state_dict holds ``weight``, ``bias``, ``running_mean`` and
     ``running_var``; a reference checkpoint's ``num_batches_tracked`` is
     accepted on load and dropped (nothing reads it).
@@ -59,6 +68,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
@@ -71,9 +81,16 @@ class BatchNorm(nn.Module):
             return y * self.weight + self.bias
         n = x.numel() // x.shape[-1]
         inner = tuple(range(1, x.dim() - 1))
-        mean = x.sum(dim=inner).sum(dim=0) / n
+        total = x.sum(dim=inner).sum(dim=0)
+        if self.group is not None:
+            total = psum(total, self.group)
+            n *= self.group.world
+        mean = total / n
         centered = x - mean
-        var = (centered * centered).sum(dim=inner).sum(dim=0) / n
+        squares = (centered * centered).sum(dim=inner).sum(dim=0)
+        if self.group is not None:
+            squares = psum(squares, self.group)
+        var = squares / n
         with torch.no_grad():
             unbiased = var * (n / max(n - 1, 1))
             self.running_mean.copy_((1.0 - momentum) * self.running_mean + momentum * mean)
@@ -85,10 +102,11 @@ class BatchNorm(nn.Module):
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask is
-    drawn from ``generator`` (``F.dropout`` takes none)."""
+    drawn from ``generator`` (``F.dropout`` takes none; a
+    ``parallel.distributed.RowDraws`` draws the global batch's mask)."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = batch_draw(generator, torch.rand, size=x.shape, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -285,9 +285,10 @@ def ball_query_kernel(
     idx = torch.empty((b, s, nsample), dtype=torch.int32, device=xyz.device)
     fn = _build.function("p2c_ball_query", _ARGS_IDX)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), b, n, s,
-                nsample, radius_squared(radius), int(plan.select == "ballot"), plan.ctas,
-                plan.warps, stream)
+    with torch.cuda.device(xyz.device):  # the runtime launches on the current device
+        status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), b, n, s,
+                    nsample, radius_squared(radius), int(plan.select == "ballot"), plan.ctas,
+                    plan.warps, stream)
     ball_query_kernel.launches += 1
     _build.check(f"p2c_ball_query ({plan.select})", status)
     return idx
@@ -310,10 +311,11 @@ def ball_query_grouped_kernel(
     grouped = torch.empty((b, s, nsample, 3), dtype=torch.float32, device=xyz.device)
     fn = _build.function("p2c_ball_query_grouped", _ARGS_GROUPED)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
-                grouped.data_ptr(), b, n, s, nsample,
-                radius_squared(radius), int(plan.select == "grid"), plan.ctas,
-                plan.warps, plan.cap, stream)
+    with torch.cuda.device(xyz.device):  # the runtime launches on the current device
+        status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
+                    grouped.data_ptr(), b, n, s, nsample,
+                    radius_squared(radius), int(plan.select == "grid"), plan.ctas,
+                    plan.warps, plan.cap, stream)
     ball_query_grouped_kernel.launches += 1
     _build.check(f"p2c_ball_query_grouped ({plan.select})", status)
     return idx, grouped
@@ -344,10 +346,11 @@ def sa_grouped_exact_kernel(
                           device=xyz.device)
     fn = _build.function("p2c_sa_grouped_features", _ARGS_FEATURES)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    status = fn(xyz.data_ptr(), feats.data_ptr(), new_xyz.data_ptr(),
-                idx.data_ptr(), grouped.data_ptr(), b, n, s, nsample, c,
-                radius_squared(radius), _STORES.index(plan.store), plan.ctas,
-                plan.warps, stream)
+    with torch.cuda.device(xyz.device):  # the runtime launches on the current device
+        status = fn(xyz.data_ptr(), feats.data_ptr(), new_xyz.data_ptr(),
+                    idx.data_ptr(), grouped.data_ptr(), b, n, s, nsample, c,
+                    radius_squared(radius), _STORES.index(plan.store), plan.ctas,
+                    plan.warps, stream)
     sa_grouped_exact_kernel.launches += 1
     _build.check(f"p2c_sa_grouped_features ({plan.store})", status)
     return idx, grouped

@@ -101,8 +101,9 @@ def farthest_point_sample_kernel(
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     fn = _build.function("p2c_fps", _ARGTYPES)
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    status = fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), b, n, npoint,
-                cluster, threads, stream)
+    with torch.cuda.device(xyz.device):  # the runtime launches on the current device
+        status = fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(), b, n, npoint,
+                    cluster, threads, stream)
     farthest_point_sample_kernel.launches += 1
     _build.check(f"p2c_fps (cluster {cluster}, {threads} threads)", status)
     return out

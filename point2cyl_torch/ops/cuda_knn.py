@@ -109,8 +109,9 @@ def three_nn_interpolate_kernel(
     out = torch.empty((b, n, c), dtype=torch.float32, device=xyz_dst.device)
     fn = _build.function("p2c_three_nn_interpolate", _ARGTYPES)
     stream = torch.cuda.current_stream(xyz_dst.device).cuda_stream
-    status = fn(xyz_dst.data_ptr(), xyz_src.data_ptr(), feats_src.data_ptr(),
-                out.data_ptr(), idx_ptr, w_ptr, b, n, s, c, eps, lanes, stream)
+    with torch.cuda.device(xyz_dst.device):  # the runtime launches on the current device
+        status = fn(xyz_dst.data_ptr(), xyz_src.data_ptr(), feats_src.data_ptr(),
+                    out.data_ptr(), idx_ptr, w_ptr, b, n, s, c, eps, lanes, stream)
     three_nn_interpolate_kernel.launches += 1
     _build.check("p2c_three_nn_interpolate", status)
     return out

@@ -218,9 +218,10 @@ def launch_three_nn(idx: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     RuntimeError on a CUDA error."""
     b, n, c = g.shape
     fn = _build.function("p2c_three_nn_backward", _ARGS_THREE_NN)
-    status = fn(g.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(), b, n,
-                out.shape[1], c, g.stride(0), g.stride(1), plan.targets, plan.warps,
-                plan.window, torch.cuda.current_stream(g.device).cuda_stream)
+    with torch.cuda.device(g.device):  # the runtime launches on the current device
+        status = fn(g.data_ptr(), idx.data_ptr(), weight.data_ptr(), out.data_ptr(), b, n,
+                    out.shape[1], c, g.stride(0), g.stride(1), plan.targets, plan.warps,
+                    plan.window, torch.cuda.current_stream(g.device).cuda_stream)
     _build.check("p2c_three_nn_backward", status)
 
 
@@ -232,7 +233,8 @@ def launch_group(idx: torch.Tensor, dg: torch.Tensor, out: torch.Tensor,
     nsample), out (B, N, W). Raises RuntimeError on a CUDA error."""
     b, s, k, w = dg.shape
     fn = _build.function("p2c_sa_grouped_backward", _ARGS_GROUP)
-    status = fn(idx.data_ptr(), dg.data_ptr(), out.data_ptr(), b, s * k, out.shape[1], w,
-                dg.stride(0), dg.stride(2), plan.targets, plan.warps, plan.window,
-                LISTINGS.index(plan.listing), torch.cuda.current_stream(dg.device).cuda_stream)
+    with torch.cuda.device(dg.device):  # the runtime launches on the current device
+        status = fn(idx.data_ptr(), dg.data_ptr(), out.data_ptr(), b, s * k, out.shape[1], w,
+                    dg.stride(0), dg.stride(2), plan.targets, plan.warps, plan.window,
+                    LISTINGS.index(plan.listing), torch.cuda.current_stream(dg.device).cuda_stream)
     _build.check("p2c_sa_grouped_backward", status)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from point2cyl_torch.core.config import ZERO_TOL
+from point2cyl_torch.parallel.distributed import batch_draw
 
 
 def add_noise(
@@ -27,8 +28,8 @@ def add_noise(
     """Gaussian displacement of each point along its normal
     (``data_utils.py:84-96``), drawn from ``generator``."""
     b, n, _ = xyz.shape
-    noise = sigma * torch.randn((b, n, 1), generator=generator, dtype=xyz.dtype,
-                                device=xyz.device)
+    noise = sigma * batch_draw(generator, torch.randn, size=(b, n, 1), dtype=xyz.dtype,
+                               device=xyz.device)
     return xyz + noise * normals
 
 
@@ -154,8 +155,8 @@ def sample_segment_points(
     if generator is None:
         draws = torch.arange(num_samples, device=masks.device)[None, None, :]
     else:
-        draws = torch.randint(0, 2**31 - 1, (b, k, num_samples), generator=generator,
-                              device=masks.device)
+        draws = batch_draw(generator, torch.randint, 0, 2**31 - 1,
+                           size=(b, k, num_samples), device=masks.device)
     return torch.gather(order, -1, draws % high), count > 1
 
 

@@ -1,0 +1,267 @@
+"""Neighbour ops over a cloud whose points are sharded across ranks (the
+port of ``point2cyl_tpu/parallel/point_sharding.py``).
+
+Data parallelism shards the batch; this shards the points of one cloud,
+so that N can grow past one device's memory. Each rank holds a
+contiguous shard of the points (rank r holds global rows ``r * Nl`` to
+``(r + 1) * Nl``). Queries stay resident; key shards travel around the
+ring (:func:`collectives.ppermute`), and each rank folds the visiting
+shard into a fixed-size running selection: the ``nsample`` smallest
+in-radius indices for the ball query, the 3 nearest sources for 3-NN. A
+gather of selected rows is a second ring pass. FPS keeps its running
+minimum distances sharded and settles each step's global farthest point
+in one collective.
+
+Selections are over global indices with the single-device ops' own
+arithmetic (``ops/grouping.py``'s exact squared differences, the FPS
+plain version's sum order) and tie-breaks (the lowest index), so every
+index equals the single-device op's and every gathered value is a copy:
+the ring moves the work, not the arithmetic. Everything here is plain
+PyTorch, as the JAX module is XLA code without a hand kernel.
+
+The functions take this rank's shard and a
+:class:`~point2cyl_torch.parallel.mesh.Mesh`, where JAX's take a global
+array and wrap a ``shard_map``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from point2cyl_torch.ops.grouping import radius_squared, square_distance_exact
+from point2cyl_torch.ops.sampling import start_indices
+from point2cyl_torch.parallel import collectives
+
+_LOW32 = 0xFFFFFFFF
+
+
+def _shard_offsets(mesh, nl: int):
+    """The global offset of the key shard a rank holds at each ring step:
+    its own first, then the previous rank's, and so on."""
+    return [((mesh.rank - step) % mesh.world) * nl for step in range(mesh.world)]
+
+
+def _ring(keys: torch.Tensor, mesh):
+    """(offset, key shard) at each ring step; the shards travel one rank
+    on between steps (none after the last)."""
+    offsets = _shard_offsets(mesh, keys.shape[1])
+    for step, off in enumerate(offsets):
+        yield off, keys
+        if step + 1 < len(offsets):
+            keys = collectives.ppermute(keys, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Ring gather: rows of a point-sharded array by global index
+# ---------------------------------------------------------------------------
+
+
+def _ring_gather_local(points: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """``points[b, idx]`` where ``points`` is this rank's (B, Nl, C) shard
+    and ``idx`` any (B, ...) global indices: each visiting shard fills the
+    rows it owns (exactly one shard owns each index)."""
+    b, nl, c = points.shape
+    flat = idx.reshape(b, -1).long()
+    out = torch.zeros((*flat.shape, c), dtype=points.dtype, device=points.device)
+    for off, keys in _ring(points, mesh):
+        local = (flat - off).clamp(0, nl - 1)
+        got = torch.gather(keys, 1, local[..., None].expand(-1, -1, c))
+        owned = (flat >= off) & (flat < off + nl)
+        out = torch.where(owned[..., None], got, out)
+    return out.reshape(*idx.shape, c)
+
+
+def _owned_gather(points: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor:
+    """``points[b, idx]`` for (B, M) global indices that every rank holds
+    alike, on every rank, in one all-gather of each rank's owned rows."""
+    b, nl, c = points.shape
+    off = mesh.rank * nl
+    flat = idx.long()
+    got = torch.gather(points, 1, (flat - off).clamp(0, nl - 1)[..., None].expand(-1, -1, c))
+    owned = ((flat >= off) & (flat < off + nl)).to(points.dtype)[..., None]
+    both = collectives.all_gather(torch.cat([got, owned], dim=-1)[None], mesh, dim=0)
+    owner = both[..., -1].argmax(dim=0)  # (B, M)
+    rows = torch.gather(both[..., :-1], 0, owner[None, ..., None].expand(1, -1, -1, c))
+    return rows[0]
+
+
+# ---------------------------------------------------------------------------
+# Ring ball query
+# ---------------------------------------------------------------------------
+
+
+def _ring_ball_query_local(radius: float, nsample: int, xyz: torch.Tensor,
+                           queries: torch.Tensor, mesh) -> torch.Tensor:
+    """``ops.grouping.ball_query_plain`` with resident queries (B, Sl, 3)
+    and ring-rotating key shards (B, Nl, 3): per query the ``nsample``
+    smallest global in-radius indices, ascending, a short row padded with
+    its first, an empty one N - 1. The running state is the current
+    smallest ``nsample`` (N standing for none), merged with each visiting
+    shard's in-radius indices by one ``topk``; the keys are distinct
+    global indices (equal only as the N of none), so the merge has no tie
+    to break."""
+    nl = xyz.shape[1]
+    n = nl * mesh.world
+    b, sl = queries.shape[:2]
+    r2 = radius_squared(radius)
+    best = torch.full((b, sl, nsample), n, dtype=torch.int64, device=xyz.device)
+    cols = torch.arange(nl, device=xyz.device)
+    for off, keys in _ring(xyz, mesh):
+        inside = square_distance_exact(queries, keys) <= r2
+        cand = torch.where(inside, cols + off, n)
+        best = torch.topk(torch.cat([best, cand], dim=-1), nsample, dim=-1,
+                          largest=False, sorted=True).values
+    idx = torch.where(best == n, best[..., :1], best)
+    return idx.clamp(max=n - 1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Ring 3-NN
+# ---------------------------------------------------------------------------
+
+
+def _ring_three_nn_local(xyz_dst: torch.Tensor, xyz_src: torch.Tensor,
+                         mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global 3 nearest sources of each resident destination point:
+    (dists, gidx), each (B, Dl, 3), ascending by (distance, global index),
+    the single-device tie-break. Each visiting shard gives its own 3 by a
+    stable sort (its columns ascend in global index); the merge orders the
+    6 candidates by global index and then stably by distance. ``topk``
+    promises nothing on ties, so sorts do the selecting."""
+    b, dl = xyz_dst.shape[:2]
+    best_d = torch.full((b, dl, 3), float("inf"), dtype=xyz_dst.dtype,
+                        device=xyz_dst.device)
+    best_i = torch.zeros((b, dl, 3), dtype=torch.int64, device=xyz_dst.device)
+    for off, keys in _ring(xyz_src, mesh):
+        d, i = torch.sort(square_distance_exact(xyz_dst, keys), dim=-1, stable=True)
+        cd = torch.cat([best_d, d[..., :3]], dim=-1)
+        ci = torch.cat([best_i, i[..., :3] + off], dim=-1)
+        by_index = torch.argsort(ci, dim=-1, stable=True)
+        cd, ci = torch.gather(cd, -1, by_index), torch.gather(ci, -1, by_index)
+        best_d, pos = torch.sort(cd, dim=-1, stable=True)
+        best_d, best_i = best_d[..., :3], torch.gather(ci, -1, pos[..., :3])
+    return best_d, best_i
+
+
+# ---------------------------------------------------------------------------
+# Sharded FPS
+# ---------------------------------------------------------------------------
+
+
+def _fps_local(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
+               mesh) -> torch.Tensor:
+    """Farthest point sampling over a point-sharded float32 cloud, equal
+    to ``ops.sampling.farthest_point_sample_plain`` index for index: the
+    (B, N) minimum distances live sharded as (B, Nl), with the plain
+    version's sum order. Each step settles the global farthest point and
+    its coordinates in one all-gather: every rank offers its local
+    maximum as one int64 key, the distance's float32 bits (monotone for
+    non-negative floats) over the complement of its global index (so the
+    largest key is the largest distance at the lowest index, argmax's
+    first occurrence), beside that point's coordinate bits. JAX's ring
+    spends a psum, a pmax and a pmin a step on the same. Returns (B,
+    npoint) int32 global indices, alike on every rank."""
+    if xyz.dtype != torch.float32:
+        raise ValueError(f"sharded FPS takes float32 points, got {xyz.dtype}")
+    b, nl, _ = xyz.shape
+    off = mesh.rank * nl
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    farthest = start_indices(b, nl * mesh.world, start_idx, xyz.device)
+    c = _owned_gather(xyz, farthest[:, None], mesh)[:, 0]  # (B, 3)
+    distance = torch.full((b, nl), 1e10, dtype=xyz.dtype, device=xyz.device)
+    centroids = torch.empty((b, npoint), dtype=torch.int64, device=xyz.device)
+    for i in range(npoint):
+        centroids[:, i] = farthest
+        dx, dy, dz = x - c[:, 0:1], y - c[:, 1:2], z - c[:, 2:3]
+        dist = dx * dx + dy * dy + dz * dz
+        distance = torch.minimum(distance, dist)
+        local = torch.argmax(distance, dim=-1)
+        lmax = torch.gather(distance, 1, local[:, None])[:, 0]
+        key = (lmax.view(torch.int32).long() << 32) | (_LOW32 - (local + off))
+        coords = torch.gather(xyz, 1, local[:, None, None].expand(-1, 1, 3))[:, 0]
+        offer = torch.cat([key[:, None], coords.view(torch.int32).long()], dim=-1)
+        every = collectives.all_gather(offer[None], mesh, dim=0)  # (P, B, 4)
+        win = torch.gather(every, 0, every[..., :1].argmax(dim=0)[None].expand(1, -1, 4))[0]
+        farthest = _LOW32 - (win[:, 0] & _LOW32)
+        c = win[:, 1:].to(torch.int32).view(torch.float32)
+    return centroids.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Sample and group
+# ---------------------------------------------------------------------------
+
+
+def _group_local(radius: float, nsample: int, xyz_s: torch.Tensor,
+                 feats_s: torch.Tensor | None, q: torch.Tensor, mesh) -> torch.Tensor:
+    """``ops.grouping.group_points`` of the resident centres ``q`` (B, Sl,
+    3) over the sharded cloud: the ring ball query, then one ring gather
+    of the [xyz | feats] rows, centred."""
+    idx = _ring_ball_query_local(radius, nsample, xyz_s, q, mesh)
+    table = xyz_s if feats_s is None else torch.cat([xyz_s, feats_s], dim=-1)
+    g = _ring_gather_local(table, idx, mesh)
+    grouped = g[..., :3] - q[:, :, None, :]
+    return grouped if feats_s is None else torch.cat([grouped, g[..., 3:]], dim=-1)
+
+
+def _sample_and_group_local(radius: float, nsample: int, xyz_s: torch.Tensor,
+                            feats_s: torch.Tensor | None, fps_full: torch.Tensor,
+                            mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The body of :func:`sample_and_group_sharded`: the centres of the
+    (B, npoint) global indices ``fps_full`` that every rank holds, this
+    rank's slice of them (B, npoint / P, 3) and its grouped
+    neighbourhoods."""
+    spl = fps_full.shape[1] // mesh.world
+    q = _owned_gather(xyz_s, fps_full, mesh)[:, mesh.rank * spl:(mesh.rank + 1) * spl]
+    return q, _group_local(radius, nsample, xyz_s, feats_s, q, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Public API: this rank's shards in, this rank's results out
+# ---------------------------------------------------------------------------
+
+
+def ball_query_sharded(mesh, radius: float, nsample: int, xyz: torch.Tensor,
+                       new_xyz: torch.Tensor) -> torch.Tensor:
+    """``ops.grouping.ball_query_plain`` with the points (B, Nl, 3) and
+    the queries (B, Sl, 3) of this rank's shard; returns its queries'
+    (B, Sl, nsample) int32 global indices."""
+    return _ring_ball_query_local(radius, nsample, xyz, new_xyz, mesh)
+
+
+def index_points_sharded(mesh, points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``ops.grouping.index_points`` of this rank's rows ``points`` (B, Nl,
+    C) of a sharded table by its (B, ...) global indices ``idx``."""
+    return _ring_gather_local(points, idx, mesh)
+
+
+def three_nn_interpolate_sharded(mesh, xyz_dst: torch.Tensor, xyz_src: torch.Tensor,
+                                 feats_src: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """``ops.grouping.three_nn_interpolate_plain`` with every point axis
+    sharded: ring pass 1 finds the global 3-NN, ring pass 2 gathers their
+    feature rows, and the blend is the plain version's, on this rank's
+    destination points."""
+    d, gidx = _ring_three_nn_local(xyz_dst, xyz_src, mesh)
+    g = _ring_gather_local(feats_src, gidx, mesh)  # (B, Dl, 3, C)
+    recip = 1.0 / (d + eps)
+    w = (recip / (recip[..., 0] + recip[..., 1] + recip[..., 2])[..., None])[..., None]
+    return g[:, :, 0] * w[:, :, 0] + g[:, :, 1] * w[:, :, 1] + g[:, :, 2] * w[:, :, 2]
+
+
+def farthest_point_sample_sharded(mesh, xyz: torch.Tensor, npoint: int,
+                                  start_idx: int | torch.Tensor = 0) -> torch.Tensor:
+    """Exact FPS over the sharded cloud (this rank's (B, Nl, 3)); returns
+    (B, npoint) int32 global indices, alike on every rank."""
+    return _fps_local(xyz, npoint, start_idx, mesh)
+
+
+def sample_and_group_sharded(mesh, radius: float, nsample: int, xyz: torch.Tensor,
+                             feats: torch.Tensor | None,
+                             fps_idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``ops.grouping.sample_and_group`` across the sharded cloud (this
+    rank's xyz (B, Nl, 3) and feats (B, Nl, C) or None) from (B, npoint)
+    global FPS indices that every rank holds: this rank's slice of the
+    centres (B, npoint / P, 3) and its [xyz - centre | feats] groups."""
+    if fps_idx.shape[1] % mesh.world:
+        raise ValueError(f"npoint {fps_idx.shape[1]} must divide over {mesh.world} ranks")
+    return _sample_and_group_local(radius, nsample, xyz, feats, fps_idx, mesh)

@@ -6,6 +6,13 @@ the JAX session does; the padding rows are sliced off before returning.
 At inference the backbone and the sketch encoder are strictly per-sample
 (BatchNorm runs on stored statistics), so padding rows cannot perturb
 real rows.
+
+With ``devices=`` the session holds one replica of the models on each
+device and deals the chunks out round-robin, as the JAX session does
+(``point2cyl_tpu/serve/session.py:41-95, 150-163``): every chunk is
+dispatched before any result is fetched, so chunks on different cards
+overlap, and the cursor persists across requests, so a stream of
+one-chunk requests spreads over every device.
 """
 
 from __future__ import annotations
@@ -38,9 +45,15 @@ class InferenceSession:
     """
 
     def __init__(self, artifact: str | LoadedArtifact,
-                 device: str | torch.device | None = None):
-        """``device``: default the card; ``"cpu"`` only on request."""
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None,
+                 devices: list[str | torch.device] | None = None):
+        """``device``: default the card; ``"cpu"`` only on request.
+        ``devices``: serve over these instead, one replica each."""
+        if devices is not None and device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        self.device = self.devices[0]
         art = load_artifact(artifact) if isinstance(artifact, str) else artifact
         self.meta = art.meta
         if self.meta.get("backbone_config"):
@@ -54,14 +67,17 @@ class InferenceSession:
                     self.meta["pred_bb"],
                 ),
             )
-        self.model = build_backbone(cfg, state_dict=art.weights, device=self.device)
-        self.encoder = None
+        self._models = [build_backbone(cfg, state_dict=art.weights, device=d)
+                        for d in self.devices]
+        self._encoders = [None] * len(self.devices)
         if self.meta.get("with_latents"):
-            self.encoder = PointNetEncoder(int(self.meta["latent_size"]), 2,
-                                           with_normals=True)
-            self.encoder.load_state_dict(art.encoder_weights, strict=True)
-            self.encoder = self.encoder.to(self.device).eval()
+            for i, d in enumerate(self.devices):
+                enc = PointNetEncoder(int(self.meta["latent_size"]), 2, with_normals=True)
+                enc.load_state_dict(art.encoder_weights, strict=True)
+                self._encoders[i] = enc.to(d).eval()
+        self.model, self.encoder = self._models[0], self._encoders[0]
         self._buckets = sorted(int(b) for b in self.meta["buckets"])
+        self._next_dev = 0  # the round-robin cursor, kept across requests
         self.stats = {"requests": 0, "clouds": 0, "padded": 0}
 
     @property
@@ -82,7 +98,7 @@ class InferenceSession:
             raise ValueError(f"expected (n, {self.num_points}, 3), got {pts.shape}")
         meta = self.meta
         max_b = self._buckets[-1]
-        chunks = []
+        pending = []  # each chunk's selected outputs, still on its device
         i = 0
         with torch.inference_mode():
             while i < n:
@@ -93,15 +109,18 @@ class InferenceSession:
                     pad = np.zeros((b - take, self.num_points, 3), pts.dtype)
                     chunk = np.concatenate([chunk, pad], axis=0)
                     self.stats["padded"] += b - take
-                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+                d = self._next_dev
+                self._next_dev = (d + 1) % len(self.devices)
+                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.devices[d])
                 out = _backbone_forward(
-                    self.model, x, k=int(meta["k"]),
+                    self._models[d], x, k=int(meta["k"]),
                     pred_seg=bool(meta["pred_seg"]), pred_bb=bool(meta["pred_bb"]),
                     num_sk_points=meta["num_sk_points"] if decompose else None,
-                    encoder=self.encoder if decompose else None,
+                    encoder=self._encoders[d] if decompose else None,
                 )
-                chunks.append({key: out[key].cpu().numpy()[:take] for key in keys})
+                pending.append({key: out[key][:take] for key in keys})
                 i += take
+            chunks = [{key: val.cpu().numpy() for key, val in c.items()} for c in pending]
         self.stats["requests"] += 1
         self.stats["clouds"] += n
         return {key: np.concatenate([c[key] for c in chunks], axis=0) for key in keys}

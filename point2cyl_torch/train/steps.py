@@ -9,6 +9,16 @@ Functions, an Adam step on the staircase learning rate, and the
 non-finite guard, which keeps the whole previous state (parameters, BN
 statistics, Adam's moments and count, step) when the loss or a gradient
 is not finite (JAX ``steps.py:242-256``).
+
+Data parallel (a ``parallel.mesh.Mesh``): each rank runs the step on its
+rows of the global batch, with BN statistics over the global batch
+(``parallel.mesh.use_global_batch_norm``) and every draw made at the
+global batch's size (``parallel.distributed.RowDraws``); after the
+backward one all-reduce averages the gradients and the loss scalars over
+the ranks (:func:`mean_over_ranks`), and the guard decides on the
+averaged values, so every rank applies or skips the same update. The
+losses are per-sample means, so with equal shards the mean of the ranks'
+means is the global batch's, and the step is the one-process step.
 """
 
 from __future__ import annotations
@@ -25,6 +35,9 @@ from point2cyl_torch.losses.segmentation import reorder_w
 from point2cyl_torch.ops.geometry import add_noise, estimate_extrusion_centers
 from point2cyl_torch.ops.linalg import estimate_extrusion_axis
 from point2cyl_torch.ops.matching import mask_gt_from_labels, reduce_mean_masked_instance
+from point2cyl_torch.parallel import collectives
+from point2cyl_torch.parallel.distributed import RowDraws
+from point2cyl_torch.parallel.mesh import replicate, use_global_batch_norm
 
 
 class HeadOutputs(NamedTuple):
@@ -164,11 +177,16 @@ def apply_update(optimizer: torch.optim.Adam, cfg: TrainConfig, step: int) -> No
 
 
 class Trainer:
-    """Trainer A's state (model, Adam, step) and its step."""
+    """Trainer A's state (model, Adam, step) and its step; with a ``mesh``
+    the data-parallel step (the model is replicated from rank 0)."""
 
-    def __init__(self, model: torch.nn.Module, cfg: TrainConfig):
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, mesh=None):
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            use_global_batch_norm(model, mesh)
+            replicate(mesh, model)
         self.optimizer = make_optimizer(model.parameters(), cfg)
         self.step = 0  # updates applied; skipped steps do not count
         # the BN statistics as they were before the step's forward, for the
@@ -185,6 +203,7 @@ class Trainer:
                                          cfg.bn_init_momentum, cfg.bn_decay_rate,
                                          cfg.bn_momentum_clip)
         pts = batch["point_cloud"]
+        generator = step_generator(self.mesh, generator, pts.shape[0])
         if cfg.add_noise:
             pts = add_noise(generator, pts, batch["normals"], cfg.noise_sigma)
             batch = dict(batch, point_cloud=pts)
@@ -196,11 +215,11 @@ class Trainer:
                                k=batch["extrusion_axes"].shape[1])
         total, aux = proxy_losses(heads, batch, cfg)
         total.backward()
-        skipped = not guard_finite(total, [self.model], self._stats)
+        aux = mean_over_ranks(self.mesh, [self.model], aux)
+        skipped = not guard_finite(aux["total"], [self.model], self._stats)
         if not skipped:
             apply_update(self.optimizer, cfg, self.step)
             self.step += 1
-        aux = {key: val.detach() for key, val in aux.items()}
         aux["skipped"] = total.new_tensor(float(skipped))
         return aux
 
@@ -216,6 +235,36 @@ class Trainer:
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
+
+
+def step_generator(mesh, generator, rows: int):
+    """``generator`` for a step over ``rows`` local rows: as it is on one
+    process; on a mesh a ``RowDraws`` over the global batch of ``rows``
+    times the rank count, cut to this rank's rows."""
+    if mesh is None or generator is None:
+        return generator
+    return RowDraws(generator, slice(mesh.rank * rows, (mesh.rank + 1) * rows),
+                    rows * mesh.world)
+
+
+def mean_over_ranks(mesh, modules: Sequence[torch.nn.Module],
+                    aux: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The loss scalars ``aux``, detached, and in place the gradients of
+    the ``modules``' parameters, averaged over ``mesh``'s ranks in one
+    all-reduce (without a mesh, ``aux`` detached). A non-finite value on
+    any rank makes the average non-finite on every rank."""
+    aux = {key: val.detach() for key, val in aux.items()}
+    if mesh is None:
+        return aux
+    grads = [p.grad for mod in modules for p in mod.parameters() if p.grad is not None]
+    keys = list(aux)
+    flat = torch.cat([*(g.reshape(-1) for g in grads), torch.stack([aux[k] for k in keys])])
+    flat = collectives.psum(flat, mesh) / mesh.world
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return dict(zip(keys, flat[offset:]))
 
 
 def guard_finite(loss: torch.Tensor, modules: Sequence[torch.nn.Module],
@@ -267,6 +316,6 @@ def handle_skipped_epoch(logger, ckpt, trainer, skipped: int,
         return
     logger.log(f"! Epoch {epoch:04d}: {skipped}/{steps_per_epoch} non-finite "
                "steps skipped (state kept)")
-    if skipped >= steps_per_epoch and ckpt.exists("model"):
+    if skipped >= steps_per_epoch and ckpt.exists_global("model"):
         trainer.load_state_dict(ckpt.load("model", trainer.device))
         logger.log("! Entire epoch non-finite: restored last checkpoint")

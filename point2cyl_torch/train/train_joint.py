@@ -10,7 +10,11 @@ stack, and IGR pretraining (the port of
         --init_global_step -1 --pred_seg --pred_normal --pred_bb \
         --pred_extrusion --pred_center --logdir runs/joint
 
-Both run on the card unless given ``--device cpu``.
+Both run on the card unless given ``--device cpu``. ``--data_parallel``
+and ``--multihost`` run them data parallel as Trainer A's flags do
+(``train_pc.run_data_parallel``): global BN statistics and draws, the
+gradients of both Adam groups averaged over the ranks before the guard,
+rank 0 writing the checkpoints and the log.
 
 The joint step is Trainer A's proxy path plus the latents of the
 predicted sketches (projected onto the GT axes and scaled by the GT
@@ -53,7 +57,10 @@ from point2cyl_torch.models.implicit import ImplicitNet, PointNetEncoder
 from point2cyl_torch.ops.geometry import sketch_projection
 from point2cyl_torch.ops.matching import mask_gt_from_labels
 from point2cyl_torch.train import steps
-from point2cyl_torch.train.train_pc import build_model, config_from_args, epoch_generator
+from point2cyl_torch.parallel.distributed import process_batch_slice
+from point2cyl_torch.parallel.mesh import replicate, use_global_batch_norm
+from point2cyl_torch.train.train_pc import (add_parallel_args, build_model, config_from_args,
+                                            epoch_generator, run_data_parallel)
 
 LATENT_SIZE = 256
 IM_LR = 1e-3  # the encoder's: the reference never steps its schedule
@@ -105,14 +112,17 @@ class JointTrainer:
     Adam has a group for each net that trains: the backbone's on the
     staircase learning rate of the step, the encoder's at ``IM_LR``.
     ``step`` starts where ``--init_global_step`` puts it; Adam's own
-    counts start at 0, as JAX's fresh optimiser state does.
+    counts start at 0, as JAX's fresh optimiser state does. With a
+    ``mesh`` the step is data parallel (``train/steps.py``) and the four
+    nets are replicated from rank 0.
     """
 
     def __init__(self, backbone: torch.nn.Module, implicit: ImplicitNet,
                  encoder: PointNetEncoder, loaded_encoder: PointNetEncoder,
                  cfg: TrainConfig, *, num_sk_points: int, is_pc_train: bool,
                  is_im_train: bool, with_im_loss: bool, is_l2: bool = False,
-                 use_gt_im: bool = False, igr_chunk: int | None = None, step: int = 0):
+                 use_gt_im: bool = False, igr_chunk: int | None = None, step: int = 0,
+                 mesh=None):
         self.backbone, self.implicit = backbone, implicit
         self.encoder, self.loaded_encoder = encoder, loaded_encoder
         self.cfg = cfg
@@ -121,6 +131,11 @@ class JointTrainer:
         self.with_im_loss, self.is_l2, self.use_gt_im = with_im_loss, is_l2, use_gt_im
         self.igr_chunk = igr_chunk
         self.step = step  # updates applied; skipped steps do not count
+        self.mesh = mesh
+        if mesh is not None:
+            for net in (backbone, implicit, encoder, loaded_encoder):
+                use_global_batch_norm(net, mesh)
+                replicate(mesh, net)
         for net, trains in ((backbone, is_pc_train), (encoder, is_im_train),
                             (implicit, False), (loaded_encoder, False)):
             net.requires_grad_(trains)
@@ -152,6 +167,7 @@ class JointTrainer:
                                          cfg.bn_init_momentum, cfg.bn_decay_rate,
                                          cfg.bn_momentum_clip)
         pts = batch["point_cloud"]
+        generator = steps.step_generator(self.mesh, generator, pts.shape[0])
         i_gt, gt_bb = batch["extrusion_labels"], batch["base_barrel_labels"]
         axes, centers = batch["extrusion_axes"], batch["extrusion_centers"]
         b, k = axes.shape[:2]
@@ -226,10 +242,10 @@ class JointTrainer:
         total, aux = self.loss(batch, generator)
         if total.requires_grad:
             total.backward()
-        skipped = not steps.guard_finite(total, self._trained, self._stats)
+        aux = steps.mean_over_ranks(self.mesh, self._trained, aux)
+        skipped = not steps.guard_finite(aux["total"], self._trained, self._stats)
         if not skipped:
             self.apply_update()
-        aux = {key: val.detach() for key, val in aux.items()}
         aux["skipped"] = total.new_tensor(float(skipped))
         return aux
 
@@ -268,11 +284,17 @@ class JointTrainer:
 class ImPretrainer:
     """IGR pretraining: the encoder (train mode, its default BN momentum)
     and the decoder on GT sketches, Adam at ``IM_LR`` (JAX
-    ``make_im_pretrain_step``, ``train_joint.py:296-336``)."""
+    ``make_im_pretrain_step``, ``train_joint.py:296-336``); data parallel
+    with a ``mesh``, as the joint step."""
 
     def __init__(self, implicit: ImplicitNet, encoder: PointNetEncoder,
-                 igr_chunk: int | None = None):
+                 igr_chunk: int | None = None, mesh=None):
         self.implicit, self.encoder, self.igr_chunk = implicit, encoder, igr_chunk
+        self.mesh = mesh
+        if mesh is not None:
+            for net in (implicit, encoder):
+                use_global_batch_norm(net, mesh)
+                replicate(mesh, net)
         self.optimizer = _adam([*implicit.parameters(), *encoder.parameters()])
         self.step = 0
 
@@ -280,6 +302,7 @@ class ImPretrainer:
              off_pts: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
         sk = batch["sketches"]
         b, k, s, _ = sk.shape
+        generator = steps.step_generator(self.mesh, generator, b)
         mask_gt = mask_gt_from_labels(batch["extrusion_labels"], k)
         latents = self.encoder(sk.reshape(b * k, s, 4), train=True).reshape(b, k, -1)
         igr = igr_losses(self.implicit, generator, sk[..., :2], sk[..., 2:], latents,
@@ -291,9 +314,9 @@ class ImPretrainer:
         self.optimizer.zero_grad(set_to_none=True)
         total, aux = self.loss(batch, generator)
         total.backward()
+        aux = steps.mean_over_ranks(self.mesh, [self.implicit, self.encoder], aux)
         self.optimizer.step()
         self.step += 1
-        aux = {key: val.detach() for key, val in aux.items()}
         aux["skipped"] = torch.zeros_like(aux["total"])
         return aux
 
@@ -339,18 +362,25 @@ def staged_init_restore(backbone: torch.nn.Module, implicit: ImplicitNet,
     return step
 
 
+def _rows(cfg: TrainConfig, mesh) -> slice | None:
+    """This rank's rows of each global batch (None on one process)."""
+    return None if mesh is None else process_batch_slice(cfg.batch_size, mesh.rank,
+                                                         mesh.world)
+
+
 def pretrain(args: argparse.Namespace, cfg: TrainConfig, pipeline: InputPipeline,
              logger: TrainLogger, implicit: ImplicitNet,
-             encoder: PointNetEncoder) -> ImPretrainer:
+             encoder: PointNetEncoder, mesh=None) -> ImPretrainer:
     trainer = ImPretrainer(implicit, encoder,
-                           resolve_igr_chunk(args.igr_chunk, cfg.batch_size * args.K))
-    ckpt = CheckpointManager(cfg.logdir)
+                           resolve_igr_chunk(args.igr_chunk, cfg.batch_size * args.K), mesh)
+    ckpt = CheckpointManager(cfg.logdir, mesh)
     steps_per_epoch = max(pipeline.num_samples // cfg.batch_size, 1)
     for epoch in range(1, cfg.num_epochs + 1):
         t0 = time.time()
         gen = epoch_generator(cfg.seed, epoch, pipeline.device)
         aux_steps = [trainer.train_step(batch, gen)
-                     for batch in pipeline.epochs(cfg.batch_size, gen)]
+                     for batch in pipeline.epochs(cfg.batch_size, gen,
+                                                  rows_slice=_rows(cfg, mesh))]
         steps.log_epoch_aux(logger, aux_steps, (epoch - 1) * steps_per_epoch)
         means = logger.epoch_means()
         logger.log(f"[pretrain_im] > Epoch {epoch:04d} done in {time.time() - t0:.1f}s | "
@@ -362,7 +392,7 @@ def pretrain(args: argparse.Namespace, cfg: TrainConfig, pipeline: InputPipeline
 
 
 def train(args: argparse.Namespace, cfg: TrainConfig, pipeline: InputPipeline,
-          logger: TrainLogger, nets) -> JointTrainer:
+          logger: TrainLogger, nets, mesh=None) -> JointTrainer:
     backbone, implicit, encoder, loaded_encoder = nets
     step = staged_init_restore(
         backbone, implicit, encoder, loaded_encoder, is_pc_init=args.is_pc_init,
@@ -376,13 +406,14 @@ def train(args: argparse.Namespace, cfg: TrainConfig, pipeline: InputPipeline,
         num_sk_points=args.num_sk_point, is_pc_train=args.is_pc_train,
         is_im_train=args.is_im_train, with_im_loss=args.with_im_loss, is_l2=args.is_L2,
         use_gt_im=args.use_gt_im,
-        igr_chunk=resolve_igr_chunk(args.igr_chunk, cfg.batch_size * args.K), step=step)
+        igr_chunk=resolve_igr_chunk(args.igr_chunk, cfg.batch_size * args.K), step=step,
+        mesh=mesh)
 
-    ckpt = CheckpointManager(cfg.logdir)
+    ckpt = CheckpointManager(cfg.logdir, mesh)
     best_loss = float("inf")
     steps_per_epoch = max(pipeline.num_samples // cfg.batch_size, 1)
     start_epoch = 1
-    if cfg.resume and ckpt.exists("model"):
+    if cfg.resume and ckpt.exists_global("model"):
         state = ckpt.load("model", trainer.device)
         trainer.load_state_dict(state)
         # the epoch the checkpoint says, never one derived from a step that
@@ -397,7 +428,8 @@ def train(args: argparse.Namespace, cfg: TrainConfig, pipeline: InputPipeline,
         t0 = time.time()
         gen = epoch_generator(cfg.seed, epoch, pipeline.device)
         aux_steps = []
-        for i, batch in enumerate(pipeline.epochs(cfg.batch_size, gen)):
+        for i, batch in enumerate(pipeline.epochs(cfg.batch_size, gen,
+                                                  rows_slice=_rows(cfg, mesh))):
             aux = trainer.train_step(batch, gen)
             aux_steps.append(aux)
             if i % 10 == 0:
@@ -481,10 +513,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="restore the joint state, Adam, step and epoch from "
                    "<logdir>/model.pth and continue")
-    p.add_argument("--data_parallel", type=int, default=None,
-                   help="not ported yet (ROADMAP queue 1 item 6)")
-    p.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP queue 1 item 6)")
     p.add_argument("--synthetic", type=int, default=None,
                    help="train on N synthetic solids instead of h5 data")
     p.add_argument("--synthetic_resolution", type=int, default=8192)
@@ -496,16 +524,20 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also write tensorboard scalars to <logdir>/tb")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card)")
+    add_parallel_args(p)
     return p
 
 
-def cli_main(argv: list[str] | None = None) -> JointTrainer | ImPretrainer:
-    args = build_argparser().parse_args(argv)
-    if args.data_parallel is not None or args.multihost:
-        raise NotImplementedError("--data_parallel and --multihost wait in ROADMAP "
-                                  "queue 1 item 6")
+def cli_main(argv: list[str] | None = None) -> JointTrainer | ImPretrainer | None:
+    """Pretrain or train as the flags say; returns the trainer, or None
+    where the ranks ran in processes of their own (``--data_parallel``
+    above 1)."""
+    return run_data_parallel(build_argparser().parse_args(argv), _joint_main)
+
+
+def _joint_main(args: argparse.Namespace, mesh) -> JointTrainer | ImPretrainer:
     cfg = config_from_args(args)
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     if args.synthetic:
         ds = generate_dataset(args.synthetic, resolution=args.synthetic_resolution,
                               max_instances=args.K, num_sketch_points=args.num_sk_point,
@@ -514,7 +546,8 @@ def cli_main(argv: list[str] | None = None) -> JointTrainer | ImPretrainer:
         ds = load_h5(os.path.join(args.data_dir, args.data_split + ".h5"))
     pipeline = InputPipeline(ds, args.num_point, args.K, dev,
                              num_sketch_points=args.num_sk_point)
-    logger = TrainLogger(cfg.logdir, use_tensorboard=cfg.tensorboard)
+    logger = TrainLogger(cfg.logdir, use_tensorboard=cfg.tensorboard,
+                         primary=mesh is None or mesh.rank == 0)
     logger.log(f"config: {cfg}")
     logger.log(f"device {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                                   if dev.type == "cuda" else ""))
@@ -522,8 +555,8 @@ def cli_main(argv: list[str] | None = None) -> JointTrainer | ImPretrainer:
                       args.use_extrusion_axis_feat, dev)
     try:
         if args.pretrain_im:
-            return pretrain(args, cfg, pipeline, logger, nets[1], nets[2])
-        return train(args, cfg, pipeline, logger, nets)
+            return pretrain(args, cfg, pipeline, logger, nets[1], nets[2], mesh)
+        return train(args, cfg, pipeline, logger, nets, mesh)
     finally:
         logger.close()
 

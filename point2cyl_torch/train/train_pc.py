@@ -12,16 +12,34 @@ The flag names are the reference's (``train_Point2Cyl_without_sketch.py:
 ``--device`` (default the card). Every random draw of an epoch comes from
 one generator seeded by (seed, epoch), so a resumed run replays the
 batches an uninterrupted one would have seen.
+
+Data parallel, as the JAX trainer's flags ask for it:
+
+    python -m point2cyl_torch.train.train_pc ... --data_parallel 4
+        # 4 ranks on this host, rank r on cuda:r (NCCL); with --device cpu
+        # on the CPU (gloo)
+    python -m point2cyl_torch.train.train_pc ... --multihost \
+        --coordinator_address host:port --num_processes P --process_id i
+        # one process a card, started by the caller on each host
+
+Each rank trains on its rows of every global batch of ``--batch_size``
+(``train/steps.py``: global BN statistics and draws, averaged gradients),
+rank 0 writes the checkpoints and the log. Without either flag the run is
+one process on one device.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from point2cyl_torch.core.checkpoint import CheckpointManager
 from point2cyl_torch.core.config import BackboneConfig, LossWeights, TrainConfig
@@ -31,6 +49,8 @@ from point2cyl_torch.data.h5_io import load_h5
 from point2cyl_torch.data.pipeline import InputPipeline
 from point2cyl_torch.data.synthetic import generate_dataset
 from point2cyl_torch.models.backbone import Backbone
+from point2cyl_torch.parallel.distributed import initialize, join, process_batch_slice
+from point2cyl_torch.parallel.mesh import make_mesh
 from point2cyl_torch.serve.export import head_output_sizes
 from point2cyl_torch.train import steps
 
@@ -51,9 +71,10 @@ def build_model(cfg: TrainConfig, num_points: int, k: int,
 
 
 def build_trainer(cfg: TrainConfig, num_points: int, k: int,
-                  device: str | torch.device | None = None) -> steps.Trainer:
-    """A Trainer with a fresh full-width backbone (``build_model``)."""
-    return steps.Trainer(build_model(cfg, num_points, k, device), cfg)
+                  device: str | torch.device | None = None, mesh=None) -> steps.Trainer:
+    """A Trainer with a fresh full-width backbone (``build_model``), data
+    parallel over ``mesh`` where given."""
+    return steps.Trainer(build_model(cfg, num_points, k, device), cfg, mesh)
 
 
 def build_pipeline(cfg: TrainConfig, num_points: int, k: int, device: torch.device,
@@ -83,21 +104,31 @@ def train(
     synthetic: int | None = None,
     synthetic_resolution: int = 8192,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> steps.Trainer:
-    dev = resolve_device(device)
-    logger = TrainLogger(cfg.logdir, use_tensorboard=cfg.tensorboard)
+    """Train on ``device``, or with a ``parallel.mesh.Mesh`` as one rank of
+    a data-parallel run on the mesh's device (``cfg.batch_size`` is the
+    global batch)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    logger = TrainLogger(cfg.logdir, use_tensorboard=cfg.tensorboard,
+                         primary=mesh is None or mesh.rank == 0)
     logger.log(f"config: {cfg}")
     pipeline = build_pipeline(cfg, num_points, k, dev, h5_path, synthetic,
                               synthetic_resolution)
-    trainer = build_trainer(cfg, num_points, k, dev)
+    trainer = build_trainer(cfg, num_points, k, dev, mesh)
     logger.log(f"device {dev}" + (f" ({torch.cuda.get_device_name(dev)})"
                                   if dev.type == "cuda" else ""))
+    rows_slice = None
+    if mesh is not None:
+        rows_slice = process_batch_slice(cfg.batch_size, mesh.rank, mesh.world)
+        logger.log(f"data-parallel over {mesh.world} rank(s): rank {mesh.rank} "
+                   f"takes rows {rows_slice.start}:{rows_slice.stop} of each batch")
 
-    ckpt = CheckpointManager(cfg.logdir)
+    ckpt = CheckpointManager(cfg.logdir, mesh)
     best_loss = float("inf")
     steps_per_epoch = max(pipeline.num_samples // cfg.batch_size, 1)
     start_epoch = 1
-    if cfg.resume and ckpt.exists("model"):
+    if cfg.resume and ckpt.exists_global("model"):
         state = ckpt.load("model", dev)
         trainer.load_state_dict(state)
         done = int(state["epoch"])
@@ -110,7 +141,8 @@ def train(
         t0 = time.time()
         gen = epoch_generator(cfg.seed, epoch, dev)
         aux_steps = []
-        for i, batch in enumerate(pipeline.epochs(cfg.batch_size, gen)):
+        for i, batch in enumerate(pipeline.epochs(cfg.batch_size, gen,
+                                                  rows_slice=rows_slice)):
             aux = trainer.train_step(batch, gen)
             aux_steps.append(aux)
             if i % 10 == 0:
@@ -184,7 +216,76 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="also write tensorboard scalars to <logdir>/tb")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the card)")
+    add_parallel_args(p)
     return p
+
+
+def add_parallel_args(p: argparse.ArgumentParser) -> None:
+    """JAX Trainer A's data-parallel flags (``train_pc.py:222-233``)."""
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="ranks on this host, one card each (rank r on cuda:r, NCCL; "
+                   "gloo with --device cpu), reduced until they divide --batch_size")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-process run: this process is rank "
+                   "--process_id of --num_processes, meeting at "
+                   "--coordinator_address (host:port or an init URL)")
+    p.add_argument("--coordinator_address", type=str, default=None)
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+
+
+def run_data_parallel(args: argparse.Namespace, fn):
+    """``fn(args, mesh)`` as the parallel flags ask: ``mesh=None`` without
+    them; with ``--multihost`` as this process's rank of the run (the
+    batch must divide over the ranks); with ``--data_parallel N`` as N
+    ranks on this host, N reduced until it divides the batch (JAX
+    ``train_pc.py:83-98``), one process each (a spawn; a single rank runs
+    here). Returns ``fn``'s result where it ran in this process, else
+    None. ``fn`` is a module-level function (the spawn pickles it)."""
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    if args.multihost:
+        created = not dist.is_initialized()
+        initialize(args.coordinator_address, args.num_processes, args.process_id,
+                   backend="gloo" if cpu else "nccl")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if args.batch_size % world:
+            raise ValueError(f"--batch_size {args.batch_size} must divide over "
+                             f"{world} processes for multi-host runs")
+        try:
+            return fn(args, make_mesh(devices=["cpu"] * world if cpu else None))
+        finally:
+            if created and dist.is_initialized():
+                dist.destroy_process_group()
+    if args.data_parallel is None:
+        return fn(args, None)
+    world = max(args.data_parallel, 1)
+    while args.batch_size % world:
+        world -= 1  # the largest rank count that divides the batch
+    if not cpu and world > torch.cuda.device_count():
+        raise ValueError(f"--data_parallel {world} needs {world} cards; this host has "
+                         f"{torch.cuda.device_count()} (ranks never share a card)")
+    rdv = tempfile.mkdtemp(prefix="p2c_rdv_")
+    try:
+        url = "file://" + os.path.join(rdv, "rdv")
+        if world == 1:
+            return _rank_main(0, fn, args, 1, url, cpu)
+        mp.spawn(_rank_main, args=(fn, args, world, url, cpu), nprocs=world, join=True)
+        return None
+    finally:
+        shutil.rmtree(rdv, ignore_errors=True)
+
+
+def _rank_main(rank: int, fn, args: argparse.Namespace, world: int, url: str, cpu: bool):
+    """One rank of a ``--data_parallel`` run: join the group (a world of
+    1 too, so that its collectives run), run ``fn``, leave. Ranks on the
+    CPU split its cores between them."""
+    if cpu and world > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    join(url, world, rank, backend="gloo" if cpu else "nccl")
+    try:
+        return fn(args, make_mesh(devices=["cpu"] * world if cpu else None))
+    finally:
+        dist.destroy_process_group()
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
@@ -216,14 +317,20 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
     )
 
 
-def cli_main(argv: list[str] | None = None) -> steps.Trainer:
-    args = build_argparser().parse_args(argv)
+def cli_main(argv: list[str] | None = None) -> steps.Trainer | None:
+    """Train as the flags say; returns the trainer, or None where the
+    ranks ran in processes of their own (``--data_parallel`` above 1)."""
+    return run_data_parallel(build_argparser().parse_args(argv), _train_main)
+
+
+def _train_main(args: argparse.Namespace, mesh) -> steps.Trainer:
     h5_path = None
     if not args.synthetic:
         h5_path = os.path.join(args.data_dir, args.data_split + ".h5")
     return train(config_from_args(args), num_points=args.num_point, k=args.K,
                  h5_path=h5_path, synthetic=args.synthetic,
-                 synthetic_resolution=args.synthetic_resolution, device=args.device)
+                 synthetic_resolution=args.synthetic_resolution, device=args.device,
+                 mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -609,7 +609,8 @@ def test_cli_pretrain_joint_resume_and_read_back(tmp_path):
     IGR layout), then the joint CLI with ``--is_pc_init --init_global_step
     -1`` (both load lines, the carried step, the three files), a resume
     that continues at the checkpoint's epoch, and the evaluator and the
-    restores reading the joint logdir; the deferred flags raise."""
+    restores reading the joint logdir; the parallel flags refuse a join
+    without its address and more ranks than cards."""
     pc, igr, joint = (str(tmp_path / d) for d in ("pc", "igr", "joint"))
     tiny = ["--synthetic", "8", "--num_point", str(N), "--K", str(K), "--batch_size", "2",
             "--synthetic_resolution", "512", "--device", "cpu", "--num_epochs", "2"]
@@ -664,9 +665,14 @@ def test_cli_pretrain_joint_resume_and_read_back(tmp_path):
     with open(os.path.join(joint, "log_evaluate.txt")) as f:
         assert f"Restored implicit stack from {joint}/model" in f.read()
 
-    for flag in (["--multihost"], ["--data_parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            TJ.cli_main(tiny + ["--logdir", str(tmp_path / "x")] + flag)
+    # the parallel flags are live (tests/test_torch_parallel.py runs them):
+    # a join without its address, and ranks beyond the cards, raise
+    with pytest.raises(ValueError, match="--coordinator_address"):
+        TJ.cli_main(tiny + ["--logdir", str(tmp_path / "x"), "--multihost"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="ranks never share a card"):
+            TJ.cli_main(["--synthetic", "8", "--logdir", str(tmp_path / "x"),
+                         "--data_parallel", "2"])
 
 
 @pytest.mark.parametrize("flag,m,want", [(-1, 128, None), (0, 32, None), (0, 128, 32),
