@@ -1,9 +1,10 @@
-"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing and parallel package on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing, parallel package and bf16 compute on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # what a check of the port runs
     python3 chip_smoke.py --profile        # also print device-time breakdowns
     python3 chip_smoke.py --only-parallel  # the set-up and phase 12 alone
     python3 chip_smoke.py --only-parallel multi-card  # only 12c (two cards)
+    python3 chip_smoke.py --only-bf16      # the set-up and phase 13 alone
 
 Phases, in order; any failure raises, exits non-zero and prints no result:
 
@@ -196,13 +197,38 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    P=1 (ms and peak GiB) beside the all-plain single-device forward. e.
    Each kernel's launches a data-parallel step per rank and a sharded
    forward.
+13. bf16 compute (``compute_dtype="bfloat16"``: the backbone's dense
+   layers as bf16 products with float32 results, ``ops/lowp_dense.py``).
+   a. The bf16 dense layer at each of the backbone's 19 shapes (B=4,
+   N=8192), forward and both gradients, against its plain version on the
+   card (the forward within float32 summation order, the gradients within
+   one bf16 ulp plus the cotangent's rounding), 3 GEMMs a layer; CUDA-event
+   medians of the forward and of forward plus backward beside the float32
+   layer's, and the bound at the bf16 tensor-core rate. b. Trainer A in
+   bf16 from ``build_trainer`` on ``--synthetic 16`` (B=4): the hand
+   kernels' launches a step are the float32 step's, 56 GEMMs a step,
+   every parameter with a gradient, finite losses; one step against the
+   all-plain bf16 step with the float32 step on the same weights as the
+   yardstick (``BF16_NEARER``); the ms a step beside float32's in turns
+   and the device launches a step of each (a trace); the CLI with
+   ``--compute_dtype bfloat16`` for 2 epochs, then a resume. c. A bf16
+   artifact (buckets 1, 4, 16) served for requests of 1, 5 and 16 clouds:
+   the launches, the raw heads against the all-plain bf16 path on the
+   card and the bf16 port on the CPU (1e-3; labels on 0.999 of points),
+   decompositions per second at bucket 16 beside a float32 artifact's of
+   the same weights, in turns. d. One NCCL rank: the world-1
+   data-parallel bf16 step bit-equal to the one-process bf16 step under
+   deterministic algorithms, and the P=1 sharded bf16 forward bit-equal
+   to ``Backbone.forward``. e. One joint step with a bf16 backbone against
+   the all-plain bf16 step, float32 as the yardstick.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
 with latents, ``serve_latents_launches``, in the joint trainer,
 ``joint_launches``, in one reconstruction, ``recon_launches``, over
 the 4 steps trained from the K=8 pack, ``pack_launches``, and in phase
-12, ``parallel_launches``); the last line is ``{"ok": true, "device":
+12, ``parallel_launches``, and in phase 13, ``bf16_launches``); the
+last line is ``{"ok": true, "device":
 {...}}``.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
@@ -1542,6 +1568,428 @@ def parallel_phase(card: str, dev, root: str) -> dict:
             "sharded_forward": sharded_launches}
 
 
+# ---- phase 13: bf16 compute --------------------------------------------------
+
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet
+# The bf16 step on the card against the all-plain bf16 step, with the
+# float32 step on the same weights and batch as the yardstick: the card's
+# loss, its gradients (all parameters together, relative L2) and its BN
+# statistics (all together, relative L2) must lie nearer the plain bf16
+# step's than the float32 step's do, by BF16_NEARER. A float32 rule cannot
+# hold them: the card's backward rounds each dense layer's cotangent to
+# bf16 to enter the tensor cores (the plain version multiplies it in
+# float32, as JAX does on the CPU; the TPU's MXU rounds it too), and a
+# float32 summation order moves some roundings to bf16 by an ulp (2^-8
+# relative); batch-statistics BN, whose backward leaves a small residual
+# of large per-row terms, and near-tied max-pool winners spread that to
+# tens of percent of the SA1 weights' gradients (measured on the card,
+# PERF.md). A bf16 path that ran in float32 would sit at the float32
+# step's distance and fail.
+BF16_NEARER = 0.6
+# served heads at bf16 scale (eval-mode BN: only the forward's roundings)
+BF16_HEADS_ATOL = 1e-3  # an eighth of a bf16 ulp at 1
+
+
+def dense_shapes(model, pts) -> list[tuple[str, int, int, int]]:
+    """(name, rows, in, out) of every dense layer of ``model``'s eval
+    forward on ``pts``, in the order the forward runs them."""
+    from point2cyl_torch.models.layers import Dense
+
+    shapes, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, Dense):
+            hooks.append(m.register_forward_hook(
+                lambda mod, a, out, name=name: shapes.append(
+                    (name, a[0].numel() // a[0].shape[-1], a[0].shape[-1], out.shape[-1]))))
+    with torch.inference_mode():
+        model(pts)
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def bound_lowp(rows: int, cin: int, cout: int) -> tuple[float, str]:
+    """Least time (ms) of a bf16 dense layer's forward on float32 tensors:
+    x, the weight and the bias read once and y written once (float32) at
+    peak HBM rate, or its 2 * rows * in * out operations at the bf16
+    tensor-core rate, whichever is larger."""
+    t_bytes = (rows * cin + cin * cout + cout + rows * cout) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * rows * cin * cout / BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ulp_bf16(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each magnitude of ``v`` (normal numbers)."""
+    _, e = torch.frexp(v.abs())
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+def lowp_step_check(label: str, card: dict, plain: dict, fp32: dict) -> dict:
+    """A bf16 step (``step_record``) held against the all-plain bf16 step
+    with the float32 step as the yardstick (``BF16_NEARER``); every
+    gradient non-zero. The distances and the parameter the card's
+    gradients part most on, printed before they are checked."""
+    def rel_l2(a: dict, b: dict, key: str) -> float:
+        names = list(b[key])
+        flat = lambda r: torch.cat([r[key][n].flatten().double() for n in names])  # noqa: E731
+        return float((flat(a) - flat(b)).norm() / flat(b).norm())
+
+    dist = {"loss": (abs(card["aux"]["total"] - plain["aux"]["total"]),
+                     abs(fp32["aux"]["total"] - plain["aux"]["total"])),
+            "grads": (rel_l2(card, plain, "grads0"), rel_l2(fp32, plain, "grads0")),
+            "bn": (rel_l2(card, plain, "buffers0"), rel_l2(fp32, plain, "buffers0"))}
+    per = {n: float((card["grads0"][n] - g).norm() / g.norm())
+           for n, g in plain["grads0"].items() if g.norm() > 0}
+    worst = max(per, key=per.get)
+    report = {"card_vs_plain": {k: v[0] for k, v in dist.items()},
+              "fp32_vs_plain": {k: v[1] for k, v in dist.items()},
+              "ratio": {k: v[0] / v[1] for k, v in dist.items()},
+              "worst_parameter": worst, "worst_parameter_rel_l2": per[worst],
+              "bound": BF16_NEARER}
+    print(json.dumps({"check": f"{label} vs all-plain bf16", **report}), flush=True)
+    for key, (near, far) in dist.items():
+        check(near <= BF16_NEARER * far, f"{label}: {key} {near} from the plain bf16 step, "
+              f"the float32 step {far}")
+    check(all(bool((g != 0).any()) for g in card["grads0"].values()), f"{label}: a zero "
+          "gradient")
+    return report
+
+
+def launches_per_step(step, steps: int = 2) -> float:
+    """Device kernels launched per call of ``step``, from a trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / steps
+
+
+def bf16_phase(args, card: str, dev, root: str) -> dict:
+    """Phase 13: the backbone's dense layers in bf16 with float32 results.
+    Returns the hand kernels' launches in its runs, by run and kernel."""
+    import warnings
+
+    from point2cyl_torch.core.config import TrainConfig
+    from point2cyl_torch.models.backbone import Backbone, build_backbone
+    from point2cyl_torch.ops import lowp_dense
+    from point2cyl_torch.parallel.distributed import join
+    from point2cyl_torch.parallel.mesh import make_mesh
+    from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+    from point2cyl_torch.serve.export import _backbone_forward, export_artifact
+    from point2cyl_torch.serve.session import InferenceSession
+    from point2cyl_torch.train import steps, train_joint, train_pc
+    from point2cyl_torch.train.train_pc import build_pipeline, build_trainer, epoch_generator
+
+    t_phase = time.perf_counter()
+    gemm = lowp_dense.lowp_gemm
+    cfg = full_width_config(8192)
+    cfg16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    plain16 = dataclasses.replace(cfg16, fps_impl="plain", ballquery_impl="plain",
+                                  knn_impl="plain", dense_impl="plain")
+    state = build_backbone(cfg, generator=torch.Generator().manual_seed(13),
+                           device="cpu").state_dict()
+    out = {}
+
+    # a. the bf16 dense product at each layer's shape (B=4), forward and
+    # both gradients, against its plain version on the card; CUDA-event
+    # medians beside the float32 layer (torch.matmul, TF32 off)
+    model16 = build_backbone(cfg16, state_dict=state, device=dev)
+    shapes = dense_shapes(model16, torch.from_numpy(clouds(14, TB, cfg.num_points)).to(dev))
+    check(len(shapes) == 19, f"{len(shapes)} dense layers, expected 19")
+    gen = torch.Generator(dev).manual_seed(13)
+    rows_out = []
+    totals = {"ms": 0.0, "plain_ms": 0.0, "fp32_ms": 0.0, "fwd_bwd_ms": 0.0,
+              "fp32_fwd_bwd_ms": 0.0, "bound_ms": 0.0}
+    for name, rows, cin, cout in shapes:
+        x = torch.randn(rows, cin, device=dev, generator=gen)
+        w = torch.randn(cout, cin, device=dev, generator=gen) / cin ** 0.5
+        b = torch.randn(cout, device=dev, generator=gen) * 0.1
+        g = torch.randn(rows, cout, device=dev, generator=gen)
+        res = {}
+        for impl in ("kernel", "plain"):
+            xi, wi, bi = (t.clone().requires_grad_() for t in (x, w, b))
+            gemm.launches = 0
+            y = lowp_dense.dense_lowp(xi, wi, bi, torch.bfloat16, impl)
+            y.backward(g)
+            torch.cuda.synchronize()
+            res[impl] = (y.detach(), xi.grad, wi.grad, bi.grad, gemm.launches)
+        check(res["kernel"][4] == 3 and res["plain"][4] == 0,
+              f"{name}: GEMM launches {res['kernel'][4]} (card), {res['plain'][4]} (plain)")
+        xa, wa, ga = x.bfloat16().float().abs(), w.bfloat16().float().abs(), g.abs()
+        # forward: float32 summation order; the gradients: one bf16 ulp
+        # plus the cotangent's rounding to bf16 (2^-9 of each term)
+        bounds = (2.0**-20 * (xa @ wa.t() + b.abs()),
+                  ulp_bf16(res["plain"][1]) + 2.0**-8 * (ga @ wa),
+                  ulp_bf16(res["plain"][2]) + 2.0**-8 * (ga.t() @ xa),
+                  2.0**-20 * ga.sum(0))
+        over = max(float(((k - p).abs() / bd).max()) for k, p, bd in
+                   zip(res["kernel"][:4], res["plain"][:4], bounds))
+        errs = [float((k - p).abs().max()) for k, p in zip(res["kernel"][:4], res["plain"][:4])]
+        check(over <= 1.0, f"{name} ({rows}x{cin}x{cout}): card vs plain {over} times "
+              f"the bound, max abs errors {errs}")
+        with torch.no_grad():
+            ms = time_ms(lambda: lowp_dense.dense_lowp(x, w, b, torch.bfloat16, "kernel"))
+            plain_ms = time_ms(lambda: lowp_dense.dense_lowp(x, w, b, torch.bfloat16,
+                                                             "plain"))
+            fp32_ms = time_ms(lambda: torch.matmul(x, w.t()) + b)
+        xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+        fwd_bwd_ms = time_ms(lambda: lowp_dense.dense_lowp(xg, wg, bg, torch.bfloat16,
+                                                           "kernel").backward(g))
+        fp32_fwd_bwd_ms = time_ms(lambda: (torch.matmul(xg, wg.t()) + bg).backward(g))
+        bound_ms, bound_by = bound_lowp(rows, cin, cout)
+        row = {"layer": name, "rows": rows, "in": cin, "out": cout,
+               "max_abs_err": {"y": errs[0], "dx": errs[1], "dw": errs[2], "db": errs[3]},
+               "err_over_bound": over, "ms": ms, "plain_ms": plain_ms, "fp32_ms": fp32_ms,
+               "fwd_bwd_ms": fwd_bwd_ms, "fp32_fwd_bwd_ms": fp32_fwd_bwd_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        for key in totals:
+            totals[key] += row[key]
+        rows_out.append(row)
+        print(json.dumps({"phase": "13a", **row, "card": card}), flush=True)
+        del x, w, b, g, xg, wg, bg, res
+    print(json.dumps({"phase": "13a", "layers": len(rows_out), "sum_over_layers": totals,
+                      "card": card}), flush=True)
+
+    # b. Trainer A in bf16 from build_trainer on --synthetic 16 (B=4): the
+    # hand kernels' launches a step are the float32 step's, the GEMMs 3 a
+    # dense layer less one (SA1's first layer takes no input gradient)
+    counters = kernel_counters()
+    per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
+                "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
+                "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2}
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    tcfg16 = dataclasses.replace(tcfg, compute_dtype="bfloat16")
+    trainer16 = build_trainer(tcfg16, cfg.num_points, K, dev)
+    pipeline = build_pipeline(tcfg, cfg.num_points, K, dev, synthetic=16)
+    gen = epoch_generator(0, 1, dev)
+    for fn in counters.values():
+        fn.launches = 0
+    gemm.launches = 0
+    auxes = [trainer16.train_step(batch, gen) for batch in pipeline.epochs(TB, gen)]
+    torch.cuda.synchronize()
+    train_launches = {name: fn.launches // len(auxes) for name, fn in counters.items()}
+    gemms_per_step = gemm.launches / len(auxes)
+    check(train_launches == per_step and all(
+        fn.launches == per_step[name] * len(auxes) for name, fn in counters.items()),
+        f"bf16 train step launches {train_launches}, expected {per_step}")
+    check(gemms_per_step == 3 * 19 - 1, f"bf16 GEMMs a step {gemms_per_step}, expected 56")
+    totals_loss = [float(a["total"]) for a in auxes]
+    check(len(auxes) >= 4 and all(np.isfinite(totals_loss)), f"bf16 losses {totals_loss}")
+    check(not any(float(a["skipped"]) for a in auxes), "a bf16 train step was skipped")
+    zero = [n for n, p in trainer16.model.named_parameters()
+            if p.grad is None or not bool((p.grad != 0).any())]
+    check(not zero, f"bf16: parameters without a gradient: {zero}")
+    check(all(p.dtype == torch.float32 for p in trainer16.model.parameters()),
+          "bf16 training changed a parameter's dtype")
+
+    batch = pipeline.batch(torch.arange(TB, device=dev), epoch_generator(0, 99, dev))
+    plain_trainer = steps.Trainer(Backbone(dataclasses.replace(
+        trainer16.model.cfg, fps_impl="plain", ballquery_impl="plain", knn_impl="plain",
+        dense_impl="plain")).to(dev), tcfg16)
+    f32_trainer = steps.Trainer(Backbone(dataclasses.replace(
+        trainer16.model.cfg, compute_dtype="float32")).to(dev), tcfg)
+    for tr in (plain_trainer, f32_trainer):
+        tr.load_state_dict(trainer16.state_dict())
+    records = {}
+    for name, tr in (("card", trainer16), ("plain", plain_trainer), ("fp32", f32_trainer)):
+        records[name] = step_record([tr.model], tr.train_step(
+            batch, torch.Generator(dev).manual_seed(7)))
+    lowp_step_check("13b train step", records["card"], records["plain"], records["fp32"])
+    del plain_trainer
+    print(json.dumps({"phase": "13b", "losses": totals_loss,
+                      "launches_per_step": train_launches,
+                      "gemms_per_step": gemms_per_step}), flush=True)
+
+    # ms a step, bf16 beside float32, in turns; device launches a step of each
+    step_ms = {"fp32": [], "bf16": []}
+    for epoch in (2, 3):
+        gen = epoch_generator(0, epoch, dev)
+        for batch in pipeline.epochs(TB, gen):
+            for name, tr in (("fp32", f32_trainer), ("bf16", trainer16), ("bf16", trainer16),
+                             ("fp32", f32_trainer)):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                tr.train_step(batch, gen)
+                end.record()
+                end.synchronize()
+                step_ms[name].append(start.elapsed_time(end))
+    gen = epoch_generator(0, 5, dev)
+    device_launches = {name: launches_per_step(lambda: tr.train_step(batch, gen))
+                       for name, tr in (("fp32", f32_trainer), ("bf16", trainer16))}
+    print(json.dumps({"phase": "13b", "rate": "train step", "batch": TB,
+                      "bf16_ms_per_step": statistics.median(step_ms["bf16"]),
+                      "fp32_ms_per_step": statistics.median(step_ms["fp32"]),
+                      "steps": len(step_ms["bf16"]),
+                      "device_launches_per_step": device_launches,
+                      "added_launches_per_step": device_launches["bf16"]
+                      - device_launches["fp32"], "card": card}), flush=True)
+    if args.profile:
+        for name, tr in (("fp32", f32_trainer), ("bf16", trainer16)):
+            gen = epoch_generator(0, 4, dev)
+            batches = pipeline.epochs(TB, gen)
+            profile_steps(f"{name} train step (13b)", lambda: tr.train_step(next(batches), gen),
+                          card, statistics.median(step_ms[name]))
+    out["train_step"] = train_launches
+    del trainer16, f32_trainer, pipeline
+
+    # the CLI: 2 epochs of --synthetic 8 in bf16, then a resume
+    logdir = os.path.join(root, "bf16_cli")
+    argv = ["--synthetic", "8", "--num_point", str(cfg.num_points), "--K", str(K),
+            "--batch_size", str(TB), "--logdir", logdir, "--compute_dtype", "bfloat16",
+            "--pred_seg", "--pred_normal", "--pred_bb", "--pred_extrusion", "--pred_center"]
+    done = train_pc.cli_main(argv + ["--num_epochs", "2"])
+    resumed = train_pc.cli_main(argv + ["--num_epochs", "3", "--resume"])
+    losses = logged_losses(logdir)
+    check(done.step == 4 and resumed.step == 6 and all(np.isfinite(losses))
+          and resumed.model.fc1.compute_dtype == torch.bfloat16,
+          f"bf16 CLI: steps {done.step}, {resumed.step}, losses {losses}")
+    print(json.dumps({"phase": "13b", "check": "bf16 cli resume",
+                      "steps": [done.step, resumed.step]}), flush=True)
+    del done, resumed
+
+    # c. serving in bf16: buckets (1, 4, 16), requests of 1, 5 and 16
+    # clouds; the raw heads against the all-plain bf16 backbone on the card
+    # and the port's bf16 backbone on the CPU; decompositions per second at
+    # bucket 16 beside the float32 artifact's, in turns
+    per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
+                   "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
+                   "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0}
+    paths = {}
+    for name, c in (("bf16", cfg16), ("fp32", cfg)):
+        paths[name] = os.path.join(root, f"{name}.p2ct")
+        export_artifact(paths[name], state, k=K, backbone_config=c, buckets=(1, 4, 16),
+                        num_sk_points=SK)
+    sess = InferenceSession(paths["bf16"])
+    requests = {n: clouds(200 + n, n, cfg.num_points) for n in (1, 5, 16)}
+    for fn in counters.values():
+        fn.launches = 0
+    gemm.launches = 0
+    served = {n: sess.decompose(p) for n, p in requests.items()}
+    torch.cuda.synchronize()
+    serve_launches = {name: fn.launches for name, fn in counters.items()}
+    check(serve_launches == {k: 3 * v for k, v in per_forward.items()}
+          and gemm.launches == 3 * 19,
+          f"bf16 serving launches {serve_launches}, GEMMs {gemm.launches}")
+    for n, o in served.items():
+        check(o["axes"].shape == (n, K, 3) and bool(np.isfinite(o["centers"]).all())
+              and bool(o["found"].any()), f"bf16 decompose({n})")
+    pts16 = torch.from_numpy(requests[16]).to(dev)
+    plain_model = build_backbone(plain16, state_dict=state, device=dev)
+    cpu_model = build_backbone(cfg16, state_dict=state, device="cpu")
+    with torch.inference_mode():
+        got = _backbone_forward(sess.model, pts16, k=K, num_sk_points=SK)
+        want = _backbone_forward(plain_model, pts16, k=K, num_sk_points=SK)
+        cpu = _backbone_forward(cpu_model, torch.from_numpy(requests[1]), k=K,
+                                num_sk_points=SK)
+        card1 = _backbone_forward(sess.model, torch.from_numpy(requests[1]).to(dev), k=K,
+                                  num_sk_points=SK)
+        f32_model = build_backbone(cfg, state_dict=state, device=dev)
+        f32_heads = _backbone_forward(f32_model, pts16, k=K, num_sk_points=SK)
+    errs = {key: {"plain": float((got[key] - want[key]).abs().max()),
+                  "cpu": float((card1[key].cpu() - cpu[key]).abs().max()),
+                  "vs_fp32": float((got[key] - f32_heads[key]).abs().max())}
+            for key in ("x_raw", "w_raw")}
+    agree = float((got["labels"] == want["labels"]).float().mean())
+    agree_cpu = float((card1["labels"].cpu() == cpu["labels"]).float().mean())
+    print(json.dumps({"phase": "13c", "heads_max_abs_err": errs, "atol": BF16_HEADS_ATOL,
+                      "label_agreement": {"plain": agree, "cpu": agree_cpu}}), flush=True)
+    check(max(max(e["plain"], e["cpu"]) for e in errs.values()) <= BF16_HEADS_ATOL,
+          f"bf16 heads against the all-plain path and the CPU: {errs}")
+    check(agree >= 0.999 and agree_cpu >= 0.999,
+          f"bf16 labels agree on {agree} (plain), {agree_cpu} (CPU) of points")
+    check(min(e["vs_fp32"] for e in errs.values()) > 0, "bf16 heads equal float32 heads")
+    sess32 = InferenceSession(paths["fp32"])
+    rates = {"fp32": [], "bf16": []}
+    for name, s in (("fp32", sess32), ("bf16", sess), ("bf16", sess), ("fp32", sess32)):
+        rates[name].append(s.benchmark(batch=B, iters=20)["decompositions_per_sec"])
+    print(json.dumps({"phase": "13c", "launches": serve_launches, "gemms": 3 * 19,
+                      "bf16_decompositions_per_sec": rates["bf16"],
+                      "fp32_decompositions_per_sec": rates["fp32"], "batch": B,
+                      "card": card}), flush=True)
+    out["serve_requests"] = serve_launches
+    del sess, sess32, plain_model, f32_model, cpu_model
+
+    # d. parallel in bf16, one NCCL rank: the data-parallel step bit-equal
+    # to the one-process step under deterministic algorithms, the P=1
+    # sharded forward bit-equal to Backbone.forward
+    inp = parallel_inputs(cfg, dev, root)
+    jcfg32 = inp["jcfg"]
+    inp = dict(inp, cfg=cfg16, tcfg=tcfg16, jcfg=dataclasses.replace(
+        jcfg32, compute_dtype="bfloat16"))
+    join("file://" + os.path.join(root, "rdv_bf16"), 1, 0, "nccl")
+    try:
+        mesh = make_mesh()
+        batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+        recs = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for name, m in (("single", None), ("single_again", None), ("dp", mesh)):
+                    tr = trainer_from(inp, dev, m)
+                    aux, launches = counted(lambda: tr.train_step(
+                        batch, torch.Generator(dev).manual_seed(7)))
+                    recs[name], recs[name + "_launches"] = step_record([tr.model], aux), launches
+                    del tr
+            finally:
+                torch.use_deterministic_algorithms(False)
+        check(bit_equal_steps(recs["single_again"], recs["single"]),
+              "13d: the one-process bf16 step does not repeat itself bit for bit")
+        check(bit_equal_steps(recs["dp"], recs["single"]),
+              "13d: the world-1 data-parallel bf16 step differs from the one-process step")
+        check(recs["dp_launches"] == recs["single_launches"] == per_step,
+              f"13d: launches {recs['dp_launches']} vs {recs['single_launches']}")
+        model = build_backbone(cfg16, state_dict=inp["serve_state"], device=dev)
+        pts = inp["pts"].to(dev)
+        with torch.inference_mode():
+            want = model(pts)
+        got, sharded_launches = counted(
+            lambda: backbone_apply_point_sharded(mesh, model, cfg16, pts))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "13d: the P=1 sharded bf16 forward differs from Backbone.forward")
+        check(sharded_launches == PER_SHARDED_FORWARD,
+              f"13d: sharded bf16 forward launched {sharded_launches}")
+    finally:
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"phase": "13d", "world": 1, "backend": "nccl",
+                      "dp_step_bit_equal": True, "sharded_forward_bit_equal": True,
+                      "dp_launches": recs["dp_launches"],
+                      "sharded_launches": sharded_launches}), flush=True)
+    out["dp_step"], out["sharded_forward"] = recs["dp_launches"], sharded_launches
+    del model, recs
+
+    # e. one joint step with a bf16 backbone against the all-plain bf16 step
+    def joint_step(name: str) -> dict:
+        """One joint step from phase 12's nets and batch: the backbone in
+        bf16 on the kernels ("card") or all plain ("plain"), or float32."""
+        jcfg = inp["jcfg"] if name != "fp32" else jcfg32
+        nets = train_joint.build_nets(jcfg, cfg.num_points, K, False, False, dev)
+        if name == "plain":
+            nets = (Backbone(dataclasses.replace(
+                nets[0].cfg, fps_impl="plain", ballquery_impl="plain", knn_impl="plain",
+                dense_impl="plain")).to(dev), *nets[1:])
+        for net, st in zip(nets, inp["joint_states"]):
+            net.load_state_dict(st, strict=True)
+        tr = train_joint.JointTrainer(*nets, jcfg, num_sk_points=SK, is_pc_train=True,
+                                      is_im_train=True, with_im_loss=True)
+        aux, launches = counted(lambda: tr.train_step(batch, torch.Generator(dev).manual_seed(7)))
+        check(all(np.isfinite(float(v)) for v in aux.values()), f"13e: {name} joint losses")
+        return {"record": step_record([tr.backbone], aux), "launches": launches}
+
+    jrec = {name: joint_step(name) for name in ("card", "plain", "fp32")}
+    check(jrec["card"]["launches"] == per_step, f"13e: joint launches {jrec['card']['launches']}")
+    lowp_step_check("13e joint step", *(jrec[n]["record"] for n in ("card", "plain", "fp32")))
+    print(json.dumps({"phase": "13e", "launches": jrec["card"]["launches"]}), flush=True)
+    out["joint_step"] = jrec["card"]["launches"]
+    print(json.dumps({"phase": "13", "phase13_s": time.perf_counter() - t_phase}), flush=True)
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -1552,6 +2000,9 @@ def main() -> None:
                         help="run the set-up and phase 12 (the parallel package) alone, "
                         "without the kernel table; 'multi-card' runs only 12c, which "
                         "needs two cards")
+    parser.add_argument("--only-bf16", action="store_true",
+                        help="run the set-up and phase 13 (bf16 compute) alone, without "
+                        "the kernel table")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1587,9 +2038,11 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
           f"kernel build {build_s:.2f} s", flush=True)
     dev = torch.device("cuda")
-    if args.only_parallel:
+    if args.only_parallel or args.only_bf16:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            if args.only_parallel == "multi-card":
+            if args.only_bf16:
+                bf16_phase(args, card, dev, tmp)
+            elif args.only_parallel == "multi-card":
                 two_card_phase(card, dev, tmp, parallel_inputs(full_width_config(8192), dev,
                                                                 tmp))
             else:
@@ -3005,6 +3458,7 @@ def main() -> None:
                                           logdir, joint_dir)
     pack_launches = preprocessing_phase(card, dev, counters, per_step, work.name)
     parallel_launches = parallel_phase(card, dev, work.name)
+    bf16_launches = bf16_phase(args, card, dev, work.name)
     work.cleanup()
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
@@ -3018,6 +3472,7 @@ def main() -> None:
         row["recon_launches"] = recon_launches[kernel]
         row["pack_launches"] = pack_launches[kernel]
         row["parallel_launches"] = {key: val[kernel] for key, val in parallel_launches.items()}
+        row["bf16_launches"] = {key: val[kernel] for key, val in bf16_launches.items()}
         row["joint_launches"] = {"step_pc_train": step_launches[kernel],
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],

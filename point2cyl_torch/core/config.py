@@ -11,6 +11,13 @@ tensor launches the kernel, a CPU tensor takes the plain version),
 PyTorch version on any device). ``approx_neighbors`` is accepted so that
 configs written by the JAX package load, but the port always selects
 neighbours exactly.
+
+``compute_dtype`` is JAX's: ``"float32"``, or ``"bfloat16"`` /
+``"float16"``, in which the backbone's dense layers multiply in that type
+with float32 results (``models/layers.py:Dense``, ``ops/lowp_dense.py``);
+everything else stays float32. ``dense_impl`` picks the low-precision
+product as the neighbour-op switches pick theirs; the JAX config has no
+such field, and a JAX-written config loads without it.
 """
 
 from __future__ import annotations
@@ -33,10 +40,13 @@ EXTRUSION_OPERATIONS = {
 }
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
+
+
 def check_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "float32":
+    if compute_dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            f"the port computes in float32 only (compute_dtype={compute_dtype!r})"
+            f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype!r}"
         )
 
 
@@ -63,9 +73,10 @@ class BackboneConfig:
     fps_impl: str = "auto"
     ballquery_impl: str = "auto"
     bq_oversample: int = 0
+    dense_impl: str = "auto"
 
     def __post_init__(self):
-        for name in ("knn_impl", "fps_impl", "ballquery_impl"):
+        for name in ("knn_impl", "fps_impl", "ballquery_impl", "dense_impl"):
             value = getattr(self, name)
             if value not in IMPLS:
                 raise ValueError(f"{name} must be one of {IMPLS}, got {value!r}")

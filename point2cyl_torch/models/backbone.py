@@ -17,6 +17,13 @@ for a cloud without features above N=1024, the fused SA2 kernel for one
 with features up to N=1024, and otherwise the idx-only kernel with the
 gather in PyTorch.
 
+Compute dtype (``BackboneConfig.compute_dtype``): in bf16 or fp16 every
+dense layer (the shared MLPs, ``fc1``, the heads) multiplies in that type
+with float32 results, as JAX's backbone does; BN, ReLU, the neighbourhood
+max, dropout and the neighbour kernels' inputs stay float32.
+``dense_impl`` picks the product's implementation as the ``*_impl``
+switches above do (``ops/lowp_dense.py``).
+
 Train mode: batch statistics with the momentum passed in, dropout, and
 random FPS starts, both drawn from the caller's ``torch.Generator``
 (FPS starts may also be given).
@@ -61,8 +68,8 @@ class SetAbstraction(PointMLP):
 
     def __init__(self, in_features: int, npoint: int, radius: float, nsample: int,
                  mlp: Sequence[int], fps_impl: str = "auto",
-                 ballquery_impl: str = "auto"):
-        super().__init__(in_features + 3, mlp, conv_rank=4)
+                 ballquery_impl: str = "auto", **dense):
+        super().__init__(in_features + 3, mlp, conv_rank=4, **dense)
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
@@ -95,8 +102,8 @@ class SetAbstraction(PointMLP):
 class GlobalAbstraction(PointMLP):
     """Group-all stage: the whole cloud is one neighbourhood."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int]):
-        super().__init__(in_features + 3, mlp, conv_rank=4)
+    def __init__(self, in_features: int, mlp: Sequence[int], **dense):
+        super().__init__(in_features + 3, mlp, conv_rank=4, **dense)
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor | None,
                 train: bool = False, momentum: float = 0.1):
@@ -108,8 +115,9 @@ class FeaturePropagation(PointMLP):
     """3-NN inverse-distance upsampling + shared MLP; a single source
     point broadcasts instead."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int], knn_impl: str = "auto"):
-        super().__init__(in_features, mlp, conv_rank=3)
+    def __init__(self, in_features: int, mlp: Sequence[int], knn_impl: str = "auto",
+                 **dense):
+        super().__init__(in_features, mlp, conv_rank=3, **dense)
         self.knn_impl = knn_impl
 
     def forward(self, xyz_dst, xyz_src, feats_dst, feats_src, train: bool = False,
@@ -138,25 +146,29 @@ class Backbone(nn.Module):
         if len(c.fp_mlps) != num_sa + 1:
             raise ValueError("need one feature-propagation stage per set "
                              "abstraction plus the group-all stage")
+        # JAX's set: every shared MLP, fc1 and the heads
+        dense = dict(compute_dtype=c.compute_dtype, dense_impl=c.dense_impl)
         feat_widths = [0]  # channels of each pyramid level's features
         for i in range(num_sa):
             sa = SetAbstraction(
                 feat_widths[-1], c.sa_npoints[i], c.sa_radii[i], c.sa_nsamples[i],
                 c.sa_mlps[i], fps_impl=c.fps_impl, ballquery_impl=c.ballquery_impl,
+                **dense,
             )
             self.add_module(f"sa{i + 1}", sa)
             feat_widths.append(c.sa_mlps[i][-1])
         self.add_module(f"sa{num_sa + 1}",
-                        GlobalAbstraction(feat_widths[-1], c.sa_global_mlp))
+                        GlobalAbstraction(feat_widths[-1], c.sa_global_mlp, **dense))
         width_up = c.sa_global_mlp[-1]
         for i, mlp in enumerate(c.fp_mlps):
             fp = FeaturePropagation(feat_widths[-(i + 1)] + width_up, mlp,
-                                    knn_impl=c.knn_impl)
+                                    knn_impl=c.knn_impl, **dense)
             self.add_module(f"fp{num_sa + 1 - i}", fp)
             width_up = mlp[-1]
-        self.fc1 = Dense(width_up, c.fc_width)
+        self.fc1 = Dense(width_up, c.fc_width, 3, c.compute_dtype, c.dense_impl)
         self.bn1 = BatchNorm(c.fc_width)
-        self.fc2 = nn.ModuleList(Dense(c.fc_width, out) for out in c.output_sizes)
+        self.fc2 = nn.ModuleList(Dense(c.fc_width, out, 3, c.compute_dtype, c.dense_impl)
+                                 for out in c.output_sizes)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """Draw every dense layer afresh (PyTorch's conv default) from

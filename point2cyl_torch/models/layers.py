@@ -3,6 +3,11 @@
 The reference's kernel-size-1 convolutions are per-point dense layers; the
 weights keep the reference's conv shapes, (out, in, 1, 1) or (out, in, 1),
 so state_dicts carry the reference key names and shapes.
+
+A dense layer with a low-precision compute dtype (``"bfloat16"`` or
+``"float16"``, JAX's ``TorchDense(dtype=...)``) multiplies in that type
+with a float32 result (``ops/lowp_dense.py``); its parameters, and BN,
+ReLU and everything after, stay float32.
 """
 
 from __future__ import annotations
@@ -13,18 +18,26 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from point2cyl_torch.ops.lowp_dense import dense_lowp, lowp_dtype
 from point2cyl_torch.parallel.collectives import psum
 from point2cyl_torch.parallel.distributed import batch_draw
 
 
 class Dense(nn.Module):
-    """Per-point dense layer with a reference conv-shaped weight."""
+    """Per-point dense layer with a reference conv-shaped weight.
 
-    def __init__(self, in_features: int, out_features: int, conv_rank: int = 3):
+    ``compute_dtype`` and ``impl`` are plain attributes, not state: a
+    low-precision layer loads and saves the float32 layer's state_dict.
+    """
+
+    def __init__(self, in_features: int, out_features: int, conv_rank: int = 3,
+                 compute_dtype: str = "float32", impl: str = "auto"):
         super().__init__()
         shape = (out_features, in_features) + (1,) * (conv_rank - 2)
         self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.empty(out_features))
+        self.compute_dtype = lowp_dtype(compute_dtype)  # None: float32
+        self.impl = impl
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """U(-1/sqrt(fan_in), 1/sqrt(fan_in)), the PyTorch conv default the
@@ -36,7 +49,9 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight.reshape(self.weight.shape[0], self.weight.shape[1])
-        return torch.matmul(x, w.t()) + self.bias
+        if self.compute_dtype is None:
+            return torch.matmul(x, w.t()) + self.bias
+        return dense_lowp(x, w, self.bias, self.compute_dtype, self.impl)
 
 
 class BatchNorm(nn.Module):
@@ -112,13 +127,16 @@ def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.T
 
 class PointMLP(nn.Module):
     """Stack of per-point Dense + BN + ReLU layers, held as the reference
-    names them (``mlp_convs.j``, ``mlp_bns.j``)."""
+    names them (``mlp_convs.j``, ``mlp_bns.j``); the dense layers compute
+    in ``compute_dtype``."""
 
-    def __init__(self, in_features: int, widths: Sequence[int], conv_rank: int = 3):
+    def __init__(self, in_features: int, widths: Sequence[int], conv_rank: int = 3,
+                 compute_dtype: str = "float32", dense_impl: str = "auto"):
         super().__init__()
         dims = [in_features, *widths]
         self.mlp_convs = nn.ModuleList(
-            Dense(dims[i], dims[i + 1], conv_rank) for i in range(len(widths))
+            Dense(dims[i], dims[i + 1], conv_rank, compute_dtype, dense_impl)
+            for i in range(len(widths))
         )
         self.mlp_bns = nn.ModuleList(BatchNorm(w) for w in widths)
 

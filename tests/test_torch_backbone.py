@@ -141,15 +141,25 @@ def test_assemble_heads_matches_jax():
                                    atol=1e-6, rtol=1e-6, err_msg=name)
 
 
-def test_train_mode_not_ported():
-    """Train mode is ported in float32 only: a bf16 compute dtype (JAX's
-    ``compute_dtype``) still raises, for the backbone and the trainer."""
+@pytest.mark.parametrize("dtype,builds", [
+    ("bfloat16", True), ("float16", True), ("float64", False), ("int8", False),
+    ("bf16", False),
+])
+def test_compute_dtypes_build_or_raise(dtype, builds):
+    """JAX's low-precision compute dtypes build a backbone config, a
+    trainer config and a backbone; any other name raises, as
+    ``jnp.dtype`` would not cast it the same way."""
     from point2cyl_torch.core.config import TrainConfig
 
+    if builds:
+        cfg = dataclasses.replace(torch_config(), compute_dtype=dtype)
+        assert TrainConfig(compute_dtype=dtype).compute_dtype == dtype
+        assert TorchBackbone(cfg).fc1.compute_dtype == getattr(torch, dtype)
+        return
     with pytest.raises(NotImplementedError):
-        TorchConfig(compute_dtype="bfloat16")
+        TorchConfig(compute_dtype=dtype)
     with pytest.raises(NotImplementedError):
-        TrainConfig(compute_dtype="bfloat16")
+        TrainConfig(compute_dtype=dtype)
 
 
 def test_config_rejects_unknown_impl():

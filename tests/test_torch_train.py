@@ -141,26 +141,15 @@ def matching_margin(cost: np.ndarray, labels: np.ndarray) -> float:
     return min(gaps)
 
 
-@pytest.mark.parametrize("seed,k,b,n", [
-    pytest.param(1, K, 2, N, id="1"), pytest.param(2, K, 2, N, id="2"),
-    pytest.param(14, 10, 3, 96, id="k10"),
-])
-def test_train_step_loss_grads_and_bn_match_jax(seed, k, b, n, monkeypatch):
-    """One train-mode step from identical weights, batch and FPS starts:
-    the loss and its parts within 1e-5, every parameter's gradient within
-    1e-3 of its own scale plus 1e-5 of the largest (a bias in front of
-    batch-statistics BN has a zero gradient and carries only summation
-    noise; chip_smoke.py holds the card's atomics to 1e-4), and the
-    updated BN running statistics within 1e-5 (absolute and relative; the
-    two sides sum the batch in different orders). At K=10 both sides
-    match through the Jonker-Volgenant solver (B, N = 3, 96). Seed 14 is
-    the first there whose batch has no pair at a radius and whose float32
-    step holds these rules; at the other seeds up to 17 that pass the
-    radius check the gradients part by 1.004-41x the rule or the
-    extrusion term by up to 3.5e-5 (so does K=4 at seed 7 here), and
-    their matching margins, where measured, are under 1e-3 (seed 14's
-    is 2.9e-3)."""
-    cfg = backbone_config(k, n)
+def train_step_pair(seed: int, k: int, b: int, n: int, monkeypatch,
+                    compute_dtype: str = "float32") -> dict:
+    """One train-mode step from identical weights, batch and FPS starts
+    (recorded from JAX's own draw), dropout off: JAX's loss, gradients and
+    updated BN statistics by ``jax.value_and_grad`` of its step's loss
+    function with the backbone in ``compute_dtype``, and the port's by
+    autograd, after checking that both sides' matchings are equal and
+    clear-cut."""
+    cfg = dataclasses.replace(backbone_config(k, n), compute_dtype=compute_dtype)
     model, params, stats = jax_variables(seed, cfg)
     batch = numpy_batch(seed, b, k, n)
     jcfg = TrainConfig(batch_size=2, **LOSS_FLAGS)
@@ -211,22 +200,88 @@ def test_train_step_loss_grads_and_bn_match_jax(seed, k, b, n, monkeypatch):
     matching_j, _ = jax_matching(w_jax, batch_j["extrusion_labels"])
     matching_t, _ = torch_matching(heads.w, batch_t["extrusion_labels"])
     np.testing.assert_array_equal(matching_t.numpy(), np.asarray(matching_j))
-    np.testing.assert_allclose(total.item(), float(loss), rtol=1e-5, atol=1e-5)
+    return {
+        "jax": {"aux": {"total": float(loss), **{n: float(v) for n, v in aux.items()}},
+                "grads": backbone_state_dict_from_jax(grads, stats),
+                "stats": backbone_state_dict_from_jax(params, new_stats)},
+        "port": {"aux": {"total": total.item(), **{n: v.item() for n, v in aux_t.items()}},
+                 "grads": {n: p.grad for n, p in port.named_parameters()},
+                 "stats": dict(port.named_buffers())},
+    }
+
+
+@pytest.mark.parametrize("seed,k,b,n", [
+    pytest.param(1, K, 2, N, id="1"), pytest.param(2, K, 2, N, id="2"),
+    pytest.param(14, 10, 3, 96, id="k10"),
+])
+def test_train_step_loss_grads_and_bn_match_jax(seed, k, b, n, monkeypatch):
+    """One train-mode step from identical weights, batch and FPS starts:
+    the loss and its parts within 1e-5, every parameter's gradient within
+    1e-3 of its own scale plus 1e-5 of the largest (a bias in front of
+    batch-statistics BN has a zero gradient and carries only summation
+    noise; chip_smoke.py holds the card's atomics to 1e-4), and the
+    updated BN running statistics within 1e-5 (absolute and relative; the
+    two sides sum the batch in different orders). At K=10 both sides
+    match through the Jonker-Volgenant solver (B, N = 3, 96). Seed 14 is
+    the first there whose batch has no pair at a radius and whose float32
+    step holds these rules; at the other seeds up to 17 that pass the
+    radius check the gradients part by 1.004-41x the rule or the
+    extrusion term by up to 3.5e-5 (so does K=4 at seed 7 here), and
+    their matching margins, where measured, are under 1e-3 (seed 14's
+    is 2.9e-3)."""
+    pair = train_step_pair(seed, k, b, n, monkeypatch)
+    got, ref = pair["port"], pair["jax"]
+    np.testing.assert_allclose(got["aux"]["total"], ref["aux"]["total"], rtol=1e-5,
+                               atol=1e-5)
     for name in ("normal", "miou", "bb", "extrusion", "center"):
-        np.testing.assert_allclose(aux_t[name].item(), float(aux[name]), atol=1e-5,
+        np.testing.assert_allclose(got["aux"][name], ref["aux"][name], atol=1e-5,
                                    err_msg=name)
 
-    want = backbone_state_dict_from_jax(grads, stats)
+    want = ref["grads"]
     top = max(float(v.abs().max()) for v in want.values())
-    for name, p in port.named_parameters():
-        ref = want[name]
-        scale = float(ref.abs().max())
-        err = float((p.grad - ref).abs().max())
+    for name, grad in got["grads"].items():
+        ref_g = want[name]
+        scale = float(ref_g.abs().max())
+        err = float((grad - ref_g).abs().max())
         assert err <= 1e-3 * scale + 1e-5 * top, (name, err, scale, top)
-    stats_want = backbone_state_dict_from_jax(params, new_stats)
-    for name, buf in port.named_buffers():
-        np.testing.assert_allclose(buf.numpy(), stats_want[name].numpy(), rtol=1e-5,
+    for name, buf in got["stats"].items():
+        np.testing.assert_allclose(buf.numpy(), ref["stats"][name].numpy(), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
+
+
+def test_train_step_bf16_matches_jax(monkeypatch):
+    """The bf16 step (both sides' dense layers in ``compute_dtype=
+    "bfloat16"``, the port's plain version on the CPU) from case "1"'s
+    weights, batch and FPS starts. At this size the bf16 train step is
+    chaotic: a float32 summation order moves a rounding to bf16 by one
+    ulp here and there, and batch-statistics BN over 16-row stages spreads
+    it, so two correct implementations part by bf16 noise (measured: the
+    loss by 3e-3 relative, gradients by up to 24% in L2, seed 2's matching
+    flips). ``tests/test_torch_bf16.py`` holds the rounding points
+    exactly; this test holds the step comparatively: the port's bf16 step
+    is nearer JAX's bf16 step than JAX's own float32 step is, the loss
+    and the BN statistics (largest error) by half, the gradients over all
+    parameters together (relative L2) by half and each parameter's
+    gradient (relative L2, those above 1e-3 of the largest) by any
+    margin."""
+    bf16 = train_step_pair(1, K, 2, N, monkeypatch, "bfloat16")
+    monkeypatch.undo()
+    f32 = train_step_pair(1, K, 2, N, monkeypatch, "float32")
+    got, want, other = bf16["port"], bf16["jax"], f32["jax"]
+    assert (abs(got["aux"]["total"] - want["aux"]["total"])
+            < 0.5 * abs(other["aux"]["total"] - want["aux"]["total"]))
+    stat_err = lambda side: max(float((side["stats"][n] - want["stats"][n]).abs().max())
+                                for n in got["stats"])  # noqa: E731
+    assert stat_err(got) < 0.5 * stat_err(other)
+    top = max(float(g.abs().max()) for g in got["grads"].values())
+    names = [n for n, g in want["grads"].items()
+             if n in got["grads"] and float(g.abs().max()) > 1e-3 * top]
+    flat = lambda side: torch.cat([side["grads"][n].flatten() for n in names])  # noqa: E731
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    assert rel(flat(got), flat(want)) < 0.5 * rel(flat(other), flat(want))
+    for n in names:
+        assert rel(got["grads"][n], want["grads"][n]) < rel(other["grads"][n],
+                                                            want["grads"][n]), n
 
 
 def test_dropout_mask_rate_and_scale():

@@ -5,7 +5,8 @@
 Each rank joins the group at ``file://<rendezvous file>``, reads the
 inputs the test wrote to ``<dir>/inputs.pt``, runs every case of the
 suite (``parallel``: ``tests/test_torch_parallel.py``; ``sharding``:
-``tests/test_torch_point_sharding.py``) and writes what it found to
+``tests/test_torch_point_sharding.py``; ``bf16``:
+``tests/test_torch_bf16.py``) and writes what it found to
 ``<dir>/rank<rank>.pt``. It imports torch and the port only, so the
 ranks start in a second or two; the tests hold the results against the
 one-process port and the JAX package.
@@ -223,6 +224,21 @@ def sharding_suite(mesh, inp: dict) -> dict:
     return out
 
 
+# ---- suite "bf16" -----------------------------------------------------------
+
+
+def bf16_suite(mesh, inp: dict) -> dict:
+    """Trainer A's data-parallel step and the point-sharded forward with
+    the backbone's dense layers in bf16 (``inp["cfg"]``)."""
+    model = backbone(inp["cfg"], inp["state"]).eval()
+    return {"dp_forward": dp_forward_step(mesh, inp),
+            "sharded": backbone_apply_point_sharded(mesh, model, inp["cfg"],
+                                                    local_rows(inp["pts"], mesh))}
+
+
+SUITES = {"parallel": parallel_suite, "sharding": sharding_suite, "bf16": bf16_suite}
+
+
 def main() -> None:
     suite, rank, world, rdv, root = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
         sys.argv[4], sys.argv[5]
@@ -231,8 +247,7 @@ def main() -> None:
     try:
         mesh = make_mesh(devices=["cpu"] * world)
         inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
-        run = parallel_suite if suite == "parallel" else sharding_suite
-        torch.save(run(mesh, inp), os.path.join(root, f"rank{rank}.pt"))
+        torch.save(SUITES[suite](mesh, inp), os.path.join(root, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
 
