@@ -1,12 +1,14 @@
-"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing, parallel package and bf16 compute on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing, parallel package, bf16 compute and captured steps on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # what a check of the port runs
     python3 chip_smoke.py --profile        # also print device-time breakdowns
     python3 chip_smoke.py --only-parallel  # the set-up and phase 12 alone
     python3 chip_smoke.py --only-parallel multi-card  # only 12c (two cards)
     python3 chip_smoke.py --only-bf16      # the set-up and phase 13 alone
+    python3 chip_smoke.py --only-graphs    # the set-up and phase 14 alone
 
-Phases, in order; any failure raises, exits non-zero and prints no result:
+Phases, in order (phase 14 runs first, right after the set-up); any
+failure raises, exits non-zero and prints no result:
 
 1. Set-up: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the build of the kernels from ``point2cyl_torch/csrc``.
@@ -221,13 +223,43 @@ Phases, in order; any failure raises, exits non-zero and prints no result:
    deterministic algorithms, and the P=1 sharded bf16 forward bit-equal
    to ``Backbone.forward``. e. One joint step with a bf16 backbone against
    the all-plain bf16 step, float32 as the yardstick.
+14. Captured steps (``core/graphs.py``: Trainer A's step, each serving
+   bucket and the evaluator's step as CUDA graphs, first call eager,
+   then replays). The earlier phases count the wrappers' launches in the
+   eager first call and the capture of each shape (a replay launches the
+   captured kernels without the wrappers) and time their evaluations
+   eagerly. a. Trainer A at K=8 and K=10, float32 and bf16 (B=4,
+   N=8192): eleven calls (eager, capture, nine more replays) each held
+   against the eager step from the same state and a generator of the
+   same seed (loss 1e-5 relative, gradients by phase 5's rule, BN 1e-5,
+   the generators advanced alike), then three calls of each under
+   deterministic algorithms, bit-equal without resyncing (the replayed
+   draws are the eager ones). b. A batch with NaN normals: the replay
+   keeps every state tensor bit for bit, the next replay matches the
+   eager step. c. Requests of 1, 4, 16 and 37 clouds (three chunks of
+   bucket 16), with and without latents, three times each, and raw heads
+   at 37, bit-equal to an eager session. d. ``evaluate`` on 14a's K=8
+   weights without and with the implicit stack against its eager run
+   (phase 7's and 8's tolerances). e. Trainer A's CLI, 2 epochs and a
+   resume, replaying. f. In turns, captured and eager: ms a train step
+   (each 14a configuration), the device's busy share and the host's
+   kernel and graph launches a step (a trace), decompositions a second at
+   buckets 1, 4 and 16 with and without latents, ms an eval step and
+   clouds a second of ``evaluate`` over 16 batches, each graph pool's
+   GiB and capture ms (the train step's part after b, the buckets' after
+   c). g. ``SetAbstractionMsg`` (npoint 512, radii 0.1/0.2/0.4, nsamples
+   16/32/64, N=1024, B=4): FPS and three idx-only ball queries, eval and
+   train mode against the plain versions, and its ms beside theirs.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
 with latents, ``serve_latents_launches``, in the joint trainer,
 ``joint_launches``, in one reconstruction, ``recon_launches``, over
 the 4 steps trained from the K=8 pack, ``pack_launches``, and in phase
-12, ``parallel_launches``, and in phase 13, ``bf16_launches``); the
+12, ``parallel_launches``, in phase 13, ``bf16_launches``, and inside
+phase 14's replays, ``graph_launches``: the launches counted in a
+graph's capture times its replays, for the K=8 train step, bucket 16 and
+the eval step); the
 last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -241,6 +273,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import faulthandler
 import json
 import os
 import re
@@ -726,12 +759,13 @@ def preprocessing_phase(card: str, dev: torch.device, counters: dict, per_step: 
     pack_launches = {name: fn.launches for name, fn in counters.items()}
     check(trained.step == 4, f"2 epochs of 8 models at B=4 took {trained.step} steps")
     for name, count in pack_launches.items():
-        check(count == per_step[name] * trained.step,
-              f"pack: {name} launched {count} times over {trained.step} steps")
+        check(count == per_step[name] * wrapper_calls(trained.graphs),
+              f"pack: {name} launched {count} times over {trained.step} steps, "
+              f"{wrapper_calls(trained.graphs)} of them eager or captured")
     pc_losses = logged_losses(pc_dir)
     check(pc_losses and all(np.isfinite(pc_losses)), f"pack losses {pc_losses}")
     check(os.path.exists(os.path.join(pc_dir, "model.pth")), "no checkpoint written")
-    print(json.dumps({"train": "Trainer A CLI, K=8 pack", "steps": trained.step,
+    print(json.dumps({"train": "Trainer A CLI, K=8 pack", "steps": int(trained.step),
                       "launches": pack_launches, "loss": pc_losses}), flush=True)
 
     # the pretrainer on the same pack's sketches (no backbone kernel) and the
@@ -1210,7 +1244,8 @@ def trainer_from(inp: dict, dev, mesh=None):
 
     model = build_model(inp["tcfg"], inp["cfg"].num_points, K, dev)
     model.load_state_dict(inp["state"], strict=True)
-    return steps.Trainer(model, inp["tcfg"], mesh)
+    # the one-process step eager, as the data-parallel step runs
+    return steps.Trainer(model, inp["tcfg"], mesh, graph=False)
 
 
 def parallel_rank(rank: int, world: int, url: str, backend: str, root: str) -> None:
@@ -1771,10 +1806,11 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     gemm.launches = 0
     auxes = [trainer16.train_step(batch, gen) for batch in pipeline.epochs(TB, gen)]
     torch.cuda.synchronize()
-    train_launches = {name: fn.launches // len(auxes) for name, fn in counters.items()}
-    gemms_per_step = gemm.launches / len(auxes)
+    traced_steps = wrapper_calls(trainer16.graphs)  # eager or captured
+    train_launches = {name: fn.launches // traced_steps for name, fn in counters.items()}
+    gemms_per_step = gemm.launches / traced_steps
     check(train_launches == per_step and all(
-        fn.launches == per_step[name] * len(auxes) for name, fn in counters.items()),
+        fn.launches == per_step[name] * traced_steps for name, fn in counters.items()),
         f"bf16 train step launches {train_launches}, expected {per_step}")
     check(gemms_per_step == 3 * 19 - 1, f"bf16 GEMMs a step {gemms_per_step}, expected 56")
     totals_loss = [float(a["total"]) for a in auxes]
@@ -1849,7 +1885,7 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
           and resumed.model.fc1.compute_dtype == torch.bfloat16,
           f"bf16 CLI: steps {done.step}, {resumed.step}, losses {losses}")
     print(json.dumps({"phase": "13b", "check": "bf16 cli resume",
-                      "steps": [done.step, resumed.step]}), flush=True)
+                      "steps": [int(done.step), int(resumed.step)]}), flush=True)
     del done, resumed
 
     # c. serving in bf16: buckets (1, 4, 16), requests of 1, 5 and 16
@@ -1990,6 +2026,441 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     return out
 
 
+# ---- phase 14: captured steps -------------------------------------------------
+
+GRAPH_REPLAYS = 10  # replays of each Trainer A configuration held against eager steps
+
+
+def wrapper_calls(graphs) -> int:
+    """Calls of a captured step that ran the kernels' wrappers, so counted
+    their launches: each shape's eager first call and its capture. A
+    replay launches the captured kernels and no wrapper."""
+    return graphs.eager_calls + graphs.captures
+
+
+def state_tensors(trainer) -> dict:
+    """Every tensor of Trainer A's state: the model's parameters and
+    buffers, Adam's moments, the step count."""
+    out = dict(trainer.model.state_dict())
+    for i, st in enumerate(trainer.optimizer.state.values()):
+        out[f"exp_avg.{i}"] = st["exp_avg"]
+        out[f"exp_avg_sq.{i}"] = st["exp_avg_sq"]
+    out["step"] = trainer.step
+    return out
+
+
+def counts_now() -> dict:
+    return {name: c.launches for name, c in kernel_counters().items()}
+
+
+def step_errors(got_aux: dict, want_aux: dict, got, want) -> dict:
+    """A step of ``got`` (Trainer) against the same step of ``want`` from
+    the same state and draws: the loss (relative), the gradients by phase
+    5's rule (over its tolerance) and the BN statistics (absolute)."""
+    loss = abs(float(got_aux["total"]) - float(want_aux["total"])) / max(
+        abs(float(want_aux["total"])), 1e-30)
+    grads = grad_rule_ratio({n: p.grad for n, p in got.model.named_parameters()},
+                            {n: p.grad for n, p in want.model.named_parameters()})
+    bn = max(float((a - b).abs().max()) for a, b in zip(got.model.buffers(),
+                                                         want.model.buffers()))
+    return {"loss_rel": loss, "grad_over_rule": grads[0], "grad_worst": grads[1],
+            "bn_abs": bn, "skipped": [float(got_aux["skipped"]), float(want_aux["skipped"])]}
+
+
+def hold_step(label: str, err: dict) -> None:
+    check(err["loss_rel"] <= 1e-5, f"{label}: loss differs by {err['loss_rel']} (relative)")
+    check(err["grad_over_rule"] <= 1.0,
+          f"{label}: gradient of {err['grad_worst']} at {err['grad_over_rule']} x the rule")
+    check(err["bn_abs"] <= 1e-5, f"{label}: BN statistics differ by {err['bn_abs']}")
+    check(err["skipped"][0] == err["skipped"][1], f"{label}: skipped {err['skipped']}")
+
+
+def host_launches(prof) -> dict:
+    """The host's launch calls in a trace: kernel launches
+    (``cudaLaunchKernel*``, ``cuLaunch*``) and graph launches."""
+    counts = {"kernels": 0, "graphs": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        if "GraphLaunch" in e.key:
+            counts["graphs"] += e.count
+        elif "LaunchKernel" in e.key or e.key.startswith("cuLaunch"):
+            counts["kernels"] += e.count
+    return counts
+
+
+def traced_calls(fn, calls: int = 3) -> dict:
+    """Per call of ``fn`` over ``calls`` traced calls: the device's time
+    (kernels and copies, ms), its operations, and the host's kernel and
+    graph launches."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    launches = host_launches(prof)
+    return {"device_ms": sum(e.self_device_time_total for e in on_card) / 1e3 / calls,
+            "device_ops": sum(e.count for e in on_card) / calls,
+            "host_kernel_launches": launches["kernels"] / calls,
+            "host_graph_launches": launches["graphs"] / calls}
+
+
+def in_turns(fns: dict, rounds: int) -> dict:
+    """Median ms of a call of each of ``fns`` (the host's clock around a
+    call that ends in a synchronise), called in turns a, b, b, a."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for _ in range(rounds):
+        for name in names + names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def graphs_phase(args, card: str, dev, root: str) -> dict:
+    """Phase 14: Trainer A's step, the serving buckets and the evaluator's
+    step as captured CUDA graphs against their eager steps, and
+    ``SetAbstractionMsg`` on the card. Returns each hand kernel's
+    launches inside replays, by captured step."""
+    import warnings
+
+    from point2cyl_torch.core.config import EvalConfig, TrainConfig
+    from point2cyl_torch.data.pipeline import InputPipeline
+    from point2cyl_torch.data.synthetic import generate_dataset
+    from point2cyl_torch.eval import evaluator
+    from point2cyl_torch.models.backbone import SetAbstractionMsg, build_backbone
+    from point2cyl_torch.models.implicit import ImplicitNet, PointNetEncoder
+    from point2cyl_torch.serve.export import export_artifact
+    from point2cyl_torch.serve.session import InferenceSession
+    from point2cyl_torch.train import steps, train_pc
+    from point2cyl_torch.train.train_pc import build_model, build_pipeline
+
+    t_phase = time.perf_counter()
+    memory_at_start = {"allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                       "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    cfg = full_width_config(8192)
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    served = ("fps", "ball_query_grouped", "sa_grouped_exact", "three_nn")
+    trained = served + ("sa_grouped_backward", "three_nn_backward")
+    graph_launches = {}
+
+    # a. Trainer A: the captured step (first call eager, then replays)
+    # against the eager step from the same state and seed, each step; then
+    # both under deterministic algorithms, bit for bit without resyncing
+    for c in kernel_counters().values():
+        c.launches = 0
+    pairs, batches, captured = {}, {}, {}
+    for k, dtype in ((8, "float32"), (10, "float32"), (8, "bfloat16"), (10, "bfloat16")):
+        kcfg = dataclasses.replace(tcfg, compute_dtype=dtype)
+        graph_tr = steps.Trainer(build_model(kcfg, cfg.num_points, k, dev), kcfg)
+        eager_tr = steps.Trainer(build_model(kcfg, cfg.num_points, k, dev), kcfg,
+                                 graph=False)
+        if k not in batches:
+            pipe = build_pipeline(kcfg, cfg.num_points, k, dev, synthetic=16)
+            gen = torch.Generator(dev).manual_seed(k)
+            batches[k] = [pipe.batch(torch.arange(i * TB, (i + 1) * TB, device=dev) % 16,
+                                     gen) for i in range(GRAPH_REPLAYS + 1)]
+        worst = {"loss_rel": 0.0, "grad_over_rule": 0.0, "bn_abs": 0.0}
+        for i, batch in enumerate(batches[k]):
+            eager_tr.load_state_dict(graph_tr.state_dict())
+            g_graph = torch.Generator(dev).manual_seed(1000 + i)
+            g_eager = torch.Generator(dev).manual_seed(1000 + i)
+            before = counts_now()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = graph_tr.train_step(batch, g_graph)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+            if i == 1:  # the capture: the wrappers run once, inside it
+                after = counts_now()
+                captured[(k, dtype)] = {name: after[name] - before[name] for name in after}
+                capture_ms = call_ms
+            want = eager_tr.train_step(batch, g_eager)
+            check(torch.equal(g_graph.get_state(), g_eager.get_state()),
+                  f"14a K={k} {dtype} step {i}: the generators advanced differently")
+            err = step_errors(got, want, graph_tr, eager_tr)
+            hold_step(f"14a K={k} {dtype} step {i}", err)
+            for key in worst:
+                worst[key] = max(worst[key], err[key])
+        g = graph_tr.graphs
+        check(g.eager_calls == 1 and g.captures == 1 and g.replays == GRAPH_REPLAYS,
+              f"14a K={k} {dtype}: {g.eager_calls} eager, {g.captures} captures, "
+              f"{g.replays} replays")
+        check(all(captured[(k, dtype)][name] >= 1 for name in trained),
+              f"14a K={k} {dtype}: the capture launched {captured[(k, dtype)]}")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                det_g = steps.Trainer(build_model(kcfg, cfg.num_points, k, dev), kcfg)
+                det_e = steps.Trainer(build_model(kcfg, cfg.num_points, k, dev), kcfg,
+                                      graph=False)
+                bit_equal = []
+                for i in range(3):
+                    a = det_g.train_step(batches[k][i], torch.Generator(dev).manual_seed(7 + i))
+                    b = det_e.train_step(batches[k][i], torch.Generator(dev).manual_seed(7 + i))
+                    sa, sb = state_tensors(det_g), state_tensors(det_e)
+                    bit_equal.append(all(torch.equal(a[n], b[n]) for n in a)
+                                     and all(torch.equal(sa[n], sb[n]) for n in sa))
+                check(det_g.graphs.replays == 2 and all(bit_equal),
+                      f"14a K={k} {dtype}: deterministic replays vs eager steps bit-equal "
+                      f"{bit_equal} (eager, capture, replay)")
+                del det_g, det_e
+            finally:
+                torch.use_deterministic_algorithms(False)
+        pairs[(k, dtype)] = (graph_tr, eager_tr)
+        print(json.dumps({"phase": "14a", "K": k, "compute_dtype": dtype,
+                          "replays": g.replays, "worst": worst,
+                          "capture_call_ms": capture_ms,
+                          "deterministic_bit_equal": bit_equal,
+                          "wrapper_launches_in_capture": captured[(k, dtype)]}),
+              flush=True)
+    main_path = counts_now()
+    check(all(main_path[name] > 0 for name in trained),
+          f"14a: the captured steps' run launched {main_path}")
+
+    # b. a non-finite batch (NaN normals, which the forward never reads):
+    # the replay keeps every state tensor bit for bit, and the next replay
+    # matches the eager step
+    graph_tr, eager_tr = pairs[(8, "float32")]
+    before = {n: v.clone() for n, v in state_tensors(graph_tr).items()}
+    bad = dict(batches[8][0], normals=torch.full_like(batches[8][0]["normals"], float("nan")))
+    aux = graph_tr.train_step(bad, torch.Generator(dev).manual_seed(3000))
+    kept = all(torch.equal(v, before[n]) for n, v in state_tensors(graph_tr).items())
+    check(float(aux["skipped"]) == 1.0 and kept and graph_tr.graphs.captures == 1,
+          f"14b: skipped {float(aux['skipped'])}, state kept {kept}")
+    eager_tr.load_state_dict(graph_tr.state_dict())
+    err = step_errors(graph_tr.train_step(batches[8][1], torch.Generator(dev).manual_seed(3001)),
+                      eager_tr.train_step(batches[8][1], torch.Generator(dev).manual_seed(3001)),
+                      graph_tr, eager_tr)
+    hold_step("14b next replay", err)
+    print(json.dumps({"phase": "14b", "skipped": 1.0, "state_bit_equal": kept,
+                      "next_replay": err}), flush=True)
+
+    # f (the train step's part). In turns, captured against eager: ms a
+    # step of each configuration, the device's busy share and the host's
+    # kernel and graph launches a step (a trace), the graph pool's GiB
+    for (k, dtype), (g_tr, e_tr) in pairs.items():
+        batch, gen = batches[k][2], torch.Generator(dev).manual_seed(4000)
+        ms = in_turns({"graph": lambda: g_tr.train_step(batch, gen),
+                       "eager": lambda: e_tr.train_step(batch, gen)}, 5)
+        row = {"graph_ms": ms["graph"], "eager_ms": ms["eager"],
+               "pool_gib": g_tr.graphs.captured_bytes / 2**30}
+        if dtype == "float32":
+            for name, tr in (("graph", g_tr), ("eager", e_tr)):
+                tr_calls = traced_calls(lambda: tr.train_step(batch, gen))
+                row[name] = {**tr_calls, "busy_share": tr_calls["device_ms"] / ms[name]}
+        print(json.dumps({"phase": "14f", "rate": "train step", "K": k,
+                          "compute_dtype": dtype, "batch": TB, "num_points": cfg.num_points,
+                          **row, "card": card}), flush=True)
+    graph_launches["train_step"] = {name: count * graph_tr.graphs.replays
+                                    for name, count in captured[(8, "float32")].items()}
+    state = graph_tr.model.state_dict()
+    del pairs, graph_tr, eager_tr, g_tr, e_tr, tr
+
+    # c. serving: buckets 1, 4 and 16 and a 37-cloud request (three chunks
+    # of bucket 16) with and without latents, each request three times
+    # (eager, capture, replay) against the eager session, bit for bit
+    enc = PointNetEncoder(256, 2, with_normals=True)
+    enc.reset_parameters(torch.Generator().manual_seed(14))
+    arts = {"geometry": os.path.join(root, "g14_geo.p2ct"),
+            "latents": os.path.join(root, "g14_lat.p2ct")}
+    export_artifact(arts["geometry"], state, k=K, backbone_config=cfg, buckets=(1, 4, 16),
+                    num_sk_points=SK)
+    export_artifact(arts["latents"], state, k=K, backbone_config=cfg, buckets=(1, 4, 16),
+                    num_sk_points=SK, encoder_state_dict=enc.state_dict())
+    requests = {n: clouds(140 + n, n, cfg.num_points) for n in (1, 4, 16, 37)}
+    sessions = {}
+    for c in kernel_counters().values():
+        c.launches = 0
+    for kind, path in arts.items():
+        sess, eager = InferenceSession(path), InferenceSession(path, graph=False)
+        sessions[kind] = (sess, eager)
+        for n, pts in requests.items():
+            want = eager.decompose(pts)
+            for call in ("eager", "capture", "replay"):
+                got = sess.decompose(pts)
+                same = all(np.array_equal(got[key], want[key]) for key in want)
+                check(same, f"14c {kind}: decompose({n}) {call} differs from the eager "
+                      "session")
+        raw = sess.predict(requests[37], assemble=False)
+        raw = sess.predict(requests[37], assemble=False)
+        want = eager.predict(requests[37], assemble=False)
+        check(all(np.array_equal(raw[key], want[key]) for key in want),
+              f"14c {kind}: predict(37) raw heads differ from the eager session")
+        g = sess._graphs[0]
+        check(g.captures == 4 and g.replays > 0, f"14c {kind}: {g.captures} captures")
+    serve_counts = counts_now()
+    check(all(serve_counts[name] > 0 for name in served),
+          f"14c: the captured requests launched {serve_counts}")
+    print(json.dumps({"phase": "14c", "requests": list(requests), "bit_equal": True,
+                      "with_latents": [False, True], "launches": serve_counts}), flush=True)
+
+    # f (the buckets' part). In turns, captured against eager:
+    # decompositions a second at buckets 1, 4 and 16 with and without
+    # latents, the device's busy share and the host's launches at bucket
+    # 16 (a trace), each session's graph pool GiB and the capture's ms
+    sess16 = InferenceSession(arts["geometry"])  # bucket 16 only: its replays are bucket 16's
+    sess16.decompose(requests[16])
+    before = counts_now()
+    t0 = time.perf_counter()
+    sess16.decompose(requests[16])  # the capture
+    serve_capture_ms = (time.perf_counter() - t0) * 1e3
+    after = counts_now()
+    serve_captured = {name: after[name] - before[name] for name in after}
+    for kind, (sess, eager) in sessions.items():
+        for b in (1, 4, 16):
+            pts = clouds(150 + b, b, cfg.num_points)
+            graph_sess = sess16 if (kind, b) == ("geometry", 16) else sess
+            ms = in_turns({"graph": lambda: graph_sess.decompose(pts),
+                           "eager": lambda: eager.decompose(pts)}, 5)
+            row = {"graph_decompositions_per_s": b * 1e3 / ms["graph"],
+                   **({"capture_call_ms": serve_capture_ms} if graph_sess is sess16 else {}),
+                   "eager_decompositions_per_s": b * 1e3 / ms["eager"],
+                   "graph_ms": ms["graph"], "eager_ms": ms["eager"]}
+            if b == 16:
+                for name, s in (("graph", graph_sess), ("eager", eager)):
+                    s_calls = traced_calls(lambda: s.decompose(pts))
+                    row[name] = {**s_calls, "busy_share": s_calls["device_ms"] / ms[name]}
+            print(json.dumps({"phase": "14f", "rate": "decompose", "artifact": kind,
+                              "bucket": b, **row, "card": card}), flush=True)
+        print(json.dumps({"phase": "14f", "artifact": kind, "pool_gib":
+                          sess._graphs[0].captured_bytes / 2**30}), flush=True)
+    graph_launches["serve_bucket16"] = {name: count * sess16._graphs[0].replays
+                                        for name, count in serve_captured.items()}
+    del sessions, sess, eager, sess16, graph_sess, s
+
+    # d. evaluate() on 14a's K=8 weights, captured against eager, without
+    # and with the implicit stack
+    eval_model = build_backbone(cfg, state_dict=state, device=dev)
+    pipe = InputPipeline(generate_dataset(16, resolution=cfg.num_points, max_instances=K,
+                                          num_sketch_points=SK, seed=2), cfg.num_points, K,
+                         dev)
+    eval_batches = list(pipe.epochs(TB, torch.Generator(dev).manual_seed(0),
+                                    shuffle=False))
+    implicit = ImplicitNet(d_in=258)
+    implicit.reset_parameters(torch.Generator().manual_seed(15))
+    encoder = PointNetEncoder(256, 2, with_normals=True)
+    encoder.reset_parameters(torch.Generator().manual_seed(16))
+    implicit, encoder = implicit.to(dev), encoder.to(dev)
+    quiet = lambda msg: None  # noqa: E731
+    eval_cfg = EvalConfig(num_sketch_samples=SK)
+    eval_errs = {}
+    for mode, stack in (("no_implicit", {}), ("implicit",
+                                              {"implicit": implicit, "encoder": encoder})):
+        got = evaluator.evaluate(eval_model, eval_batches, eval_cfg, TB, log=quiet, **stack)
+        want = evaluator.evaluate(eval_model, eval_batches, eval_cfg, TB, log=quiet,
+                                  graph=False, **stack)
+        eval_errs[mode] = {name: abs(got[name] - want[name]) for name in want}
+        tol = {**EVAL_ATOL, **(EVAL_FIT_ATOL if stack else {})}
+        for name, atol in tol.items():
+            check(eval_errs[mode][name] <= atol, f"14d {mode}: {name} captured "
+                  f"{got[name]} vs eager {want[name]}, tolerance {atol}")
+    print(json.dumps({"phase": "14d", "batches": len(eval_batches), "abs_err": eval_errs}),
+          flush=True)
+
+    # e. Trainer A's CLI on the captured path: 2 epochs, then a resume
+    logdir = os.path.join(root, "g14_cli")
+    argv = ["--synthetic", "8", "--num_point", str(cfg.num_points), "--K", str(K),
+            "--batch_size", str(TB), "--logdir", logdir, "--pred_seg", "--pred_normal",
+            "--pred_bb", "--pred_extrusion", "--pred_center"]
+    done = train_pc.cli_main(argv + ["--num_epochs", "2"])
+    resumed = train_pc.cli_main(argv + ["--num_epochs", "3", "--resume"])
+    losses = logged_losses(logdir)
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    check(int(done.step) == 4 and int(resumed.step) == 6 and "epoch 2, step 4" in log
+          and done.graphs.replays == 3 and resumed.graphs.captures == 1
+          and losses and all(np.isfinite(losses)),
+          f"14e: steps {int(done.step)}, {int(resumed.step)}, replays "
+          f"{done.graphs.replays}, losses {losses}")
+    print(json.dumps({"phase": "14e", "steps": [int(done.step), int(resumed.step)],
+                      "replays": [done.graphs.replays, resumed.graphs.replays],
+                      "losses": losses}), flush=True)
+    del done, resumed
+
+    # f (the eval step's part; the train step's and the buckets' follow b
+    # and c). In turns, captured against eager: ms an eval step, the
+    # device's busy share and the host's launches a step (a trace),
+    # clouds a second of evaluate() over 16 batches, the graph pool's GiB
+    eval_rows = {}
+    for mode, stack in (("no_implicit", {}), ("implicit",
+                                              {"implicit": implicit, "encoder": encoder})):
+        step_g = evaluator.make_eval_step(eval_model, eval_cfg, SK, **stack)
+        step_e = evaluator.make_eval_step(eval_model, eval_cfg, SK, graph=False, **stack)
+        gen = torch.Generator(dev).manual_seed(0)
+        step_g(eval_batches[0], gen)
+        before = counts_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_g(eval_batches[0], gen)  # the capture
+        torch.cuda.synchronize()
+        eval_capture_ms = (time.perf_counter() - t0) * 1e3
+        after = counts_now()
+        ms = in_turns({"graph": lambda: step_g(eval_batches[0], gen),
+                       "eager": lambda: step_e(eval_batches[0], gen)}, 5)
+        sweep = in_turns({
+            "graph": lambda: evaluator.evaluate(eval_model, eval_batches * 4, eval_cfg, TB,
+                                                log=quiet, **stack),
+            "eager": lambda: evaluator.evaluate(eval_model, eval_batches * 4, eval_cfg, TB,
+                                                log=quiet, graph=False, **stack)}, 1)
+        row = {"graph_step_ms": ms["graph"], "eager_step_ms": ms["eager"],
+               "graph_clouds_per_s": 16 * TB * 1e3 / sweep["graph"],
+               "eager_clouds_per_s": 16 * TB * 1e3 / sweep["eager"],
+               "pool_gib": step_g.graphs.captured_bytes / 2**30,
+               "capture_call_ms": eval_capture_ms}
+        for name, step in (("graph", step_g), ("eager", step_e)):
+            s_calls = traced_calls(lambda: step(eval_batches[0], gen))
+            row[name] = {**s_calls, "busy_share": s_calls["device_ms"] / ms[name]}
+        if mode == "no_implicit":
+            graph_launches["eval_step"] = {name: (after[name] - before[name])
+                                           * step_g.graphs.replays for name in after}
+        eval_rows[mode] = row
+        print(json.dumps({"phase": "14f", "rate": "eval", "mode": mode, "batch": TB,
+                          "num_points": cfg.num_points, "sweep_clouds": 16 * TB, **row,
+                          "card": card}), flush=True)
+
+    # g. SetAbstractionMsg at the reference classifier's first stage
+    # (npoint 512, radii 0.1/0.2/0.4, nsamples 16/32/64) on a 1024-point
+    # cloud, B=4: the FPS and idx-only ball-query kernels against the
+    # plain versions, eval and train mode
+    msg_args = (0, 512, (0.1, 0.2, 0.4), (16, 32, 64), ((32, 32, 64), (64, 64, 128),
+                                                         (64, 96, 128)))
+    msg = SetAbstractionMsg(*msg_args)
+    msg.reset_parameters(torch.Generator().manual_seed(17))
+    plain_msg = SetAbstractionMsg(*msg_args, fps_impl="plain", ballquery_impl="plain")
+    plain_msg.load_state_dict(msg.state_dict())
+    msg, plain_msg = msg.to(dev), plain_msg.to(dev)
+    xyz = torch.from_numpy(clouds(18, TB, 1024)).to(dev)
+    start = torch.tensor([3, 100, 500, 1023], device=dev)
+    with torch.inference_mode():
+        (got_xyz, got), launched = counted(lambda: msg(xyz, None))
+        want_xyz, want = plain_msg(xyz, None)
+        (tr_xyz, tr_f) = msg(xyz, None, train=True, momentum=0.5, start=start)
+        (ptr_xyz, ptr_f) = plain_msg(xyz, None, train=True, momentum=0.5, start=start)
+        msg_ms = time_ms(lambda: msg(xyz, None))
+        plain_ms = time_ms(lambda: plain_msg(xyz, None))
+    msg_err = max(float((got - want).abs().max()), float((tr_f - ptr_f).abs().max()))
+    check(torch.equal(got_xyz, want_xyz) and torch.equal(tr_xyz, ptr_xyz)
+          and msg_err <= 1e-5 and got.shape == (TB, 512, 64 + 128 + 128),
+          f"14g: MSG centres equal {torch.equal(got_xyz, want_xyz)}, features {msg_err}")
+    check(launched["fps"] == 1 and launched["ball_query"] == 3
+          and sum(launched.values()) == 4, f"14g: MSG launched {launched}")
+    print(json.dumps({"phase": "14g", "msg": "B=4 N=1024 npoint 512", "max_abs_err": msg_err,
+                      "launches": launched, "ms": msg_ms, "plain_ms": plain_ms,
+                      "card": card}), flush=True)
+    print(json.dumps({"phase": "14", "phase14_s": time.perf_counter() - t_phase,
+                      "memory_at_start": memory_at_start}), flush=True)
+    return graph_launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2003,7 +2474,11 @@ def main() -> None:
     parser.add_argument("--only-bf16", action="store_true",
                         help="run the set-up and phase 13 (bf16 compute) alone, without "
                         "the kernel table")
+    parser.add_argument("--only-graphs", action="store_true",
+                        help="run the set-up and phase 14 (captured steps) alone, without "
+                        "the kernel table")
     args = parser.parse_args()
+    faulthandler.enable()  # a crash in native code prints the Python stack
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2038,9 +2513,11 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
           f"kernel build {build_s:.2f} s", flush=True)
     dev = torch.device("cuda")
-    if args.only_parallel or args.only_bf16:
+    if args.only_parallel or args.only_bf16 or args.only_graphs:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            if args.only_bf16:
+            if args.only_graphs:
+                graphs_phase(args, card, dev, tmp)
+            elif args.only_bf16:
                 bf16_phase(args, card, dev, tmp)
             elif args.only_parallel == "multi-card":
                 two_card_phase(card, dev, tmp, parallel_inputs(full_width_config(8192), dev,
@@ -2052,6 +2529,12 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+
+    # phase 14 first: its traces of graph replays take the profiler
+    # before any other phase has used it (below, after phases 11-13's
+    # traces, the first traced replay crashed in the profiler)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        graph_launches = graphs_phase(args, card, dev, tmp)
 
     cfg = full_width_config(8192)
     plain_cfg = dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
@@ -2828,11 +3311,15 @@ def main() -> None:
         fn.launches = 0
     auxes = [trainer.train_step(batch, gen) for batch in pipeline.epochs(TB, gen)]
     torch.cuda.synchronize()
+    # the wrappers count their launches in the eager first step and the
+    # capture; the replays launch the captured kernels
+    traced_steps = wrapper_calls(trainer.graphs)
     train_launches = {name: fn.launches for name, fn in counters.items()}
     for name, count in train_launches.items():
-        check(count == per_step[name] * len(auxes),
+        check(count == per_step[name] * traced_steps,
               f"{name} launched {count} times over {len(auxes)} train steps, "
-              f"expected {per_step[name] * len(auxes)}")
+              f"{traced_steps} of them eager or captured, expected "
+              f"{per_step[name] * traced_steps}")
     totals = [float(a["total"]) for a in auxes]
     check(len(auxes) >= 4 and all(np.isfinite(totals)), f"train losses {totals}")
     check(not any(float(a["skipped"]) for a in auxes), "a train step was skipped")
@@ -2840,7 +3327,7 @@ def main() -> None:
                  if p.grad is None or not bool((p.grad != 0).any())]
     check(not zero_grad, f"parameters without a gradient: {zero_grad}")
     print(json.dumps({"train": "full width", "steps": len(auxes), "loss": totals,
-                      "launches": train_launches,
+                      "launches": train_launches, "replays": trainer.graphs.replays,
                       "parameters_with_gradient": sum(
                           1 for _ in trainer.model.parameters())}), flush=True)
 
@@ -2907,7 +3394,7 @@ def main() -> None:
     check("epoch 2, step 4" in log and "> Epoch 0003 done" in log
           and "> Epoch 0001 done" in log.split("Resumed from")[0],
           "the resumed run did not continue at epoch 3, step 4")
-    print(json.dumps({"check": "cli resume", "steps": [done.step, resumed.step]}),
+    print(json.dumps({"check": "cli resume", "steps": [int(done.step), int(resumed.step)]}),
           flush=True)
     del done, resumed
 
@@ -2924,8 +3411,9 @@ def main() -> None:
     torch.cuda.synchronize()
     launches_512 = {name: fn.launches for name, fn in counters.items()}
     for name, count in launches_512.items():
-        check(count == per_step_512[name] * len(aux512),
-              f"N=512: {name} launched {count} times over {len(aux512)} steps")
+        check(count == per_step_512[name] * wrapper_calls(small.graphs),
+              f"N=512: {name} launched {count} times over {len(aux512)} steps, "
+              f"{wrapper_calls(small.graphs)} of them eager or captured")
     totals512 = [float(a["total"]) for a in aux512]
     check(all(np.isfinite(totals512)), f"N=512 losses {totals512}")
     print(json.dumps({"train": "N=512 B=8", "steps": len(aux512), "loss": totals512,
@@ -2981,9 +3469,10 @@ def main() -> None:
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        evaluator.evaluate(eval_model, eval_batches, eval_cfg, TB, log=quiet)
+        evaluator.evaluate(eval_model, eval_batches, eval_cfg, TB, log=quiet, graph=False)
         eval_s.append(time.perf_counter() - t0)
-    step = evaluator.make_eval_step(eval_model, eval_cfg, SK)
+    # eager, as before captured steps (phase 14 times the captured step)
+    step = evaluator.make_eval_step(eval_model, eval_cfg, SK, graph=False)
     gen = torch.Generator(dev).manual_seed(0)
     step_eval_ms = time_ms(lambda: step(eval_batches[0], gen))
     print(json.dumps({"rate": "evaluate", "batch": TB, "num_points": cfg.num_points,
@@ -3005,7 +3494,7 @@ def main() -> None:
                                    "--logdir", logdir512])
     torch.cuda.synchronize()
     eval_launches_512 = {name: fn.launches for name, fn in counters.items()}
-    batches512 = 32 // 8
+    batches512 = min(32 // 8, 2)  # the eager first batch and the capture
     for name, count in eval_launches_512.items():
         check(count == per_eval_512[name] * batches512,
               f"eval N=512: {name} launched {count} times over {batches512} batches")
@@ -3183,15 +3672,17 @@ def main() -> None:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluator.evaluate(eval_model, eval_batches, cfg8, TB, log=quiet,
-                           implicit=implicit8, encoder=encoder8)
+                           implicit=implicit8, encoder=encoder8, graph=False)
         eval8_s.append(time.perf_counter() - t0)
+    # eager, as before captured steps (phase 14 times the captured step)
     gen = torch.Generator(dev).manual_seed(0)
     step8_ms = {}
     for mode, (cfg_m, implicit_m, encoder_m) in stacks.items():
-        step_m = evaluator.make_eval_step(eval_model, cfg_m, SK, implicit_m, encoder_m)
+        step_m = evaluator.make_eval_step(eval_model, cfg_m, SK, implicit_m, encoder_m,
+                                          graph=False)
         step8_ms[mode] = time_ms(lambda: step_m(eval_batches[0], gen), runs=10)
     torch.cuda.reset_peak_memory_stats()
-    step8 = evaluator.make_eval_step(eval_model, cfg8, SK, implicit8, encoder8)
+    step8 = evaluator.make_eval_step(eval_model, cfg8, SK, implicit8, encoder8, graph=False)
     step8(eval_batches[0], gen)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -3454,6 +3945,7 @@ def main() -> None:
           and bool(np.isfinite(lat_out).all()), f"joint artifact latents {lat_out.shape}")
     print(json.dumps({"eval": "the joint logdir, implicit stack", "clouds": 8, **means9,
                       "export_latents": list(lat_out.shape)}), flush=True)
+    del sess, small  # their graph pools
     recon_launches = reconstruction_phase(args, card, dev, counters, per_forward, work.name,
                                           logdir, joint_dir)
     pack_launches = preprocessing_phase(card, dev, counters, per_step, work.name)
@@ -3473,6 +3965,7 @@ def main() -> None:
         row["pack_launches"] = pack_launches[kernel]
         row["parallel_launches"] = {key: val[kernel] for key, val in parallel_launches.items()}
         row["bf16_launches"] = {key: val[kernel] for key, val in bf16_launches.items()}
+        row["graph_launches"] = {key: val[kernel] for key, val in graph_launches.items()}
         row["joint_launches"] = {"step_pc_train": step_launches[kernel],
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],

@@ -40,6 +40,7 @@ from point2cyl_torch.core.checkpoint import (CheckpointManager, restore_backbone
                                              restore_implicit_stack)
 from point2cyl_torch.core.config import BackboneConfig, EvalConfig
 from point2cyl_torch.core.device import resolve_device
+from point2cyl_torch.core.graphs import StepGraphs
 from point2cyl_torch.data.h5_io import load_h5
 from point2cyl_torch.data.pipeline import InputPipeline
 from point2cyl_torch.data.synthetic import generate_dataset
@@ -72,7 +73,8 @@ def encoder_for(cfg: EvalConfig, latent: int = 256) -> PointNetEncoder:
 
 def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int,
                    implicit: ImplicitNet | None = None,
-                   encoder: PointNetEncoder | None = None) -> Callable:
+                   encoder: PointNetEncoder | None = None,
+                   graph: bool = True) -> Callable:
     """The per-batch evaluation: ``step(batch, generator)`` returns the
     per-cloud metrics (miou, normal_error_deg, bb_accuracy,
     axis_error_deg, centroid_difference), the labels (pred_labels with
@@ -86,6 +88,12 @@ def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int,
     latents' sketch samples, the per-cylinder fitting samples and the
     global fitting samples. ``None`` takes the deterministic segment draw
     and needs ``cfg.add_noise`` off.
+
+    On the card the step runs as a captured CUDA graph per batch shape
+    (``core/graphs.py``), the counterpart of JAX's jitted eval step: the
+    first call on a shape runs eagerly, the second captures, later ones
+    replay. A replay's outputs are the graph's buffers, valid until the
+    step's next call. ``graph=False`` runs every call eagerly.
     """
     if (implicit is None) != (encoder is None):
         raise ValueError("the fitting metrics need both implicit and encoder")
@@ -98,13 +106,20 @@ def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int,
         if module is not None:
             module.eval()
 
-    @torch.no_grad()
+    graphs = StepGraphs(next(model.parameters()).device, enabled=graph)
+    names = ("point_cloud", "normals", "extrusion_labels", "base_barrel_labels",
+             "extrusion_axes", "extrusion_centers")
+
     def eval_step(batch: dict, generator: torch.Generator | None = None) -> dict:
+        if cfg.add_noise and generator is None:
+            raise ValueError("add_noise draws from a generator; pass one")
+        return graphs(body, {name: batch[name] for name in names}, generator)
+
+    @torch.no_grad()
+    def body(batch: dict, generator: torch.Generator | None) -> dict:
         pts = batch["point_cloud"]
         if cfg.add_noise:
             # reference eval.py:239-240: inputs moved along the GT normals
-            if generator is None:
-                raise ValueError("add_noise draws from a generator; pass one")
             pts = add_noise(generator, pts, batch["normals"], sigma=cfg.noise_sigma)
         i_gt = batch["extrusion_labels"]
         gt_bb = batch["base_barrel_labels"]
@@ -185,6 +200,7 @@ def make_eval_step(model: Backbone, cfg: EvalConfig, num_sk_points: int,
         out["latents"] = latents
         return out
 
+    eval_step.graphs = graphs
     return eval_step
 
 
@@ -198,6 +214,7 @@ def evaluate(
     implicit: ImplicitNet | None = None,
     encoder: PointNetEncoder | None = None,
     visu_dir: str | None = None,
+    graph: bool = True,
 ) -> dict[str, float]:
     """The metric sweep; returns the metric means (``eval.py:697-722``),
     with ``implicit`` and ``encoder`` also the fitting metrics'. With
@@ -209,7 +226,10 @@ def evaluate(
     ``batch_size``, or any iterable of batch dicts on the model's device.
     Every draw (subsamples, noise, extents) comes from one generator
     seeded with ``seed``. The per-batch sums stay on the device until the
-    sweep ends, so the loop never waits for the card.
+    sweep ends, so the loop never waits for the card. On the card each
+    batch shape's step is captured (:func:`make_eval_step`), and each
+    batch's sums and visualisation are taken from the step's outputs
+    before the next call; ``graph=False`` runs the steps eagerly.
     """
     dev = next(model.parameters()).device
     writer = None
@@ -217,7 +237,7 @@ def evaluate(
         if implicit is not None:
             plots.require_matplotlib()
         writer = RenderScriptWriter(visu_dir)
-    step = make_eval_step(model, cfg, cfg.num_sketch_samples, implicit, encoder)
+    step = make_eval_step(model, cfg, cfg.num_sketch_samples, implicit, encoder, graph)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if isinstance(batches, InputPipeline):
         batches = batches.epochs(batch_size, gen, shuffle=False)

@@ -99,6 +99,66 @@ class SetAbstraction(PointMLP):
         return new_xyz, self.mlp(grouped, train, momentum).amax(dim=2)
 
 
+class SetAbstractionMsg(nn.Module):
+    """Multi-scale grouping (the port of JAX ``models/backbone.py:132-183``;
+    reference ``pointnet_util.py:210-267``, which the reference backbone
+    imports but does not use, nor does :class:`Backbone`): one FPS centre
+    set, then for each (radius, nsample, mlp) branch the idx-only ball
+    query, the gather of ``[features | centred xyz]`` (features first,
+    the reverse of the single-scale stage's order, as the reference and
+    JAX have it), a shared MLP and the max over the neighbours; the
+    branches' features concatenate. The layers are held as the reference
+    names them (``conv_blocks.i.j``, ``bn_blocks.i.j``). ``fps_impl`` and
+    ``ballquery_impl`` pick the kernels as :class:`SetAbstraction`'s do;
+    on the card a shape without a ball-query launch plan raises."""
+
+    def __init__(self, in_features: int, npoint: int, radius_list: Sequence[float],
+                 nsample_list: Sequence[int], mlp_list: Sequence[Sequence[int]],
+                 fps_impl: str = "auto", ballquery_impl: str = "auto",
+                 compute_dtype: str = "float32", dense_impl: str = "auto"):
+        super().__init__()
+        if not len(radius_list) == len(nsample_list) == len(mlp_list):
+            raise ValueError("one radius, nsample and mlp per branch")
+        self.npoint = npoint
+        self.radius_list = tuple(radius_list)
+        self.nsample_list = tuple(nsample_list)
+        self.fps_impl = fps_impl
+        self.ballquery_impl = ballquery_impl
+        self.conv_blocks = nn.ModuleList()
+        self.bn_blocks = nn.ModuleList()
+        for mlp in mlp_list:
+            dims = [in_features + 3, *mlp]
+            self.conv_blocks.append(nn.ModuleList(
+                Dense(dims[j], dims[j + 1], 4, compute_dtype, dense_impl)
+                for j in range(len(mlp))))
+            self.bn_blocks.append(nn.ModuleList(BatchNorm(w) for w in mlp))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Draw every dense layer afresh from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, Dense):
+                m.reset_parameters(generator)
+
+    def forward(self, xyz: torch.Tensor, feats: torch.Tensor | None,
+                train: bool = False, momentum: float | torch.Tensor = 0.1,
+                start: int | torch.Tensor = 0):
+        fps = _pick(self.fps_impl, cuda_fps.farthest_point_sample,
+                    cuda_fps.farthest_point_sample_plain)
+        query = _pick(self.ballquery_impl, cuda_ballquery.ball_query, ball_query_plain)
+        new_xyz = index_points(xyz, fps(xyz, self.npoint, start))
+        branches = []
+        for radius, nsample, convs, bns in zip(self.radius_list, self.nsample_list,
+                                               self.conv_blocks, self.bn_blocks):
+            idx = query(radius, nsample, xyz, new_xyz)
+            grouped = index_points(xyz, idx) - new_xyz[:, :, None, :]
+            if feats is not None:
+                grouped = torch.cat([index_points(feats, idx), grouped], dim=-1)
+            for conv, bn in zip(convs, bns):
+                grouped = torch.relu(bn(conv(grouped), train, momentum))
+            branches.append(grouped.amax(dim=2))
+        return new_xyz, torch.cat(branches, dim=-1)
+
+
 class GlobalAbstraction(PointMLP):
     """Group-all stage: the whole cloud is one neighbourhood."""
 

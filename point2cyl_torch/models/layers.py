@@ -63,7 +63,9 @@ class BatchNorm(nn.Module):
     batch variance, summed in two passes with the per-row partial sums
     first, and updates the running statistics in place as ``running =
     (1 - m) * running + m * batch`` with the unbiased variance; the
-    momentum ``m`` comes with each call (the staircase schedule).
+    momentum ``m`` comes with each call (the staircase schedule), as a
+    float or as a 0-dim tensor on the device (Trainer A's step, which
+    computes it from its step count on the card).
 
     With a ``group`` (a ``parallel.mesh.Mesh``, set by
     ``parallel.mesh.use_global_batch_norm``) the train-mode statistics
@@ -90,7 +92,7 @@ class BatchNorm(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                momentum: float = 0.1) -> torch.Tensor:
+                momentum: float | torch.Tensor = 0.1) -> torch.Tensor:
         if not train:
             y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
             return y * self.weight + self.bias

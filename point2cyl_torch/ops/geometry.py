@@ -81,7 +81,7 @@ def rotation_to_z_reference(axis: torch.Tensor, tol: float = ZERO_TOL) -> torch.
     Args: axis (..., 3) unit vectors. Returns (..., 3, 3) matrices to
     apply as q = M p (the transpose folded in).
     """
-    z = torch.tensor([0.0, 0.0, 1.0], dtype=axis.dtype, device=axis.device)
+    z = torch.eye(3, dtype=axis.dtype, device=axis.device)[2]
     theta = torch.arccos(torch.clamp(axis[..., 2], -1.0, 1.0))
     v = torch.linalg.cross(axis, z.expand_as(axis)) * theta[..., None]  # |v| = theta sin(theta)
     theta2 = (v * v).sum(-1)

@@ -60,7 +60,7 @@ def smallest_eigenvector_sym3x3(a: torch.Tensor, eps: float = 1e-20) -> torch.Te
     v = torch.gather(m, -1, best[..., None, None].expand(*m.shape[:-1], 1))[..., 0]
     n2 = (v * v).sum(-1, keepdim=True)
     v_unit = v * torch.rsqrt(torch.clamp(n2, min=eps))
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=a.dtype, device=a.device)
+    fallback = torch.eye(3, dtype=a.dtype, device=a.device)[2]
     return torch.where(n2 > eps, v_unit, fallback.expand_as(v_unit))
 
 

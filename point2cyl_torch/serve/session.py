@@ -13,6 +13,16 @@ device and deals the chunks out round-robin, as the JAX session does
 dispatched before any result is fetched, so chunks on different cards
 overlap, and the cursor persists across requests, so a stream of
 one-chunk requests spreads over every device.
+
+On the card each (replica, bucket, decompose, fetched keys) runs as a
+captured CUDA graph (``core/graphs.py``), the counterpart of the JAX
+session's one jitted program per bucket with the output selection jitted
+in: the first chunk of a kind runs eagerly, the second captures, later
+ones replay. A replay's outputs are the graph's own buffers, so each
+chunk's selected outputs are copied to pinned host memory on the
+replica's stream right after its replay, before the next chunk can
+overwrite them, and the request waits for the copies once at its end.
+``graph=False`` runs every chunk eagerly.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from point2cyl_torch.core.config import BackboneConfig
 from point2cyl_torch.core.device import resolve_device
+from point2cyl_torch.core.graphs import StepGraphs
 from point2cyl_torch.models.backbone import build_backbone
 from point2cyl_torch.models.implicit import PointNetEncoder
 from point2cyl_torch.serve.export import (
@@ -46,9 +57,11 @@ class InferenceSession:
 
     def __init__(self, artifact: str | LoadedArtifact,
                  device: str | torch.device | None = None,
-                 devices: list[str | torch.device] | None = None):
+                 devices: list[str | torch.device] | None = None,
+                 graph: bool = True):
         """``device``: default the card; ``"cpu"`` only on request.
-        ``devices``: serve over these instead, one replica each."""
+        ``devices``: serve over these instead, one replica each.
+        ``graph=False``: run every chunk eagerly on the card too."""
         if devices is not None and device is not None:
             raise ValueError("pass device= or devices=, not both")
         self.devices = ([resolve_device(d) for d in devices] if devices
@@ -76,6 +89,7 @@ class InferenceSession:
                 enc.load_state_dict(art.encoder_weights, strict=True)
                 self._encoders[i] = enc.to(d).eval()
         self.model, self.encoder = self._models[0], self._encoders[0]
+        self._graphs = [StepGraphs(d, enabled=graph) for d in self.devices]
         self._buckets = sorted(int(b) for b in self.meta["buckets"])
         self._next_dev = 0  # the round-robin cursor, kept across requests
         self.stats = {"requests": 0, "clouds": 0, "padded": 0}
@@ -90,15 +104,30 @@ class InferenceSession:
                 return b
         return self._buckets[-1]
 
+    def _forward(self, d: int, keys: tuple[str, ...], decompose: bool):
+        """Replica ``d``'s step for one chunk: the outputs in ``keys``."""
+        meta = self.meta
+
+        def step(inputs: dict, _generator) -> dict[str, torch.Tensor]:
+            out = _backbone_forward(
+                self._models[d], inputs["points"], k=int(meta["k"]),
+                pred_seg=bool(meta["pred_seg"]), pred_bb=bool(meta["pred_bb"]),
+                num_sk_points=meta["num_sk_points"] if decompose else None,
+                encoder=self._encoders[d] if decompose else None,
+            )
+            return {key: out[key] for key in keys}
+
+        return step
+
     def _run_raw(self, pts: np.ndarray, keys: tuple[str, ...],
                  decompose: bool = False) -> dict[str, np.ndarray]:
         """Run one request of any batch size; fetch ``keys`` to the host."""
         n = pts.shape[0]
         if pts.shape[1:] != (self.num_points, 3):
             raise ValueError(f"expected (n, {self.num_points}, 3), got {pts.shape}")
-        meta = self.meta
         max_b = self._buckets[-1]
-        pending = []  # each chunk's selected outputs, still on its device
+        fetched = []  # each chunk's selected outputs, on the host once copied
+        used = set()
         i = 0
         with torch.inference_mode():
             while i < n:
@@ -111,19 +140,19 @@ class InferenceSession:
                     self.stats["padded"] += b - take
                 d = self._next_dev
                 self._next_dev = (d + 1) % len(self.devices)
+                used.add(d)
                 x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.devices[d])
-                out = _backbone_forward(
-                    self._models[d], x, k=int(meta["k"]),
-                    pred_seg=bool(meta["pred_seg"]), pred_bb=bool(meta["pred_bb"]),
-                    num_sk_points=meta["num_sk_points"] if decompose else None,
-                    encoder=self._encoders[d] if decompose else None,
-                )
-                pending.append({key: out[key][:take] for key in keys})
+                out = self._graphs[d](self._forward(d, keys, decompose), {"points": x},
+                                      static=(decompose, keys))
+                fetched.append({key: _to_host(out[key][:take]) for key in keys})
                 i += take
-            chunks = [{key: val.cpu().numpy() for key, val in c.items()} for c in pending]
+            for d in used:
+                if self.devices[d].type == "cuda":
+                    torch.cuda.synchronize(self.devices[d])
         self.stats["requests"] += 1
         self.stats["clouds"] += n
-        return {key: np.concatenate([c[key] for c in chunks], axis=0) for key in keys}
+        return {key: np.concatenate([c[key].numpy() for c in fetched], axis=0)
+                for key in keys}
 
     def predict(self, points: Any, assemble: bool = True) -> dict:
         """Per-point heads for a batch of clouds: raw (``x_raw``, ``w_raw``)
@@ -178,13 +207,15 @@ class InferenceSession:
     def benchmark(self, batch: int | None = None, iters: int = 20) -> dict:
         """Steady-state decompositions per second through :meth:`decompose`
         (host arrays in and out, transfers included) at one batch size,
-        timed with CUDA events after one warm-up request."""
+        timed with CUDA events after two warm-up requests (the eager first
+        request of the bucket and its capture)."""
         if self.device.type != "cuda":
             raise RuntimeError("benchmark times the card with CUDA events; the "
                                "session is not on a CUDA device")
         b = batch or self._buckets[-1]
         pts = np.random.default_rng(0).standard_normal(
             (b, self.num_points, 3), dtype=np.float32)
+        self.decompose(pts)
         self.decompose(pts)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -197,3 +228,13 @@ class InferenceSession:
         return {"batch": b, "iters": iters, "ms_per_request": ms,
                 "decompositions_per_sec": b * 1000.0 / ms,
                 "device": torch.cuda.get_device_name(self.device)}
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: from the card copied into pinned memory,
+    enqueued on the current stream without waiting (the caller
+    synchronises before reading); a CPU tensor as it is."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)

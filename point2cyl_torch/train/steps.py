@@ -5,10 +5,21 @@ One step: optional normal-direction noise, a train-mode forward (batch
 statistics, dropout, random FPS starts), the heads, the proxy losses
 (Hungarian matching, relaxed mIoU, normal, base/barrel CE, closed-form
 axis and centre), backpropagation through the kernels' autograd
-Functions, an Adam step on the staircase learning rate, and the
-non-finite guard, which keeps the whole previous state (parameters, BN
-statistics, Adam's moments and count, step) when the loss or a gradient
-is not finite (JAX ``steps.py:242-256``).
+Functions, optax's Adam on the staircase learning rate, and the
+non-finite guard (JAX ``steps.py:190-257``).
+
+The step is one program, as JAX's jitted step is: the step count lives on
+the device, the learning rate and the BN momentum are computed from it
+there, and the guard is a device-side select. ``ok`` (the loss and every
+gradient finite) picks, for the parameters, Adam's moments, the BN
+statistics and the step count alike, the new value or the old one, so a
+non-finite step keeps the whole previous state and nothing reads a value
+back to the host. On the card the step runs as a captured CUDA graph
+(``core/graphs.py``) after its first call on each batch shape;
+``graph=False`` runs it eagerly every time. The gradients live in one
+flat buffer (each parameter's ``grad`` a view of it) that the step
+zeroes and the backward accumulates into, so every graph and the eager
+step share them.
 
 Data parallel (a ``parallel.mesh.Mesh``): each rank runs the step on its
 rows of the global batch, with BN statistics over the global batch
@@ -18,7 +29,8 @@ backward one all-reduce averages the gradients and the loss scalars over
 the ranks (:func:`mean_over_ranks`), and the guard decides on the
 averaged values, so every rank applies or skips the same update. The
 losses are per-sample means, so with equal shards the mean of the ranks'
-means is the global batch's, and the step is the one-process step.
+means is the global batch's, and the step is the one-process step. A
+data-parallel step runs eagerly: its collectives are not captured.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ from typing import Iterable, NamedTuple, Sequence
 import torch
 
 from point2cyl_torch.core.config import TrainConfig
+from point2cyl_torch.core.graphs import StepGraphs
 from point2cyl_torch.core.schedules import staircase_bn_momentum, staircase_lr
 from point2cyl_torch.losses.aggregate import base_barrel_ce_loss, compute_all_losses
 from point2cyl_torch.losses.normal import normal_loss
@@ -157,30 +170,66 @@ def proxy_losses_and_matching(
     return total, aux, out.matching, out.mask
 
 
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax's adam defaults
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter],
                    cfg: TrainConfig) -> torch.optim.Adam:
-    """Adam as optax's ``adam``: b1 0.9, b2 0.999, eps 1e-8 outside the
-    square root, bias correction. The learning rate is set before each
-    update from the staircase on the update count."""
-    return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(0.9, 0.999),
-                            eps=1e-8)
+    """``torch.optim.Adam`` with optax's ``adam`` settings: b1 0.9, b2
+    0.999, eps 1e-8 outside the square root, bias correction. Trainer A
+    keeps its state in this optimizer's layout (its checkpoint format)
+    and updates with :func:`adam_select`."""
+    return torch.optim.Adam(params, lr=cfg.learning_rate, betas=(ADAM_B1, ADAM_B2),
+                            eps=ADAM_EPS)
 
 
-def apply_update(optimizer: torch.optim.Adam, cfg: TrainConfig, step: int) -> None:
-    """One Adam update at the staircase learning rate of update ``step``
-    (optax's schedule reads its count before incrementing it)."""
-    lr = staircase_lr(step, cfg.batch_size, cfg.learning_rate, cfg.decay_step,
-                      cfg.decay_rate)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
+AUX_KEYS = ("total", "normal", "miou", "bb", "extrusion", "center", "skipped")
+
+
+@torch.no_grad()
+def adam_select(params: Sequence[torch.Tensor], grad: torch.Tensor,
+                moments: torch.Tensor, step: torch.Tensor, lr: torch.Tensor,
+                ok: torch.Tensor) -> None:
+    """optax's ``adam`` update of ``params`` in place from the flat
+    gradient ``grad`` (n,) and the flat moments ``moments`` (2, n), kept
+    where ``ok`` (a 0-dim bool) is False: each of the parameters and the
+    moments is ``where(ok, new, old)``, never arithmetic with the mask,
+    since a NaN times 0 is NaN. ``step`` is the count of updates before
+    this one (bias correction takes ``step + 1``), ``lr`` the learning
+    rate, both 0-dim tensors on the device."""
+    count = (step + 1).to(torch.float32)
+    m, v = moments[0], moments[1]
+    m_new = (1.0 - ADAM_B1) * grad + ADAM_B1 * m
+    v_new = (1.0 - ADAM_B2) * (grad * grad) + ADAM_B2 * v
+    m_hat = m_new / (1.0 - torch.pow(ADAM_B1, count))
+    v_hat = v_new / (1.0 - torch.pow(ADAM_B2, count))
+    flat = torch.cat([p.reshape(-1) for p in params])
+    flat_new = flat + (m_hat / (torch.sqrt(v_hat) + ADAM_EPS)) * -lr
+    moments.copy_(torch.where(ok, torch.stack([m_new, v_new]), moments))
+    torch._foreach_copy_(list(params), _views(torch.where(ok, flat_new, flat), params))
+
+
+def _views(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``flat`` cut into views shaped as the tensors of ``like``."""
+    return [chunk.view_as(t) for chunk, t in
+            zip(flat.split([t.numel() for t in like]), like)]
 
 
 class Trainer:
-    """Trainer A's state (model, Adam, step) and its step; with a ``mesh``
-    the data-parallel step (the model is replicated from rank 0)."""
+    """Trainer A's state (model, Adam's moments, step count) and its step;
+    with a ``mesh`` the data-parallel step (the model is replicated from
+    rank 0).
 
-    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, mesh=None):
+    ``step`` is a 0-dim int64 tensor on the model's device: the updates
+    applied (a skipped step does not count). ``optimizer`` is a
+    ``torch.optim.Adam`` that holds the state in its layout (each
+    parameter's ``exp_avg``, ``exp_avg_sq`` and ``step``), so checkpoints
+    keep torch's format; the update itself is :func:`adam_select`.
+    ``graph=False`` runs every step eagerly on the card too.
+    """
+
+    def __init__(self, model: torch.nn.Module, cfg: TrainConfig, mesh=None,
+                 graph: bool = True):
         self.model = model
         self.cfg = cfg
         self.mesh = mesh
@@ -188,27 +237,51 @@ class Trainer:
             use_global_batch_norm(model, mesh)
             replicate(mesh, model)
         self.optimizer = make_optimizer(model.parameters(), cfg)
-        self.step = 0  # updates applied; skipped steps do not count
-        # the BN statistics as they were before the step's forward, for the
-        # guard; allocated once, refilled by one foreach copy a step
-        self._stats = [b.detach().clone() for b in model.buffers()]
+        self._params = list(model.parameters())
+        self._buffers = list(model.buffers())
+        dev = self._params[0].device
+        n = sum(p.numel() for p in self._params)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self._grad = torch.zeros(n, device=dev)
+        self._moments = torch.zeros(2, n, device=dev)
+        self._grads = _views(self._grad, self._params)
+        for p, m, v in zip(self._params, _views(self._moments[0], self._params),
+                           _views(self._moments[1], self._params)):
+            self.optimizer.state[p] = {"step": self.step, "exp_avg": m, "exp_avg_sq": v}
+        # captured steps need one program over the whole step; the
+        # data-parallel step's collectives stay eager
+        self.graphs = StepGraphs(dev, enabled=graph and mesh is None)
 
     def train_step(self, batch: dict, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """One optimizer step on ``batch``; every draw (noise, FPS starts,
         dropout) comes from ``generator``. Returns the loss scalars on the
-        device and ``skipped`` (1.0 when the guard kept the old state).
-        The gradients stay on the parameters until the next step."""
+        device and ``skipped`` (1.0 when the guard kept the old state),
+        fresh tensors at every call. The gradients stay on the parameters
+        until the next step."""
+        if self.mesh is not None:
+            rows = batch["point_cloud"].shape[0]
+            vals = self._step(batch, step_generator(self.mesh, generator, rows))
+        else:
+            vals = self.graphs(self._step, batch, generator).clone()
+        return dict(zip(AUX_KEYS, vals.unbind()))
+
+    def _step(self, batch: dict, generator) -> torch.Tensor:
+        """The step's body, with no host read: the loss scalars stacked in
+        ``AUX_KEYS`` order."""
         cfg = self.cfg
         momentum = staircase_bn_momentum(self.step, cfg.batch_size, cfg.bn_decay_step,
                                          cfg.bn_init_momentum, cfg.bn_decay_rate,
                                          cfg.bn_momentum_clip)
         pts = batch["point_cloud"]
-        generator = step_generator(self.mesh, generator, pts.shape[0])
         if cfg.add_noise:
             pts = add_noise(generator, pts, batch["normals"], cfg.noise_sigma)
             batch = dict(batch, point_cloud=pts)
-        torch._foreach_copy_(self._stats, list(self.model.buffers()))
-        self.optimizer.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            stats = torch.cat([b.reshape(-1) for b in self._buffers])
+        for p, g in zip(self._params, self._grads):
+            if p.grad is not g:  # set to None (zero_grad) by a caller
+                p.grad = g
+        self._grad.zero_()
         x_raw, w_raw = self.model(pts, train=True, bn_momentum=momentum,
                                   generator=generator)
         heads = assemble_heads(x_raw, w_raw, cfg.pred_seg, cfg.pred_bb,
@@ -216,25 +289,48 @@ class Trainer:
         total, aux = proxy_losses(heads, batch, cfg)
         total.backward()
         aux = mean_over_ranks(self.mesh, [self.model], aux)
-        skipped = not guard_finite(aux["total"], [self.model], self._stats)
-        if not skipped:
-            apply_update(self.optimizer, cfg, self.step)
-            self.step += 1
-        aux["skipped"] = total.new_tensor(float(skipped))
-        return aux
+        with torch.no_grad():
+            ok = torch.isfinite(aux["total"]) & torch.isfinite(self._grad).all()
+            lr = staircase_lr(self.step, cfg.batch_size, cfg.learning_rate,
+                              cfg.decay_step, cfg.decay_rate)
+            adam_select(self._params, self._grad, self._moments, self.step, lr, ok)
+            now = torch.cat([b.reshape(-1) for b in self._buffers])
+            torch._foreach_copy_(self._buffers, _views(torch.where(ok, now, stats),
+                                                       self._buffers))
+            self.step.copy_(torch.where(ok, self.step + 1, self.step))
+        aux["skipped"] = 1.0 - ok.to(total.dtype)
+        return torch.stack([aux[key] for key in AUX_KEYS])
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(), "step": self.step}
+        """Model, Adam (torch's ``Adam.state_dict`` layout, each
+        parameter's ``step`` a CPU float32 count) and ``step`` as an int.
+        One host read."""
+        step = int(self.step)
+        opt = self.optimizer.state_dict()
+        opt["state"] = {i: dict(st, step=torch.tensor(float(step)))
+                        for i, st in opt["state"].items()}
+        return {"model": self.model.state_dict(), "optimizer": opt, "step": step}
 
     def load_state_dict(self, state: dict) -> None:
+        """Write ``state`` into the trainer's tensors in place, so that
+        captured steps keep reading them. A parameter without Adam state
+        (a checkpoint from before its first update) gets zero moments."""
         self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
-        self.step = int(state["step"])
+        saved = state["optimizer"]["state"]
+        with torch.no_grad():
+            for i, (m, v) in enumerate(zip(_views(self._moments[0], self._params),
+                                           _views(self._moments[1], self._params))):
+                if i in saved:
+                    m.copy_(saved[i]["exp_avg"])
+                    v.copy_(saved[i]["exp_avg_sq"])
+                else:
+                    m.zero_()
+                    v.zero_()
+            self.step.fill_(int(state["step"]))
 
 
 def step_generator(mesh, generator, rows: int):

@@ -135,7 +135,7 @@ def train(
         best_loss = float(state["best_loss"])
         start_epoch = done + 1
         logger.log(f"Resumed from {ckpt.path('model')}: epoch {done}, "
-                   f"step {trainer.step}, best {best_loss:.4f}")
+                   f"step {int(trainer.step)}, best {best_loss:.4f}")
 
     for epoch in range(start_epoch, cfg.num_epochs + 1):
         t0 = time.time()

@@ -955,10 +955,10 @@ def test_kernel_launchers_reject_cpu_tensors(launch, monkeypatch):
 def test_port_imports_no_jax():
     """Importing every point2cyl_torch module (preprocessing, the HDF5
     writer, the assignment solver, profiling, the five modules of
-    ``parallel/`` and the low-precision dense layer among them) pulls in no
-    JAX, flax or point2cyl_tpu, and neither scikit-learn nor h5py (the
-    card's machine has neither) nor matplotlib (imported only where a
-    plot is drawn)."""
+    ``parallel/``, the low-precision dense layer and the captured steps'
+    helper among them) pulls in no JAX, flax or point2cyl_tpu, and
+    neither scikit-learn nor h5py (the card's machine has neither) nor
+    matplotlib (imported only where a plot is drawn)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import point2cyl_torch\n"
@@ -970,7 +970,7 @@ def test_port_imports_no_jax():
         "new = ['point2cyl_torch.' + m for m in ('data.preprocess', 'data.h5_writer', "
         "'ops.lap', 'core.profiling', 'parallel.mesh', 'parallel.distributed', "
         "'parallel.collectives', 'parallel.point_sharding', 'parallel.sharded_backbone', "
-        "'ops.lowp_dense')]\n"
+        "'ops.lowp_dense', 'core.graphs')]\n"
         "assert all(m in sys.modules for m in new), new\n"
         "print(len([m for m in sys.modules if m.startswith('point2cyl_torch')]))\n"
         "assert not bad, bad\n"
@@ -978,4 +978,4 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 66
+    assert int(res.stdout.split()[-1]) >= 67

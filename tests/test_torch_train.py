@@ -299,11 +299,10 @@ def test_dropout_mask_rate_and_scale():
 
 def test_adam_step_matches_optax():
     """Three updates across a staircase boundary: the port's Adam (the
-    Trainer's ``apply_update``) equals optax's adam on the same schedule
-    within float32 rounding."""
+    Trainer's ``adam_select`` at the learning rate computed on the device
+    from the step count) equals optax's adam on the same schedule within
+    float32 rounding."""
     jcfg = TrainConfig(batch_size=2, learning_rate=1e-2, decay_step=4, decay_rate=0.5)
-    tcfg = TorchTrainConfig(batch_size=2, learning_rate=1e-2, decay_step=4,
-                            decay_rate=0.5)
     rng = np.random.default_rng(3)
     init = {"a": rng.normal(size=(5, 3)).astype(np.float32),
             "b": rng.normal(size=(7,)).astype(np.float32)}
@@ -312,17 +311,18 @@ def test_adam_step_matches_optax():
     tx = jsteps.make_optimizer(jcfg)
     jp = {k: jnp.asarray(v) for k, v in init.items()}
     state = tx.init(jp)
-    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in init.items()}
-    opt = tsteps.make_optimizer(tp.values(), tcfg)
-    for step, g in enumerate(grads):
+    tp = [torch.from_numpy(v.copy()) for v in init.values()]
+    moments = torch.zeros(2, sum(t.numel() for t in tp))
+    step = torch.zeros((), dtype=torch.int64)
+    for g in grads:
         updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
         jp = jax.tree_util.tree_map(lambda p, u: p + u, jp, updates)
-        for k, p in tp.items():
-            p.grad = torch.from_numpy(g[k])
-        tsteps.apply_update(opt, tcfg, step)
-    for k in init:
-        np.testing.assert_allclose(tp[k].detach().numpy(), np.asarray(jp[k]),
-                                   rtol=1e-6, atol=1e-6)
+        flat = torch.cat([torch.from_numpy(g[k]).reshape(-1) for k in init])
+        tsteps.adam_select(tp, flat, moments, step, staircase_lr(step, 2, 1e-2, 4, 0.5),
+                           torch.tensor(True))
+        step += 1
+    for t, k in zip(tp, init):
+        np.testing.assert_allclose(t.numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("step", [0, 1, 49_999, 50_000, 100_000, 1_000_000])
@@ -337,27 +337,54 @@ def test_schedules_match_jax(step):
 
 def test_guard_keeps_the_whole_state_on_a_non_finite_step():
     """A NaN loss (from NaN normals, which the forward never reads) leaves
-    parameters, BN statistics, Adam's state and the step as they were,
-    though the forward had already moved the BN statistics."""
-    model = TorchBackbone(torch_config(dropout_rate=0.5))
-    model.reset_parameters(torch.Generator().manual_seed(0))
-    trainer = tsteps.Trainer(model, TorchTrainConfig(batch_size=2, **LOSS_FLAGS))
+    parameters, BN statistics, Adam's moments and count and the step as
+    they were, bit for bit, though the forward had already moved the BN
+    statistics; the next finite step then equals the step of a trainer
+    that never saw the bad batch (the same draws)."""
+    cfg = TorchTrainConfig(batch_size=2, **LOSS_FLAGS)
+
+    def fresh():
+        model = TorchBackbone(torch_config(dropout_rate=0.5))
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        return tsteps.Trainer(model, cfg)
+
+    trainer, clean = fresh(), fresh()
     batch = {k: torch.from_numpy(v) for k, v in numpy_batch(1).items()}
-    gen = torch.Generator().manual_seed(1)
-    aux = trainer.train_step(batch, gen)
+    aux = trainer.train_step(batch, torch.Generator().manual_seed(1))
+    clean.train_step(batch, torch.Generator().manual_seed(1))
     assert float(aux["skipped"]) == 0.0 and trainer.step == 1
-    before = {k: v.clone() for k, v in model.state_dict().items()}
+    before = {k: v.clone() for k, v in model_state(trainer).items()}
     adam = {i: {k: v.clone() for k, v in st.items()}
             for i, st in trainer.optimizer.state_dict()["state"].items()}
     bad = dict(batch, normals=torch.full_like(batch["normals"], float("nan")))
-    aux = trainer.train_step(bad, gen)
+    aux = trainer.train_step(bad, torch.Generator().manual_seed(2))
     assert float(aux["skipped"]) == 1.0 and trainer.step == 1
-    for k, v in model.state_dict().items():
-        torch.testing.assert_close(v, before[k], rtol=0, atol=0, msg=k)
+    for k, v in model_state(trainer).items():
+        assert torch.equal(v, before[k]), k
     after = trainer.optimizer.state_dict()["state"]
     for i, st in adam.items():
         for k, v in st.items():
             torch.testing.assert_close(after[i][k], v, rtol=0, atol=0)
+    good = {k: torch.from_numpy(v) for k, v in numpy_batch(2).items()}
+    aux = trainer.train_step(good, torch.Generator().manual_seed(3))
+    want = clean.train_step(good, torch.Generator().manual_seed(3))
+    assert float(aux["skipped"]) == 0.0 and trainer.step == clean.step == 2
+    for key in aux:
+        assert torch.equal(aux[key], want[key]), key
+    got_state, want_state = model_state(trainer), model_state(clean)
+    for k, v in got_state.items():
+        assert torch.equal(v, want_state[k]), k
+
+
+def model_state(trainer) -> dict[str, torch.Tensor]:
+    """Every tensor of a trainer's state: the model's parameters and
+    buffers, Adam's moments, the step count."""
+    out = dict(trainer.model.state_dict())
+    for i, st in enumerate(trainer.optimizer.state.values()):
+        out[f"exp_avg.{i}"] = st["exp_avg"]
+        out[f"exp_avg_sq.{i}"] = st["exp_avg_sq"]
+    out["step"] = trainer.step
+    return out
 
 
 def test_synthetic_generator_equals_jax():
