@@ -5,10 +5,10 @@
     python3 chip_smoke.py --only-parallel  # the set-up and phase 12 alone
     python3 chip_smoke.py --only-parallel multi-card  # only 12c (two cards)
     python3 chip_smoke.py --only-bf16      # the set-up and phase 13 alone
-    python3 chip_smoke.py --only-graphs    # the set-up and phase 14 alone
+    python3 chip_smoke.py --only-graphs    # the set-up and phases 14 and 15 alone
 
-Phases, in order (phase 14 runs first, right after the set-up); any
-failure raises, exits non-zero and prints no result:
+Phases, in order (phases 14 and 15 run first, right after the set-up);
+any failure raises, exits non-zero and prints no result:
 
 1. Set-up: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the build of the kernels from ``point2cyl_torch/csrc``.
@@ -122,14 +122,17 @@ failure raises, exits non-zero and prints no result:
    then the joint CLI from phase 5's backbone and that stack
    (``--is_pc_init --is_im_init --is_pc_train --is_im_train
    --with_im_loss --init_global_step -1``, 2 epochs: both load lines, the
-   carried step, finite losses, the launches of 4 steps, the three
-   written files) and its ``--resume`` to epoch 3. One joint step from the
-   resumed weights against the same step with every ``*_impl="plain"``:
+   carried step, finite losses, the launches of 4 steps (the eager
+   first step and the capture; the two replays launch no wrapper), the
+   three written files) and its ``--resume`` to epoch 3. One eager joint
+   step from the resumed weights against the same step with every
+   ``*_impl="plain"``:
    the loss and its parts within 1e-5, every backbone and encoder
    gradient within phase 5's rule and non-zero, none on the decoder, the
    BN statistics; the launches of a step with and without
-   ``--is_pc_train``. The ms per joint step and per pretrain step (and
-   the pretrain step at B=16 in chunks of 32 instances and whole), their
+   ``--is_pc_train``. The ms per eager joint step and per eager pretrain
+   step (and the pretrain step at B=16 in chunks of 32 instances and
+   whole; phase 15 times the captured ones), their
    peak memory, and the IGR block alone (forward and double backward)
    against its float32 bound. Then the evaluator's ``cli_main`` and the export
    CLI read the joint logdir (restore lines, a finite block with
@@ -250,6 +253,31 @@ failure raises, exits non-zero and prints no result:
    c). g. ``SetAbstractionMsg`` (npoint 512, radii 0.1/0.2/0.4, nsamples
    16/32/64, N=1024, B=4): FPS and three idx-only ball queries, eval and
    train mode against the plain versions, and its ms beside theirs.
+15. Captured steps II: the joint and pretrain steps, the world-1 NCCL
+   data-parallel steps and reconstruction's fine-tune step as CUDA
+   graphs. a. The joint step (``train_Point2Cyl.py``'s defaults: B=4,
+   N=8192, K=8, 2,048 sketch points, a carried step of 6), float32 and
+   bf16, with and without ``--is_pc_train``: eleven calls each against
+   the eager step from the same state (copied in place) and a generator
+   of the same seed (loss 1e-5 relative, gradients by phase 9's rule, BN
+   1e-5, the generators advanced alike), the hand kernels launched in the
+   capture, then three calls of each under deterministic algorithms, bit
+   for bit without resyncing. b. A joint batch with NaN normals: the
+   replay keeps every state tensor of both Adam groups bit for bit, the
+   next replay matches the eager step. c. The pretrain step at B=4 and
+   at B=16 in chunks of 32, held the same way (B=4 also bit for bit
+   under deterministic algorithms). d. One NCCL rank, world 1: the
+   data-parallel Trainer A and joint steps captured (in ``thread_local``
+   capture mode) against their eager steps and against the one-process
+   captured step, then bit for bit under deterministic algorithms. e.
+   The 200-step fine-tune of one instance at S=2048 captured against
+   eager with generators of the same seed (the weights within 1e-4 of
+   each tensor's largest entry). f. In turns, captured against eager: ms
+   a step of each owner, and for the float32 joint step with
+   ``--is_pc_train``, the pretrain step at B=4, the data-parallel steps
+   and the fine-tune step the device's busy share and the host's kernel
+   and graph launches a step (a trace), each graph pool's GiB and the
+   capture call's ms.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
@@ -257,9 +285,10 @@ with latents, ``serve_latents_launches``, in the joint trainer,
 ``joint_launches``, in one reconstruction, ``recon_launches``, over
 the 4 steps trained from the K=8 pack, ``pack_launches``, and in phase
 12, ``parallel_launches``, in phase 13, ``bf16_launches``, and inside
-phase 14's replays, ``graph_launches``: the launches counted in a
-graph's capture times its replays, for the K=8 train step, bucket 16 and
-the eval step); the
+phases 14 and 15's replays, ``graph_launches``: the launches counted
+in a graph's capture times its replays, for the K=8 train step, bucket
+16, the eval step, the joint step and the world-1 data-parallel Trainer
+A step); the
 last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -789,7 +818,7 @@ def preprocessing_phase(card: str, dev: torch.device, counters: dict, per_step: 
         first = f.readline().strip()
     check(first == f"Restored backbone from {pc_dir}/model", f"eval restore: {first!r}")
     check(all(np.isfinite(v) for v in means.values()), f"pack eval means {means}")
-    print(json.dumps({"pretrain": "K=8 pack", "steps": pre.step, "loss": pre_losses}),
+    print(json.dumps({"pretrain": "K=8 pack", "steps": int(pre.step), "loss": pre_losses}),
           flush=True)
     print(json.dumps({"eval": "K=8 pack, test split", **means}), flush=True)
 
@@ -1278,6 +1307,7 @@ def parallel_rank(rank: int, world: int, url: str, backend: str, root: str) -> N
         aux, out["joint_launches"] = counted(
             lambda: jtrainer.train_step(local, torch.Generator(dev).manual_seed(7)))
         out["joint"] = step_record([jtrainer.backbone, jtrainer.encoder], aux)
+        out["joint_eager_because"] = jtrainer.graphs.eager_because
         del jtrainer
         model = build_backbone(inp["cfg"], state_dict=inp["serve_state"], device=dev)
         n = inp["pts"].shape[1] // world
@@ -1528,9 +1558,11 @@ def parallel_phase(card: str, dev, root: str) -> dict:
         del single, dp_trainer
         with torch.inference_mode():
             fwd_ms = time_ms(lambda: model(pts))
-            sharded_ms = time_ms(lambda: backbone_apply_point_sharded(mesh, model, cfg, pts))
+            # the ring runs take about half a second a call: five timed
+            sharded_ms = time_ms(lambda: backbone_apply_point_sharded(mesh, model, cfg, pts),
+                                 runs=5)
             ring_fps_ms = time_ms(lambda: ps.farthest_point_sample_sharded(
-                mesh, pts, cfg.sa_npoints[0]))
+                mesh, pts, cfg.sa_npoints[0]), runs=5)
             fps_ms = time_ms(lambda: cuda_fps.farthest_point_sample(pts, cfg.sa_npoints[0]))
             # one world-1 NCCL collective of the ring FPS's size (B x 4
             # int64) and of a BN layer's sums (128 floats), in a run of 100
@@ -1584,6 +1616,9 @@ def parallel_phase(card: str, dev, root: str) -> dict:
     # card), every collective staged through host memory
     ranks = run_ranks("gloo", root)
     report = check_two_ranks("b", ranks, inp, dev)
+    # a host-staged mesh's step is not captured, and says why
+    check(all(r["joint_eager_because"] == "host-staged mesh" for r in ranks),
+          f"12b: {[r['joint_eager_because'] for r in ranks]}")
     ran.append("b")
     print(json.dumps({**report, "world": 2, "backend": "gloo, host-staged", "card": card}),
           flush=True)
@@ -2053,16 +2088,22 @@ def counts_now() -> dict:
     return {name: c.launches for name, c in kernel_counters().items()}
 
 
-def step_errors(got_aux: dict, want_aux: dict, got, want) -> dict:
-    """A step of ``got`` (Trainer) against the same step of ``want`` from
-    the same state and draws: the loss (relative), the gradients by phase
-    5's rule (over its tolerance) and the BN statistics (absolute)."""
+def step_errors(got_aux: dict, want_aux: dict, got_nets, want_nets) -> dict:
+    """A step of ``got_nets`` against the same step of ``want_nets`` from
+    the same state and draws: the loss (relative), the gradients of every
+    net that has them by phase 5's rule (over its tolerance) and the
+    buffers, BN statistics among them (absolute)."""
     loss = abs(float(got_aux["total"]) - float(want_aux["total"])) / max(
         abs(float(want_aux["total"])), 1e-30)
-    grads = grad_rule_ratio({n: p.grad for n, p in got.model.named_parameters()},
-                            {n: p.grad for n, p in want.model.named_parameters()})
-    bn = max(float((a - b).abs().max()) for a, b in zip(got.model.buffers(),
-                                                         want.model.buffers()))
+    got = {f"{i}.{n}": p.grad for i, net in enumerate(got_nets)
+           for n, p in net.named_parameters() if p.grad is not None}
+    want = {f"{i}.{n}": p.grad for i, net in enumerate(want_nets)
+            for n, p in net.named_parameters() if p.grad is not None}
+    check(set(got) == set(want), "the two steps' gradients are of other parameters")
+    grads = grad_rule_ratio(got, want) if want else (0.0, "")
+    bn = max(float((a.double() - b.double()).abs().max())
+             for ga, wa in zip(got_nets, want_nets)
+             for a, b in zip(ga.buffers(), wa.buffers()))
     return {"loss_rel": loss, "grad_over_rule": grads[0], "grad_worst": grads[1],
             "bn_abs": bn, "skipped": [float(got_aux["skipped"]), float(want_aux["skipped"])]}
 
@@ -2185,7 +2226,7 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
             want = eager_tr.train_step(batch, g_eager)
             check(torch.equal(g_graph.get_state(), g_eager.get_state()),
                   f"14a K={k} {dtype} step {i}: the generators advanced differently")
-            err = step_errors(got, want, graph_tr, eager_tr)
+            err = step_errors(got, want, [graph_tr.model], [eager_tr.model])
             hold_step(f"14a K={k} {dtype} step {i}", err)
             for key in worst:
                 worst[key] = max(worst[key], err[key])
@@ -2239,7 +2280,7 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
     eager_tr.load_state_dict(graph_tr.state_dict())
     err = step_errors(graph_tr.train_step(batches[8][1], torch.Generator(dev).manual_seed(3001)),
                       eager_tr.train_step(batches[8][1], torch.Generator(dev).manual_seed(3001)),
-                      graph_tr, eager_tr)
+                      [graph_tr.model], [eager_tr.model])
     hold_step("14b next replay", err)
     print(json.dumps({"phase": "14b", "skipped": 1.0, "state_bit_equal": kept,
                       "next_replay": err}), flush=True)
@@ -2461,6 +2502,396 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
     return graph_launches
 
 
+
+# ---- phase 15: captured steps II ----------------------------------------------
+
+JOINT_REPLAYS = 10  # replays of each joint configuration held against eager steps
+
+
+def joint_state(tr) -> dict:
+    """Every tensor of a joint trainer's state: the four nets' parameters
+    and buffers, each Adam group's moments and count, the step."""
+    out = {f"{name}.{k}": v for name in ("backbone", "implicit", "encoder", "loaded_encoder")
+           for k, v in getattr(tr, name).state_dict().items()}
+    for g in tr._groups:
+        out[f"{g.name}.moments"], out[f"{g.name}.count"] = g.moments, g.count
+    out["step"] = tr.step
+    return out
+
+
+def pretrain_state(tr) -> dict:
+    """Every tensor of a pretrainer's state: both nets, Adam's moments,
+    the step."""
+    out = {f"{name}.{k}": v for name in ("implicit", "encoder")
+           for k, v in getattr(tr, name).state_dict().items()}
+    out["moments"], out["step"] = tr._moments, tr.step
+    return out
+
+
+def copy_state(dst: dict, src: dict) -> None:
+    """``src``'s values into ``dst``'s tensors, in place."""
+    with torch.no_grad():
+        for name, val in src.items():
+            dst[name].copy_(val)
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[n], b[n]) for n in a)
+
+
+def fold_worst(worst: dict, err: dict) -> None:
+    for key in ("loss_rel", "grad_over_rule", "bn_abs"):
+        worst[key] = max(worst.get(key, 0.0), err[key])
+
+
+def held_pairs(label: str, graph_tr, eager_tr, state_of, nets_of, batches, seed: int,
+               worst: dict) -> tuple[dict, float]:
+    """Each batch through the captured owner and through the eager one
+    from the same state (copied in place before each step) and a generator
+    of the same seed, held by ``hold_step``'s rules; the kernels' launches
+    in the capture (the second call) and the capture call's ms."""
+    captured, capture_ms = {}, 0.0
+    for i, batch in enumerate(batches):
+        copy_state(state_of(eager_tr), state_of(graph_tr))
+        g_graph = torch.Generator(graph_tr.graphs.device).manual_seed(seed + i)
+        g_eager = torch.Generator(graph_tr.graphs.device).manual_seed(seed + i)
+        before = counts_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = graph_tr.train_step(batch, g_graph)
+        torch.cuda.synchronize()
+        if i == 1:
+            after = counts_now()
+            captured = {name: after[name] - before[name] for name in after}
+            capture_ms = (time.perf_counter() - t0) * 1e3
+        want = eager_tr.train_step(batch, g_eager)
+        check(torch.equal(g_graph.get_state(), g_eager.get_state()),
+              f"{label} step {i}: the generators advanced differently")
+        err = step_errors(got, want, nets_of(graph_tr), nets_of(eager_tr))
+        hold_step(f"{label} step {i}", err)
+        fold_worst(worst, err)
+    g = graph_tr.graphs
+    check(g.eager_calls == 1 and g.captures == 1 and g.replays == len(batches) - 1,
+          f"{label}: {g.eager_calls} eager, {g.captures} captures, {g.replays} replays")
+    return captured, capture_ms
+
+
+def bit_equal_runs(makers, batches, steps_: int, state_of) -> list[bool]:
+    """Owners from ``makers`` (the first captured), ``steps_`` steps each
+    under deterministic algorithms on the same batches and seeds, without
+    resyncing: each step's outputs and the whole states of the others bit
+    for bit equal to the first's."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            owners = [make() for make in makers]
+            same = []
+            for i in range(steps_):
+                dev = owners[0].graphs.device
+                outs = [tr.train_step(batches[i], torch.Generator(dev).manual_seed(70 + i))
+                        for tr in owners]
+                states = [state_of(tr) for tr in owners]
+                same.append(all(all(torch.equal(outs[0][n], out[n]) for n in out)
+                                and same_state(states[0], st)
+                                for out, st in zip(outs[1:], states[1:])))
+            check(owners[0].graphs.replays == steps_ - 1,
+                  f"deterministic runs: {owners[0].graphs.replays} replays")
+            return same
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def timed_owner(label: str, graph_fn, eager_fn, pool_bytes: int, capture_ms: float,
+                card: str, rounds: int = 3, per: int = 1, trace=None) -> dict:
+    """In turns, captured against eager: ms a step (``per`` steps a call),
+    beside the graph pool's GiB and the capture call's ms; with ``trace``
+    (the captured and the eager call to trace, and the steps in each) the
+    device's busy share and the host's kernel and graph launches a step,
+    from a trace of two calls. Printed as a 15f line."""
+    ms = in_turns({"graph": graph_fn, "eager": eager_fn}, rounds)
+    row = {"graph_ms": ms["graph"] / per, "eager_ms": ms["eager"] / per,
+           "pool_gib": pool_bytes / 2**30, "capture_call_ms": capture_ms}
+    if trace is not None:
+        *fns, steps_ = trace
+        for name, fn in zip(("graph", "eager"), fns):
+            calls = traced_calls(fn, calls=2)
+            row[name] = {key: val / steps_ for key, val in calls.items()}
+            row[name]["busy_share"] = row[name]["device_ms"] / row[f"{name}_ms"]
+    print(json.dumps({"phase": "15f", "step": label, **row, "card": card}), flush=True)
+    return row
+
+
+def graphs2_phase(args, card: str, dev, root: str) -> dict:
+    """Phase 15: the joint and pretrain steps, the world-1 NCCL
+    data-parallel Trainer A and joint steps and reconstruction's
+    fine-tune step as captured CUDA graphs against their eager steps.
+    Returns each hand kernel's launches inside replays of the joint step
+    and of the data-parallel Trainer A step."""
+    from point2cyl_torch.core.config import TrainConfig
+    from point2cyl_torch.data.pipeline import InputPipeline
+    from point2cyl_torch.data.synthetic import generate_dataset
+    from point2cyl_torch.models.implicit import ImplicitNet
+    from point2cyl_torch.parallel.distributed import join
+    from point2cyl_torch.parallel.mesh import make_mesh
+    from point2cyl_torch.recon import reconstruct as recon
+    from point2cyl_torch.train import steps, train_joint
+    from point2cyl_torch.train.train_pc import build_model, config_from_args, epoch_generator
+
+    t_phase = time.perf_counter()
+    cfg = full_width_config(8192)
+    n = cfg.num_points
+    trained = ("fps", "ball_query_grouped", "sa_grouped_exact", "three_nn",
+               "sa_grouped_backward", "three_nn_backward")
+    served = trained[:4]
+    jargv = ["--synthetic", "8", "--K", str(K), "--batch_size", str(TB), "--num_sk_point",
+             str(SK), "--num_point", str(n), "--is_pc_train", "--is_im_train",
+             "--with_im_loss", "--pred_seg", "--pred_normal", "--pred_bb",
+             "--pred_extrusion", "--pred_center"]
+    jcfg = config_from_args(train_joint.build_argparser().parse_args(jargv))
+    pipe = InputPipeline(generate_dataset(8, resolution=n, max_instances=K,
+                                          num_sketch_points=SK, seed=0),
+                         n, K, dev, num_sketch_points=SK)
+    gen = epoch_generator(0, 15, dev)
+    batches = [pipe.batch(torch.arange(i * TB, (i + 1) * TB, device=dev) % 8, gen)
+               for i in range(JOINT_REPLAYS + 1)]
+    graph_launches = {}
+
+    def joint(c, is_pc_train: bool, graph: bool, mesh=None):
+        nets = train_joint.build_nets(c, n, K, False, False, dev)
+        return train_joint.JointTrainer(*nets, c, num_sk_points=SK, is_pc_train=is_pc_train,
+                                        is_im_train=True, with_im_loss=True, step=6,
+                                        mesh=mesh, graph=graph)
+
+    def joint_nets(tr):
+        return [tr.backbone, tr.encoder]
+
+    # a. the joint step, float32 and bf16, with and without --is_pc_train:
+    # eleven calls (eager, capture, nine replays) each against the eager
+    # step from the same state and seed, then three of each under
+    # deterministic algorithms, bit for bit without resyncing; f. then
+    # in turns, captured against eager (busy share and launches from a
+    # trace for float32 with --is_pc_train). b. With float32 and
+    # --is_pc_train, a non-finite batch (NaN normals): the replay keeps
+    # every state tensor of both groups bit for bit, and the next replay
+    # matches the eager step
+    for c in kernel_counters().values():
+        c.launches = 0
+    for is_pc_train in (True, False):
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(jcfg, compute_dtype=dtype)
+            label = f"15a joint pc_train={is_pc_train} {dtype}"
+            graph_tr, eager_tr = joint(c, is_pc_train, True), joint(c, is_pc_train, False)
+            worst = {}
+            captured, capture_ms = held_pairs(label, graph_tr, eager_tr, joint_state,
+                                              joint_nets, batches, 1500, worst)
+            want = trained if is_pc_train else served
+            check(all(captured[name] >= 1 for name in want),
+                  f"{label}: the capture launched {captured}")
+            det = bit_equal_runs((lambda: joint(c, is_pc_train, True),
+                                  lambda: joint(c, is_pc_train, False)), batches, 3,
+                                 joint_state)
+            check(all(det), f"{label}: deterministic captured vs eager bit-equal {det}")
+            print(json.dumps({"phase": "15a", "at_s": time.perf_counter() - t_phase,
+                              "is_pc_train": is_pc_train, "compute_dtype": dtype,
+                              "replays": graph_tr.graphs.replays, "worst": worst,
+                              "capture_call_ms": capture_ms,
+                              "deterministic_bit_equal": det,
+                              "wrapper_launches_in_capture": captured}), flush=True)
+            if (is_pc_train, dtype) == (True, "float32"):
+                graph_launches["joint_step"] = {
+                    name: count * graph_tr.graphs.replays for name, count in captured.items()}
+                before = {k: v.clone() for k, v in joint_state(graph_tr).items()}
+                bad = dict(batches[0], normals=torch.full_like(batches[0]["normals"],
+                                                               float("nan")))
+                aux = graph_tr.train_step(bad, torch.Generator(dev).manual_seed(3000))
+                kept = same_state(joint_state(graph_tr), before)
+                check(float(aux["skipped"]) == 1.0 and kept and graph_tr.graphs.captures == 1,
+                      f"15b: skipped {float(aux['skipped'])}, state kept {kept}")
+                copy_state(joint_state(eager_tr), joint_state(graph_tr))
+                err = step_errors(
+                    graph_tr.train_step(batches[1], torch.Generator(dev).manual_seed(3001)),
+                    eager_tr.train_step(batches[1], torch.Generator(dev).manual_seed(3001)),
+                    joint_nets(graph_tr), joint_nets(eager_tr))
+                hold_step("15b next replay", err)
+                print(json.dumps({"phase": "15b", "at_s": time.perf_counter() - t_phase,
+                                  "skipped": 1.0, "state_bit_equal": kept, "next_replay": err,
+                                  "step": int(graph_tr.step),
+                                  "counts": [int(g.count) for g in graph_tr._groups]}),
+                      flush=True)
+            batch, g = batches[2], torch.Generator(dev).manual_seed(4000)
+            graph_fn = lambda: graph_tr.train_step(batch, g)  # noqa: E731
+            eager_fn = lambda: eager_tr.train_step(batch, g)  # noqa: E731
+            first = (is_pc_train, dtype) == (True, "float32")
+            timed_owner(f"joint pc_train={is_pc_train} {dtype}", graph_fn, eager_fn,
+                        graph_tr.graphs.captured_bytes, capture_ms, card,
+                        rounds=3 if first else 1,
+                        trace=(graph_fn, eager_fn, 1) if first else None)
+            del graph_tr, eager_tr
+    main_path = counts_now()
+    check(all(main_path[name] > 0 for name in trained),
+          f"15a: the captured joint steps' run launched {main_path}")
+
+    # c. the pretrain step at B=4 (unchunked, 32 instances) and at B=16 in
+    # chunks of 32: captured against eager from the same state and seed,
+    # at B=4 also bit for bit under deterministic algorithms; f. then in
+    # turns (a trace at B=4)
+    def pretrainer(chunk, graph: bool):
+        _, implicit, encoder, _ = train_joint.build_nets(jcfg, n, K, False, False, dev)
+        return train_joint.ImPretrainer(implicit, encoder, chunk, graph=graph)
+
+    def pre_nets(tr):
+        return [tr.implicit, tr.encoder]
+
+    batches16 = [pipe.batch(torch.arange(16, device=dev) % 8, gen) for _ in range(3)]
+    for b, chunk, bs in ((TB, None, batches[:5]), (16, 32, batches16)):
+        label = f"15c pretrain B={b} chunk {chunk}"
+        graph_tr, eager_tr = pretrainer(chunk, True), pretrainer(chunk, False)
+        worst = {}
+        _, capture_ms = held_pairs(label, graph_tr, eager_tr, pretrain_state, pre_nets, bs,
+                                   1600, worst)
+        det = (bit_equal_runs((lambda: pretrainer(chunk, True),
+                               lambda: pretrainer(chunk, False)), bs, 3, pretrain_state)
+               if b == TB else None)
+        check(det is None or all(det), f"{label}: deterministic bit-equal {det}")
+        print(json.dumps({"phase": "15c", "at_s": time.perf_counter() - t_phase,
+                          "batch": b, "igr_chunk": chunk, "replays": graph_tr.graphs.replays,
+                          "worst": worst,
+                          "capture_call_ms": capture_ms, "deterministic_bit_equal": det}),
+              flush=True)
+        batch, g = bs[2], torch.Generator(dev).manual_seed(4200)
+        graph_fn = lambda: graph_tr.train_step(batch, g)  # noqa: E731
+        eager_fn = lambda: eager_tr.train_step(batch, g)  # noqa: E731
+        timed_owner(f"pretrain B={b}", graph_fn, eager_fn, graph_tr.graphs.captured_bytes,
+                    capture_ms, card, rounds=3 if b == TB else 1,
+                    trace=(graph_fn, eager_fn, 1) if b == TB else None)
+        del graph_tr, eager_tr
+
+    # d. one rank over NCCL, world 1: the data-parallel Trainer A and joint
+    # steps captured against their eager steps (four calls) and against
+    # the one-process captured step (two), from the same state and seed; then
+    # bit for bit under deterministic algorithms (captured, eager,
+    # one-process captured)
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    join("file://" + os.path.join(root, "rdv_graphs"), 1, 0, "nccl")
+    try:
+        mesh = make_mesh()
+
+        def trainer_a(graph: bool, m=mesh):
+            return steps.Trainer(build_model(tcfg, n, K, dev), tcfg, m, graph=graph)
+
+        for c in kernel_counters().values():
+            c.launches = 0
+        owners = {
+            "trainer_a": (lambda graph, m=mesh: trainer_a(graph, m), state_tensors,
+                          lambda tr: [tr.model]),
+            "joint": (lambda graph, m=mesh: joint(jcfg, True, graph, m), joint_state,
+                      joint_nets)}
+        for name, (make, state_of, nets_of) in owners.items():
+            label = f"15d {name} world 1"
+            dp_g, dp_e, one_g = make(True), make(False), make(True, None)
+            check(dp_g.graphs.enabled and dp_g.graphs.capture_error_mode == "thread_local",
+                  f"{label}: the NCCL step is not captured")
+            worst, worst_one = {}, {}
+            captured, capture_ms = held_pairs(label, dp_g, dp_e, state_of, nets_of,
+                                              batches[:4], 1700, worst)
+            if name == "trainer_a":
+                graph_launches["dp_train_step"] = {k: v * dp_g.graphs.replays
+                                                   for k, v in captured.items()}
+            # the data-parallel replay against the one-process replay
+            for i, batch in enumerate(batches[:2]):
+                copy_state(state_of(one_g), state_of(dp_g))
+                err = step_errors(
+                    dp_g.train_step(batch, torch.Generator(dev).manual_seed(1800 + i)),
+                    one_g.train_step(batch, torch.Generator(dev).manual_seed(1800 + i)),
+                    nets_of(dp_g), nets_of(one_g))
+                hold_step(f"{label} vs one process, step {i}", err)
+                fold_worst(worst_one, err)
+            replays = dp_g.graphs.replays
+            batch, g = batches[2], torch.Generator(dev).manual_seed(4100)
+            graph_fn = lambda: dp_g.train_step(batch, g)  # noqa: E731
+            eager_fn = lambda: dp_e.train_step(batch, g)  # noqa: E731
+            timed_owner(f"{name} data parallel, world 1", graph_fn, eager_fn,
+                        dp_g.graphs.captured_bytes, capture_ms, card,
+                        trace=(graph_fn, eager_fn, 1))
+            del dp_g, dp_e, one_g
+            # captured, eager, and the one-process captured step
+            det = bit_equal_runs((lambda: make(True), lambda: make(False),
+                                  lambda: make(True, None)), batches, 3, state_of)
+            check(all(det), f"{label}: deterministic bit-equal {det}")
+            print(json.dumps({"phase": "15d", "at_s": time.perf_counter() - t_phase,
+                              "owner": name, "world": 1, "backend": "nccl", "replays": replays,
+                              "worst": worst,
+                              "worst_vs_one_process": worst_one,
+                              "deterministic_bit_equal_with_eager_and_one_process": det,
+                              "capture_call_ms": capture_ms,
+                              "wrapper_launches_in_capture": captured}), flush=True)
+        dp_path = counts_now()
+        check(all(dp_path[k] > 0 for k in trained), f"15d: the run launched {dp_path}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # e. reconstruction's fine-tune: one instance at S=2048, 200 steps
+    # captured (two chunks of 100 replays) against 200 eager steps with
+    # generators of the same seed
+    decoder = ImplicitNet(d_in=258)
+    decoder.reset_parameters(torch.Generator().manual_seed(19))
+    decoder = decoder.to(dev)
+    rng = np.random.default_rng(19)
+    lat = torch.from_numpy(rng.normal(size=256).astype(np.float32)).to(dev)
+    lat = lat / lat.norm()
+    th = torch.from_numpy(rng.uniform(0, 2 * np.pi, SK).astype(np.float32)).to(dev)
+    ring = torch.stack([torch.cos(th), torch.sin(th)], -1)
+    sk_p, sk_n = ring * torch.tensor([0.7, 0.4], device=dev), ring
+    tuned, ft_steps, ft_gens = {}, {}, {}
+    for name, graph in (("graph", True), ("eager", False)):
+        g = torch.Generator(dev).manual_seed(21)
+        tuned[name], ft_steps[name] = recon.igr_finetune(decoder, lat, sk_p, sk_n, g,
+                                                         max_steps=200, graph=graph)
+        ft_gens[name] = g.get_state()
+    ft_err, ft_bits = 0.0, True
+    for (pn, a), b in zip(tuned["graph"].named_parameters(), tuned["eager"].parameters()):
+        e = float((a - b).abs().max())
+        check(e <= 1e-4 * float(b.abs().max()), f"15e fine-tune: {pn} differs by {e}")
+        ft_err, ft_bits = max(ft_err, e), ft_bits and torch.equal(a, b)
+    check(ft_steps["graph"] == ft_steps["eager"] == 200
+          and torch.equal(ft_gens["graph"], ft_gens["eager"]),
+          f"15e fine-tune: steps {ft_steps}, generators alike "
+          f"{torch.equal(ft_gens['graph'], ft_gens['eager'])}")
+    print(json.dumps({"phase": "15e", "at_s": time.perf_counter() - t_phase,
+                      "steps": 200, "num_sk_point": SK, "max_abs_err": ft_err,
+                      "bit_equal": ft_bits}), flush=True)
+
+    # f. the fine-tune step in turns, captured against eager, a call of
+    # 10 steps (a tuner's first call runs eagerly, its second captures),
+    # traced in calls of 5
+    tuners = {name: recon.FineTuner(decoder, graph=graph)
+              for name, graph in (("graph", True), ("eager", False))}
+    g = torch.Generator(dev).manual_seed(22)
+
+    def tune(name: str, steps_: int = 10) -> int:
+        return tuners[name].tune(decoder, lat, sk_p, sk_n, g, max_steps=steps_,
+                                 check_every=steps_)
+
+    tune("graph", 1)  # the eager first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tune("graph", 1)  # the capture
+    torch.cuda.synchronize()
+    ft_capture_ms = (time.perf_counter() - t0) * 1e3
+    timed_owner("fine-tune, one instance, S=2048", lambda: tune("graph"),
+                lambda: tune("eager"), tuners["graph"].graphs.captured_bytes, ft_capture_ms,
+                card, rounds=2, per=10,
+                trace=(lambda: tune("graph", 5), lambda: tune("eager", 5), 5))
+    del tuners
+    print(json.dumps({"phase": "15", "phase15_s": time.perf_counter() - t_phase}),
+          flush=True)
+    return graph_launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2475,8 +2906,8 @@ def main() -> None:
                         help="run the set-up and phase 13 (bf16 compute) alone, without "
                         "the kernel table")
     parser.add_argument("--only-graphs", action="store_true",
-                        help="run the set-up and phase 14 (captured steps) alone, without "
-                        "the kernel table")
+                        help="run the set-up and phases 14 and 15 (captured steps) alone, "
+                        "without the kernel table")
     args = parser.parse_args()
     faulthandler.enable()  # a crash in native code prints the Python stack
 
@@ -2517,6 +2948,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             if args.only_graphs:
                 graphs_phase(args, card, dev, tmp)
+                graphs2_phase(args, card, dev, tmp)
             elif args.only_bf16:
                 bf16_phase(args, card, dev, tmp)
             elif args.only_parallel == "multi-card":
@@ -2530,11 +2962,12 @@ def main() -> None:
             "count": torch.cuda.device_count()}}))
         return
 
-    # phase 14 first: its traces of graph replays take the profiler
-    # before any other phase has used it (below, after phases 11-13's
-    # traces, the first traced replay crashed in the profiler)
+    # phases 14 and 15 first: their traces of graph replays take the
+    # profiler before any other phase has used it (below, after phases
+    # 11-13's traces, the first traced replay crashed in the profiler)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         graph_launches = graphs_phase(args, card, dev, tmp)
+        graph_launches.update(graphs2_phase(args, card, dev, tmp))
 
     cfg = full_width_config(8192)
     plain_cfg = dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
@@ -3744,9 +4177,15 @@ def main() -> None:
     joint = train_joint.cli_main(joint_argv + ["--num_epochs", "2"])
     torch.cuda.synchronize()
     joint_cli_launches = {name: fn.launches for name, fn in counters.items()}
+    # the wrappers count the eager first step and the capture; the
+    # replays (the capture's own and two more) launch the captured kernels
+    # without them
+    joint_calls = wrapper_calls(joint.graphs)
+    check(joint_calls == 2 and joint.graphs.replays == 3,
+          f"joint CLI: {joint_calls} eager calls and captures, {joint.graphs.replays} replays")
     for name, count in joint_cli_launches.items():
-        check(count == per_step[name] * 4, f"joint CLI: {name} launched {count} times "
-              f"over 4 steps, expected {per_step[name] * 4}")
+        check(count == per_step[name] * joint_calls, f"joint CLI: {name} launched {count} "
+              f"times over 4 steps, expected {per_step[name] * joint_calls}")
     with open(os.path.join(joint_dir, "log.txt")) as f:
         log = f.read()
     check("carrying trainer-A global step 6" in log and "3D model loaded." in log
@@ -3767,8 +4206,9 @@ def main() -> None:
         log = f.read()
     check(resumed.step == 12 and "epoch 2, step 10" in log and "> Epoch 0003 done" in log,
           f"the resumed joint run did not continue at epoch 3, step 10 ({resumed.step})")
-    print(json.dumps({"train": "joint CLI, full width", "steps": [joint.step, resumed.step],
-                      "pretrain_steps": pre.step, "launches": joint_cli_launches,
+    print(json.dumps({"train": "joint CLI, full width",
+                      "steps": [int(joint.step), int(resumed.step)],
+                      "pretrain_steps": int(pre.step), "launches": joint_cli_launches,
                       "pretrain_launches": pretrain_launches, "loss": joint_losses[-11:],
                       "pretrain_loss": pre_losses[-4:]}), flush=True)
 
@@ -3783,7 +4223,8 @@ def main() -> None:
     del joint, resumed
 
     def joint_trainer(plain: bool, is_pc_train: bool = True) -> train_joint.JointTrainer:
-        """The resumed run's nets in a joint trainer with a fresh Adam."""
+        """The resumed run's nets in a joint trainer with a fresh Adam,
+        eager (phase 15 holds the captured step against it)."""
         nets = train_joint.build_nets(jcfg, cfg.num_points, K, False, False, dev)
         if plain:
             nets = (Backbone(dataclasses.replace(nets[0].cfg, fps_impl="plain",
@@ -3793,7 +4234,7 @@ def main() -> None:
             net.load_state_dict(state9[key], strict=True)
         return train_joint.JointTrainer(*nets, jcfg, num_sk_points=SK,
                                         is_pc_train=is_pc_train, is_im_train=True,
-                                        with_im_loss=True, step=state9["step"])
+                                        with_im_loss=True, step=state9["step"], graph=False)
 
     batch9 = pipe9.batch(torch.arange(TB, device=dev), epoch_generator(0, 97, dev))
     kernel9, plain9 = joint_trainer(False), joint_trainer(True)
@@ -3851,9 +4292,10 @@ def main() -> None:
                       "bn_max_abs_err": bn_err, "launches_pc_train": step_launches,
                       "launches_pc_frozen": frozen_launches}), flush=True)
 
-    # ms per joint step and per pretrain step (CUDA events, after a
-    # warm-up), their peak memory, and the pretrain step at the reference's
-    # B=16 in chunks of 32 instances
+    # ms per eager joint step and per eager pretrain step (CUDA events,
+    # after a warm-up; phase 15 times the captured ones), their peak
+    # memory, and the pretrain step at the reference's B=16 in chunks of
+    # 32 instances
     def step_times(step, pipe, batch_size: int, epochs=(2, 3)):
         times = []
         for epoch in epochs:
@@ -3872,6 +4314,7 @@ def main() -> None:
         return times, torch.cuda.max_memory_allocated() / 2**30
 
     joint_ms, joint_gib = step_times(kernel9.train_step, pipe9, TB)
+    pre = train_joint.ImPretrainer(pre.implicit, pre.encoder, graph=False)
     pre_ms, pre_gib = step_times(pre.train_step, pipe9, TB)
     pipe16 = InputPipeline(generate_dataset(16, resolution=cfg.num_points,
                                             max_instances=K, num_sketch_points=SK, seed=0),

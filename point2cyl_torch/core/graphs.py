@@ -26,8 +26,16 @@ after, so the caller's generator advances as an eager step would advance
 it, and a replay draws what the eager step would draw from the same state.
 
 A capture or a replay that fails raises; nothing runs eagerly in its
-place. ``enabled=False`` (the owners' ``graph=False``) and a CPU device
-run the step eagerly on every call, with the caller's generator.
+place. ``enabled=False`` (the owners' ``graph=False``, or a data-parallel
+owner whose mesh stages its collectives through host memory) and a CPU
+device run the step eagerly on every call, with the caller's generator;
+``eager_because`` says which.
+
+A step with NCCL collectives (a data-parallel owner on the card) is
+captured too: its first, eager call creates the communicator, and the
+capture runs in ``capture_error_mode="thread_local"``, so that the
+process group's watchdog thread, which queries CUDA events, cannot
+invalidate it.
 """
 
 from __future__ import annotations
@@ -48,9 +56,13 @@ class _Captured(NamedTuple):
 class StepGraphs:
     """One owner's captured steps on ``device``, one graph per key."""
 
-    def __init__(self, device: str | torch.device, enabled: bool = True):
+    def __init__(self, device: str | torch.device, enabled: bool = True, *,
+                 eager_because: str = "graph=False", capture_error_mode: str = "global"):
         self.device = torch.device(device)
         self.enabled = enabled and self.device.type == "cuda"
+        self.eager_because = (None if self.enabled else
+                              "cpu" if self.device.type != "cuda" else eager_because)
+        self.capture_error_mode = capture_error_mode
         self._graphs: dict[Hashable, _Captured] = {}
         self._warm: set[Hashable] = set()  # keys whose eager first call ran
         self._pool = None
@@ -124,7 +136,7 @@ class StepGraphs:
         reserved = torch.cuda.memory_reserved(self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
-            graph.capture_begin(self._pool)
+            graph.capture_begin(self._pool, capture_error_mode=self.capture_error_mode)
             try:
                 outputs = fn(static_inputs, gen)
             finally:

@@ -11,7 +11,8 @@ collective: that is how a gloo group (which sends and receives CPU
 tensors only) carries card tensors, and the mesh's creator chooses it.
 Every result comes back on the input's device.
 :func:`psum` is differentiable: its backward sums the cotangent over the
-ranks, which is what a sum over the global batch needs.
+ranks, which is what a sum over the global batch needs. :func:`psum_`
+sums a buffer in place (the trainers' flat gradients).
 """
 
 from __future__ import annotations
@@ -57,6 +58,20 @@ def psum(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh.group is None:
         return x
     return _PSum.apply(x, mesh)
+
+
+def psum_(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum ``x`` over the ranks in place, in one all-reduce of the buffer
+    itself where it lies on the transport's device; returns ``x``."""
+    if mesh.group is None:
+        return x
+    if x.device == _transport(mesh) and x.is_contiguous():
+        dist.all_reduce(x, group=mesh.group)
+    else:
+        buf = _staged(x, mesh)
+        dist.all_reduce(buf, group=mesh.group)
+        x.copy_(buf)
+    return x
 
 
 def pmax(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -34,6 +34,7 @@ import torch
 from point2cyl_torch.core.checkpoint import restore_backbone, restore_implicit_stack_from
 from point2cyl_torch.core.config import IMPLS, BackboneConfig
 from point2cyl_torch.core.device import resolve_device
+from point2cyl_torch.core.graphs import StepGraphs
 from point2cyl_torch.eval import metrics as M
 from point2cyl_torch.losses.igr import igr_losses
 from point2cyl_torch.losses.segmentation import reorder_w
@@ -46,6 +47,7 @@ from point2cyl_torch.ops.matching import hard_w_encoding, hungarian_matching
 from point2cyl_torch.recon.isosurface import (convert_sdf_samples_to_ply,
                                               drop_small_components)
 from point2cyl_torch.recon.ply import read_ply, write_ply
+from point2cyl_torch.train import steps as train_steps
 from point2cyl_torch.train.steps import assemble_heads
 
 # Design options: CSG op (+1 add / -1 cut) and composition order per
@@ -117,6 +119,95 @@ def extract_sketch_latents(
     return latents, scales, p2d_n, n2d, found
 
 
+class FineTuner:
+    """Per-instance IGR fine-tuning (``visualizer.py:659-810``) with one
+    tuned decoder and its Adam state for a whole reconstruction: each
+    :meth:`tune` loads the instance's starting weights into them in place.
+
+    A step is Adam (optax's, ``train.steps.adam_select``) on manifold +
+    0.1 eikonal + SALD (``igr_losses`` of one instance) with each step's
+    off-surface samples drawn from the generator; on the card it is one
+    captured CUDA graph (``core/graphs.py``), replayed ``check_every``
+    times a chunk, and the host reads the loss once a chunk for the
+    plateau check, as JAX's jitted ``lax.scan`` of a chunk does
+    (``recon/reconstruct.py:150-194`` of the JAX package). ``sampler``
+    (points (1, S, 2) -> off-surface samples) replaces the draw; it runs
+    inside the step, so on the card it needs ``graph=False`` (the CPU
+    parity test feeds JAX's samples through it).
+    """
+
+    def __init__(self, implicit: ImplicitNet, lr: float = 1e-3,
+                 sampler: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                 graph: bool = True):
+        self.decoder = copy.deepcopy(implicit).requires_grad_(True)
+        self._params = list(self.decoder.parameters())
+        dev = self._params[0].device
+        if sampler is not None and graph and dev.type == "cuda":
+            raise ValueError("a custom sampler runs inside the captured step; pass "
+                             "graph=False to fine-tune with it on the card")
+        self.sampler = sampler
+        self._grads = train_steps.FlatGrads(self._params)
+        self._moments = torch.zeros(2, self._grads.grad.numel(), device=dev)
+        self._count = torch.zeros((), dtype=torch.int64, device=dev)
+        self._lr = torch.full((), lr, device=dev)
+        self._ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.graphs = StepGraphs(dev, enabled=graph)
+
+    @torch.no_grad()
+    def load(self, start: torch.nn.Module) -> None:
+        """``start``'s weights into the tuned decoder, Adam's state to zero."""
+        for p, q in zip(self._params, start.parameters()):
+            p.copy_(q)
+        self._moments.zero_()
+        self._count.zero_()
+
+    def tune(self, start: torch.nn.Module, latent: torch.Tensor, sk_pts: torch.Tensor,
+             sk_normals: torch.Tensor, generator: torch.Generator | None = None,
+             max_steps: int = 10_000, eps_loss: float = 1e-5,
+             check_every: int = 100) -> int:
+        """Fine-tune from ``start``'s weights on one projected sketch, in
+        chunks of ``check_every`` steps with the host's plateau check
+        ``|loss - prev| < eps_loss`` between chunks; the tuned weights stay
+        in ``decoder``. Args: latent (L,); sk_pts/sk_normals (S, 2), on the
+        decoder's device. Returns the steps taken."""
+        self.load(start)
+        # clones: the inputs may be inference tensors, which autograd cannot save
+        inputs = {"lat": latent.detach().clone()[None, None],
+                  "pts": sk_pts.detach().clone()[None, None],
+                  "nrm": sk_normals.detach().clone()[None, None]}
+        prev, steps = None, 0
+        for _ in range(max_steps // check_every):
+            for _ in range(check_every):
+                loss = self.graphs(self._step, inputs, generator)
+            steps += check_every
+            loss = float(loss)
+            if prev is not None and abs(loss - prev) < eps_loss:
+                break
+            prev = loss
+        return steps
+
+    def _step(self, inputs: dict, generator) -> torch.Tensor:
+        """One Adam step, with no host read; returns the loss before it."""
+        pts = inputs["pts"]
+        self._grads.zero()
+        off = (sample_off_surface(generator, pts[0]) if self.sampler is None
+               else self.sampler(pts[0]))
+        mask = torch.ones((1, 1), dtype=torch.bool, device=pts.device)
+        loss = igr_losses(self.decoder, None, pts, inputs["nrm"], inputs["lat"], mask,
+                          off_pts=off).total
+        loss.backward()
+        with torch.no_grad():
+            train_steps.adam_select(self._params, self._grads.grad, self._moments,
+                                    self._count, self._lr, self._ok)
+            self._count.add_(1)
+        return loss.detach()
+
+    def tuned_copy(self) -> ImplicitNet:
+        """The tuned weights as a decoder of their own (no gradients), for
+        the compositing, which takes one decoder an instance."""
+        return copy.deepcopy(self.decoder).requires_grad_(False)
+
+
 def igr_finetune(
     implicit: ImplicitNet,
     latent: torch.Tensor,
@@ -128,43 +219,16 @@ def igr_finetune(
     eps_loss: float = 1e-5,
     check_every: int = 100,
     sampler: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    graph: bool = True,
 ) -> tuple[ImplicitNet, int]:
-    """Per-instance direct optimization of a copy of the implicit decoder
-    on one projected sketch (``visualizer.py:659-810``): Adam on
-    manifold + 0.1 eikonal + SALD (``igr_losses`` of one instance), in
-    chunks of ``check_every`` steps with the host's plateau check
-    ``|loss - prev| < eps_loss`` between chunks.
-
-    Args: latent (L,); sk_pts/sk_normals (S, 2), on the decoder's
-    device. Each step's off-surface samples come from
-    ``sampler(points (1, S, 2))``, by default ``sample_off_surface``
-    drawn from ``generator``. Returns the tuned copy (no gradients) and
-    the steps it took.
-    """
-    tuned = copy.deepcopy(implicit).requires_grad_(True)
-    opt = torch.optim.Adam(tuned.parameters(), lr=lr)
-    # clones: the inputs may be inference tensors, which autograd cannot save
-    lat = latent.detach().clone()[None, None]
-    pts = sk_pts.detach().clone()[None, None]
-    nrm = sk_normals.detach().clone()[None, None]
-    mask = torch.ones((1, 1), dtype=torch.bool, device=pts.device)
-    if sampler is None:
-        def sampler(p):
-            return sample_off_surface(generator, p)
-    prev, steps = None, 0
-    for _ in range(max_steps // check_every):
-        for _ in range(check_every):
-            loss = igr_losses(tuned, None, pts, nrm, lat, mask,
-                              off_pts=sampler(pts[0])).total
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-        steps += check_every
-        loss = float(loss.detach())
-        if prev is not None and abs(loss - prev) < eps_loss:
-            break
-        prev = loss
-    return tuned.requires_grad_(False), steps
+    """One instance's fine-tune (:class:`FineTuner`) from ``implicit``'s
+    weights: returns the tuned copy (no gradients) and the steps it took.
+    Each step's off-surface samples come from ``sampler(points (1, S,
+    2))``, by default ``sample_off_surface`` drawn from ``generator``."""
+    tuner = FineTuner(implicit, lr, sampler, graph)
+    steps = tuner.tune(implicit, latent, sk_pts, sk_normals, generator, max_steps, eps_loss,
+                       check_every)
+    return tuner.decoder.requires_grad_(False), steps
 
 
 def composite_grid(resolution: int, half_range: float = 1.0
@@ -468,9 +532,10 @@ def cli_main(argv: list[str] | None = None) -> dict:
             start = ImplicitNet(d_in=258)
             start.reset_parameters(torch.Generator().manual_seed(args.seed + 1))
             start = start.to(dev)
+        tuner = FineTuner(start)
         for j in range(n_instances):
-            decoders[j], _ = igr_finetune(start, latents[0, j], p2d_n[0, j], n2d[0, j],
-                                          draw)
+            tuner.tune(start, latents[0, j], p2d_n[0, j], n2d[0, j], draw)
+            decoders[j] = tuner.tuned_copy()
             print(f"IGR fine-tuned instance {j}.")
         t = lap("igr_finetune", t)
 

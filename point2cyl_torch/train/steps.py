@@ -24,13 +24,18 @@ step share them.
 Data parallel (a ``parallel.mesh.Mesh``): each rank runs the step on its
 rows of the global batch, with BN statistics over the global batch
 (``parallel.mesh.use_global_batch_norm``) and every draw made at the
-global batch's size (``parallel.distributed.RowDraws``); after the
-backward one all-reduce averages the gradients and the loss scalars over
-the ranks (:func:`mean_over_ranks`), and the guard decides on the
-averaged values, so every rank applies or skips the same update. The
+global batch's size (``parallel.distributed.RowDraws``, built inside the
+step from the generator it is handed); after the backward one all-reduce
+of the flat gradient buffer, whose tail holds the loss scalars, averages
+both over the ranks (:func:`mean_over_ranks`), and the guard decides on
+the averaged values, so every rank applies or skips the same update. The
 losses are per-sample means, so with equal shards the mean of the ranks'
 means is the global batch's, and the step is the one-process step. A
-data-parallel step runs eagerly: its collectives are not captured.
+data-parallel step over NCCL is captured with its collectives (the BN
+sums, their backward and the gradient all-reduce); a mesh whose
+collectives go through host memory (``make_mesh(host_staged=True)``, a
+gloo group on cards, its creator's choice) runs eagerly, and its
+``graphs.eager_because`` says so (:func:`step_graphs`).
 """
 
 from __future__ import annotations
@@ -215,6 +220,67 @@ def _views(flat: torch.Tensor, like: Sequence[torch.Tensor]) -> list[torch.Tenso
             zip(flat.split([t.numel() for t in like]), like)]
 
 
+class FlatGrads:
+    """The gradients of ``params`` in one flat buffer, ``extra`` entries
+    longer (room for the loss scalars of :func:`mean_over_ranks`), on the
+    device and in the dtype of the first parameter (or of ``like``). Each
+    parameter's ``grad`` is a view of it, into which the backward
+    accumulates in place, so every graph of an owner and its eager step
+    share them; ``grad`` is the parameters' part of ``buffer``."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter], extra: int = 0,
+                 like: torch.Tensor | None = None):
+        self.params = list(params)
+        like = self.params[0] if like is None else like
+        n = sum(p.numel() for p in self.params)
+        self.buffer = torch.zeros(n + extra, device=like.device, dtype=like.dtype)
+        self.grad = self.buffer[:n]
+        self.views = _views(self.grad, self.params) if self.params else []
+        self.zero()
+
+    def zero(self) -> None:
+        """Zero the buffer, and make each ``grad`` its view again where a
+        caller set it to None (``zero_grad``)."""
+        for p, g in zip(self.params, self.views):
+            if p.grad is not g:
+                p.grad = g
+        self.buffer.zero_()
+
+
+class KeptState:
+    """A list of tensors (BN statistics and counts, a step count) that a
+    guarded step keeps when its update is refused: :meth:`take` copies
+    them, one flat copy for each dtype, before the step changes them, and
+    :meth:`keep_unless` writes ``where(ok, now, taken)`` back in place."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self.groups: dict[torch.dtype, list[torch.Tensor]] = {}
+        for t in tensors:
+            self.groups.setdefault(t.dtype, []).append(t)
+
+    @torch.no_grad()
+    def take(self) -> list[torch.Tensor]:
+        return [torch.cat([t.reshape(-1) for t in group]) for group in self.groups.values()]
+
+    @torch.no_grad()
+    def keep_unless(self, ok: torch.Tensor, taken: list[torch.Tensor]) -> None:
+        for group, old in zip(self.groups.values(), taken):
+            now = torch.cat([t.reshape(-1) for t in group])
+            torch._foreach_copy_(group, _views(torch.where(ok, now, old), group))
+
+
+def step_graphs(device: torch.device, graph: bool, mesh) -> StepGraphs:
+    """A step owner's :class:`StepGraphs`: captured on the card unless
+    ``graph`` is False or ``mesh`` stages its collectives through host
+    memory (a graph cannot hold a host round trip; such a step runs
+    eagerly, ``eager_because`` "host-staged mesh"). A mesh's captures run
+    in ``thread_local`` error mode, out of reach of NCCL's watchdog."""
+    staged = mesh is not None and mesh.group is not None and mesh.host_staged
+    return StepGraphs(device, enabled=graph and not staged,
+                      eager_because="host-staged mesh" if graph and staged else "graph=False",
+                      capture_error_mode="global" if mesh is None else "thread_local")
+
+
 class Trainer:
     """Trainer A's state (model, Adam's moments, step count) and its step;
     with a ``mesh`` the data-parallel step (the model is replicated from
@@ -238,19 +304,16 @@ class Trainer:
             replicate(mesh, model)
         self.optimizer = make_optimizer(model.parameters(), cfg)
         self._params = list(model.parameters())
-        self._buffers = list(model.buffers())
+        self._kept = KeptState(list(model.buffers()))
         dev = self._params[0].device
         n = sum(p.numel() for p in self._params)
         self.step = torch.zeros((), dtype=torch.int64, device=dev)
-        self._grad = torch.zeros(n, device=dev)
+        self._grads = FlatGrads(self._params, len(AUX_KEYS) - 1)
         self._moments = torch.zeros(2, n, device=dev)
-        self._grads = _views(self._grad, self._params)
         for p, m, v in zip(self._params, _views(self._moments[0], self._params),
                            _views(self._moments[1], self._params)):
             self.optimizer.state[p] = {"step": self.step, "exp_avg": m, "exp_avg_sq": v}
-        # captured steps need one program over the whole step; the
-        # data-parallel step's collectives stay eager
-        self.graphs = StepGraphs(dev, enabled=graph and mesh is None)
+        self.graphs = step_graphs(dev, graph, mesh)
 
     def train_step(self, batch: dict, generator: torch.Generator) -> dict[str, torch.Tensor]:
         """One optimizer step on ``batch``; every draw (noise, FPS starts,
@@ -258,17 +321,14 @@ class Trainer:
         device and ``skipped`` (1.0 when the guard kept the old state),
         fresh tensors at every call. The gradients stay on the parameters
         until the next step."""
-        if self.mesh is not None:
-            rows = batch["point_cloud"].shape[0]
-            vals = self._step(batch, step_generator(self.mesh, generator, rows))
-        else:
-            vals = self.graphs(self._step, batch, generator).clone()
+        vals = self.graphs(self._step, batch, generator).clone()
         return dict(zip(AUX_KEYS, vals.unbind()))
 
     def _step(self, batch: dict, generator) -> torch.Tensor:
         """The step's body, with no host read: the loss scalars stacked in
         ``AUX_KEYS`` order."""
         cfg = self.cfg
+        generator = step_generator(self.mesh, generator, batch["point_cloud"].shape[0])
         momentum = staircase_bn_momentum(self.step, cfg.batch_size, cfg.bn_decay_step,
                                          cfg.bn_init_momentum, cfg.bn_decay_rate,
                                          cfg.bn_momentum_clip)
@@ -276,27 +336,21 @@ class Trainer:
         if cfg.add_noise:
             pts = add_noise(generator, pts, batch["normals"], cfg.noise_sigma)
             batch = dict(batch, point_cloud=pts)
-        with torch.no_grad():
-            stats = torch.cat([b.reshape(-1) for b in self._buffers])
-        for p, g in zip(self._params, self._grads):
-            if p.grad is not g:  # set to None (zero_grad) by a caller
-                p.grad = g
-        self._grad.zero_()
+        stats = self._kept.take()
+        self._grads.zero()
         x_raw, w_raw = self.model(pts, train=True, bn_momentum=momentum,
                                   generator=generator)
         heads = assemble_heads(x_raw, w_raw, cfg.pred_seg, cfg.pred_bb,
                                k=batch["extrusion_axes"].shape[1])
         total, aux = proxy_losses(heads, batch, cfg)
         total.backward()
-        aux = mean_over_ranks(self.mesh, [self.model], aux)
+        aux = mean_over_ranks(self.mesh, self._grads.buffer, aux)
         with torch.no_grad():
-            ok = torch.isfinite(aux["total"]) & torch.isfinite(self._grad).all()
+            ok = torch.isfinite(aux["total"]) & torch.isfinite(self._grads.grad).all()
             lr = staircase_lr(self.step, cfg.batch_size, cfg.learning_rate,
                               cfg.decay_step, cfg.decay_rate)
-            adam_select(self._params, self._grad, self._moments, self.step, lr, ok)
-            now = torch.cat([b.reshape(-1) for b in self._buffers])
-            torch._foreach_copy_(self._buffers, _views(torch.where(ok, now, stats),
-                                                       self._buffers))
+            adam_select(self._params, self._grads.grad, self._moments, self.step, lr, ok)
+            self._kept.keep_unless(ok, stats)
             self.step.copy_(torch.where(ok, self.step + 1, self.step))
         aux["skipped"] = 1.0 - ok.to(total.dtype)
         return torch.stack([aux[key] for key in AUX_KEYS])
@@ -335,54 +389,33 @@ class Trainer:
 
 def step_generator(mesh, generator, rows: int):
     """``generator`` for a step over ``rows`` local rows: as it is on one
-    process; on a mesh a ``RowDraws`` over the global batch of ``rows``
-    times the rank count, cut to this rank's rows."""
-    if mesh is None or generator is None:
+    process (or where it already is a ``RowDraws``); on a mesh a
+    ``RowDraws`` over the global batch of ``rows`` times the rank count,
+    cut to this rank's rows."""
+    if mesh is None or generator is None or isinstance(generator, RowDraws):
         return generator
     return RowDraws(generator, slice(mesh.rank * rows, (mesh.rank + 1) * rows),
                     rows * mesh.world)
 
 
-def mean_over_ranks(mesh, modules: Sequence[torch.nn.Module],
+def mean_over_ranks(mesh, flat: torch.Tensor,
                     aux: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The loss scalars ``aux``, detached, and in place the gradients of
-    the ``modules``' parameters, averaged over ``mesh``'s ranks in one
-    all-reduce (without a mesh, ``aux`` detached). A non-finite value on
-    any rank makes the average non-finite on every rank."""
+    """The loss scalars ``aux``, detached, and in place the gradients in
+    the flat buffer ``flat`` (:attr:`FlatGrads.buffer`), averaged over
+    ``mesh``'s ranks: the scalars go into the buffer's last ``len(aux)``
+    entries and the whole buffer takes one all-reduce; the averaged
+    scalars returned are views of them, valid until the buffer's next
+    step. Without a mesh, ``aux`` detached. A non-finite value on any rank
+    makes the average non-finite on every rank."""
     aux = {key: val.detach() for key, val in aux.items()}
     if mesh is None:
         return aux
-    grads = [p.grad for mod in modules for p in mod.parameters() if p.grad is not None]
-    keys = list(aux)
-    flat = torch.cat([*(g.reshape(-1) for g in grads), torch.stack([aux[k] for k in keys])])
-    flat = collectives.psum(flat, mesh) / mesh.world
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
-    return dict(zip(keys, flat[offset:]))
-
-
-def guard_finite(loss: torch.Tensor, modules: Sequence[torch.nn.Module],
-                 stats: list[torch.Tensor]) -> bool:
-    """The non-finite guard: True when the loss and every gradient of the
-    ``modules`` are finite. Otherwise their buffers (BN statistics and
-    counts) go back to ``stats``, what they were before the forward
-    updated them in place, in the order of ``module_buffers(modules)``,
-    and False is returned; the caller then applies no update. One host
-    sync."""
-    grads = [p.grad.reshape(-1) for mod in modules for p in mod.parameters()
-             if p.grad is not None]
-    if bool(torch.isfinite(torch.cat([loss.reshape(1), *grads])).all()):
-        return True
     with torch.no_grad():
-        torch._foreach_copy_(module_buffers(modules), stats)
-    return False
-
-
-def module_buffers(modules: Sequence[torch.nn.Module]) -> list[torch.Tensor]:
-    """Every buffer of ``modules``, in order: what the guard restores."""
-    return [buf for mod in modules for buf in mod.buffers()]
+        tail = flat[flat.numel() - len(aux):]
+        tail.copy_(torch.stack(list(aux.values())))
+        collectives.psum_(flat, mesh)
+        flat.div_(mesh.world)
+    return dict(zip(aux, tail.unbind()))
 
 
 def log_epoch_aux(logger, aux_steps: list[dict[str, torch.Tensor]], gstep0: int) -> int:

@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -105,16 +106,42 @@ def resolve_igr_chunk(flag: int, m: int) -> int | None:
     return flag
 
 
+class _AdamGroup(NamedTuple):
+    """One Adam group of the joint trainer: its parameters, their gradient
+    (a slice of the flat buffer), moments (2, n) and its own update count
+    (0-dim int64 on the device)."""
+
+    name: str
+    params: list[torch.nn.Parameter]
+    grad: torch.Tensor
+    moments: torch.Tensor
+    count: torch.Tensor
+
+
 class JointTrainer:
     """The joint trainer's state (four nets, Adam, step) and its step
     (JAX ``make_joint_train_step``, ``train_joint.py:127-293``).
 
     Adam has a group for each net that trains: the backbone's on the
     staircase learning rate of the step, the encoder's at ``IM_LR``.
-    ``step`` starts where ``--init_global_step`` puts it; Adam's own
-    counts start at 0, as JAX's fresh optimiser state does. With a
-    ``mesh`` the step is data parallel (``train/steps.py``) and the four
-    nets are replicated from rank 0.
+    ``step`` (a 0-dim int64 on the device) starts where
+    ``--init_global_step`` puts it and drives the schedules; each group
+    keeps its own count of updates for the bias correction, from 0, as
+    JAX's fresh optimiser state does. With a ``mesh`` the step is data
+    parallel (``train/steps.py``) and the four nets are replicated from
+    rank 0.
+
+    The step is one program, as Trainer A's (``train/steps.py``): the
+    trained nets' gradients live in one flat buffer (each ``grad`` a view
+    of it), the update is optax's Adam as device-side selects
+    (``steps.adam_select``), and ``ok`` (the loss and every gradient
+    finite) chooses every group's parameters, moments and count, the
+    trained nets' BN statistics and the step alike, so nothing is read
+    back. On the card it runs as a captured CUDA graph after its first
+    call with each batch shape (``core/graphs.py``), data parallel over
+    NCCL too; over a host-staged mesh, or with ``graph=False``, eagerly.
+    ``optimizer`` is a ``torch.optim.Adam`` that only holds the state, in
+    its checkpoint layout (two groups).
     """
 
     def __init__(self, backbone: torch.nn.Module, implicit: ImplicitNet,
@@ -122,7 +149,7 @@ class JointTrainer:
                  cfg: TrainConfig, *, num_sk_points: int, is_pc_train: bool,
                  is_im_train: bool, with_im_loss: bool, is_l2: bool = False,
                  use_gt_im: bool = False, igr_chunk: int | None = None, step: int = 0,
-                 mesh=None):
+                 mesh=None, graph: bool = True):
         self.backbone, self.implicit = backbone, implicit
         self.encoder, self.loaded_encoder = encoder, loaded_encoder
         self.cfg = cfg
@@ -130,7 +157,6 @@ class JointTrainer:
         self.is_pc_train, self.is_im_train = is_pc_train, is_im_train
         self.with_im_loss, self.is_l2, self.use_gt_im = with_im_loss, is_l2, use_gt_im
         self.igr_chunk = igr_chunk
-        self.step = step  # updates applied; skipped steps do not count
         self.mesh = mesh
         if mesh is not None:
             for net in (backbone, implicit, encoder, loaded_encoder):
@@ -139,15 +165,38 @@ class JointTrainer:
         for net, trains in ((backbone, is_pc_train), (encoder, is_im_train),
                             (implicit, False), (loaded_encoder, False)):
             net.requires_grad_(trains)
+        like = next(backbone.parameters())
+        dev = like.device
+        # updates applied; skipped steps do not count
+        self.step = torch.full((), step, dtype=torch.int64, device=dev)
+        self._keys = ("total", "normal", "miou", "bb", "extrusion", "center",
+                      *(("manifold", "eikonal", "sald") if with_im_loss else ()),
+                      "latent", "im_total")
         named = [(net, name) for net, name, trains in ((backbone, "pc", is_pc_train),
                                                        (encoder, "enc", is_im_train))
                  if trains]
-        self._trained = [net for net, _ in named]
-        groups = [{"params": list(net.parameters()), "name": name} for net, name in named]
-        self.optimizer = _adam(groups) if groups else None
-        # the trained nets' buffers as they were before the step's forward,
-        # for the guard
-        self._stats = [b.detach().clone() for b in steps.module_buffers(self._trained)]
+        self._params = [p for net, _ in named for p in net.parameters()]
+        self._grads = steps.FlatGrads(self._params, len(self._keys), like=like)
+        self._kept = steps.KeptState([b for net, _ in named for b in net.buffers()])
+        self._im_lr = torch.full((), IM_LR, device=dev)
+        self._groups: list[_AdamGroup] = []
+        offset = 0
+        for net, name in named:
+            params = list(net.parameters())
+            n = sum(p.numel() for p in params)
+            self._groups.append(_AdamGroup(
+                name, params, self._grads.grad[offset:offset + n],
+                torch.zeros(2, n, device=dev, dtype=like.dtype),
+                torch.zeros((), dtype=torch.int64, device=dev)))
+            offset += n
+        self.optimizer = (_adam([{"params": g.params, "name": g.name} for g in self._groups])
+                          if self._groups else None)
+        for g in self._groups:
+            for p, m, v in zip(g.params, steps._views(g.moments[0], g.params),
+                               steps._views(g.moments[1], g.params)):
+                self.optimizer.state[p] = {"step": g.count, "exp_avg": m, "exp_avg_sq": v}
+        self.graphs = steps.step_graphs(dev, graph, mesh)
+        self._static = (is_pc_train, is_im_train, with_im_loss, use_gt_im, is_l2)
 
     @property
     def device(self) -> torch.device:
@@ -234,69 +283,123 @@ class JointTrainer:
         The non-finite guard keeps the whole state (the trained nets' BN
         statistics and counts, both Adam groups, the step) when the loss
         or a gradient is not finite. Returns the loss scalars on the device
-        and ``skipped``; the gradients stay on the parameters until the
-        next step."""
-        torch._foreach_copy_(self._stats, steps.module_buffers(self._trained))
-        if self.optimizer is not None:
-            self.optimizer.zero_grad(set_to_none=True)
+        and ``skipped``, fresh tensors at every call; the gradients stay on
+        the parameters until the next step."""
+        vals = self.graphs(self._step, batch, generator,
+                           static=(*self._static, self.igr_chunk)).clone()
+        return dict(zip((*self._keys, "skipped"), vals.unbind()))
+
+    def _step(self, batch: dict, generator) -> torch.Tensor:
+        """The step's body, with no host read: the loss scalars and
+        ``skipped`` stacked in the order of ``train_step``'s keys."""
+        kept = self._kept.take()
+        self._grads.zero()
         total, aux = self.loss(batch, generator)
         if total.requires_grad:
             total.backward()
-        aux = steps.mean_over_ranks(self.mesh, self._trained, aux)
-        skipped = not steps.guard_finite(aux["total"], self._trained, self._stats)
-        if not skipped:
-            self.apply_update()
-        aux["skipped"] = total.new_tensor(float(skipped))
-        return aux
+        aux = steps.mean_over_ranks(self.mesh, self._grads.buffer, aux)
+        with torch.no_grad():
+            ok = torch.isfinite(aux["total"]) & torch.isfinite(self._grads.grad).all()
+            self._update(ok)
+            self._kept.keep_unless(ok, kept)
+        aux["skipped"] = 1.0 - ok.to(aux["total"].dtype)
+        return torch.stack([aux[key] for key in (*self._keys, "skipped")])
 
-    def apply_update(self) -> None:
-        """One Adam update from the gradients on the trained parameters:
-        the backbone's group at the staircase learning rate of ``step``,
-        the encoder's at ``IM_LR``; then the step advances."""
-        if self.optimizer is not None:
-            cfg = self.cfg
-            for group in self.optimizer.param_groups:
-                if group["name"] == "pc":
-                    group["lr"] = staircase_lr(self.step, cfg.batch_size, cfg.learning_rate,
-                                               cfg.decay_step, cfg.decay_rate)
-            self.optimizer.step()
-        self.step += 1
+    @torch.no_grad()
+    def _update(self, ok: torch.Tensor) -> None:
+        """Where ``ok``: one Adam update of each group from the gradients
+        in the flat buffer, the backbone's at the staircase learning rate
+        of ``step``, the encoder's at ``IM_LR``, each bias-corrected by its
+        own count; then the counts and the step advance."""
+        cfg = self.cfg
+        for g in self._groups:
+            lr = (staircase_lr(self.step, cfg.batch_size, cfg.learning_rate, cfg.decay_step,
+                               cfg.decay_rate) if g.name == "pc" else self._im_lr)
+            steps.adam_select(g.params, g.grad, g.moments, g.count, lr, ok)
+            g.count.copy_(torch.where(ok, g.count + 1, g.count))
+        self.step.copy_(torch.where(ok, self.step + 1, self.step))
 
     def state_dict(self) -> dict:
-        """The reference's 3-net layout plus what an exact resume needs."""
+        """The reference's 3-net layout plus what an exact resume needs:
+        Adam in torch's ``Adam.state_dict`` layout (each parameter's
+        ``step`` its group's count, a CPU float32) and ``step`` as an int.
+        A host read for the step and for each group's count."""
+        opt = None
+        if self.optimizer is not None:
+            opt = self.optimizer.state_dict()
+            for group, g in zip(opt["param_groups"], self._groups):
+                count = torch.tensor(float(g.count))
+                for i in group["params"]:
+                    opt["state"][i] = dict(opt["state"][i], step=count)
         return {"model": self.backbone.state_dict(),
                 "implicit_net": self.implicit.state_dict(),
                 "pn_encoder": self.encoder.state_dict(),
                 "loaded_encoder": self.loaded_encoder.state_dict(),
-                "optimizer": None if self.optimizer is None else self.optimizer.state_dict(),
-                "step": self.step}
+                "optimizer": opt, "step": int(self.step)}
 
     def load_state_dict(self, state: dict) -> None:
+        """Write ``state`` into the trainer's tensors in place, so that
+        captured steps keep reading them. A checkpoint of the eager
+        trainer (torch's ``Adam.state_dict`` after ``Adam.step``) loads
+        too; a parameter without Adam state gets zero moments, a group
+        without any a zero count."""
         for net, key in ((self.backbone, "model"), (self.implicit, "implicit_net"),
                          (self.encoder, "pn_encoder"),
                          (self.loaded_encoder, "loaded_encoder")):
             net.load_state_dict(state[key], strict=True)
-        if self.optimizer is not None:
-            self.optimizer.load_state_dict(state["optimizer"])
-        self.step = int(state["step"])
+        with torch.no_grad():
+            if self._groups:
+                saved = state["optimizer"]
+                sizes = [len(group["params"]) for group in saved["param_groups"]]
+                if sizes != [len(g.params) for g in self._groups]:
+                    raise ValueError(f"Adam groups of {sizes} parameters in the checkpoint, "
+                                     f"{[len(g.params) for g in self._groups]} in this trainer")
+                for group, g in zip(saved["param_groups"], self._groups):
+                    states = [saved["state"].get(i) for i in group["params"]]
+                    counts = [int(st["step"]) for st in states if st is not None]
+                    g.count.fill_(counts[0] if counts else 0)
+                    for st, m, v in zip(states, steps._views(g.moments[0], g.params),
+                                        steps._views(g.moments[1], g.params)):
+                        if st is None:
+                            m.zero_()
+                            v.zero_()
+                        else:
+                            m.copy_(st["exp_avg"])
+                            v.copy_(st["exp_avg_sq"])
+            self.step.fill_(int(state["step"]))
 
 
 class ImPretrainer:
     """IGR pretraining: the encoder (train mode, its default BN momentum)
     and the decoder on GT sketches, Adam at ``IM_LR`` (JAX
     ``make_im_pretrain_step``, ``train_joint.py:296-336``); data parallel
-    with a ``mesh``, as the joint step."""
+    with a ``mesh``, as the joint step.
+
+    The step is one program, as the joint trainer's: ``step`` (a 0-dim
+    int64 on the device) is Adam's count, the gradients live in one flat
+    buffer and the update is ``steps.adam_select``, applied always (JAX's
+    pretrain step has no guard). On the card it is captured per batch
+    shape and chunk size; ``graph=False`` runs it eagerly.
+    """
+
+    KEYS = ("total", "manifold", "eikonal", "sald")
 
     def __init__(self, implicit: ImplicitNet, encoder: PointNetEncoder,
-                 igr_chunk: int | None = None, mesh=None):
+                 igr_chunk: int | None = None, mesh=None, graph: bool = True):
         self.implicit, self.encoder, self.igr_chunk = implicit, encoder, igr_chunk
         self.mesh = mesh
         if mesh is not None:
             for net in (implicit, encoder):
                 use_global_batch_norm(net, mesh)
                 replicate(mesh, net)
-        self.optimizer = _adam([*implicit.parameters(), *encoder.parameters()])
-        self.step = 0
+        self._params = [*implicit.parameters(), *encoder.parameters()]
+        dev = self._params[0].device
+        self._grads = steps.FlatGrads(self._params, len(self.KEYS))
+        self._moments = torch.zeros(2, self._grads.grad.numel(), device=dev)
+        self._lr = torch.full((), IM_LR, device=dev)
+        self._ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.step = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graphs = steps.step_graphs(dev, graph, mesh)
 
     def loss(self, batch: dict, generator: torch.Generator | None,
              off_pts: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
@@ -307,18 +410,24 @@ class ImPretrainer:
         latents = self.encoder(sk.reshape(b * k, s, 4), train=True).reshape(b, k, -1)
         igr = igr_losses(self.implicit, generator, sk[..., :2], sk[..., 2:], latents,
                          mask_gt, off_pts=off_pts, chunk_size=self.igr_chunk)
-        return igr.total, {"total": igr.total, "manifold": igr.manifold,
-                           "eikonal": igr.eikonal, "sald": igr.normals}
+        return igr.total, dict(zip(self.KEYS, igr))
 
     def train_step(self, batch: dict, generator: torch.Generator) -> dict[str, torch.Tensor]:
-        self.optimizer.zero_grad(set_to_none=True)
+        """One Adam step on ``batch``'s sketches; returns the loss scalars
+        on the device and ``skipped`` (always 0), fresh at every call."""
+        vals = self.graphs(self._step, batch, generator, static=(self.igr_chunk,)).clone()
+        return dict(zip((*self.KEYS, "skipped"), vals.unbind()))
+
+    def _step(self, batch: dict, generator) -> torch.Tensor:
+        self._grads.zero()
         total, aux = self.loss(batch, generator)
         total.backward()
-        aux = steps.mean_over_ranks(self.mesh, [self.implicit, self.encoder], aux)
-        self.optimizer.step()
-        self.step += 1
-        aux["skipped"] = torch.zeros_like(aux["total"])
-        return aux
+        aux = steps.mean_over_ranks(self.mesh, self._grads.buffer, aux)
+        with torch.no_grad():
+            steps.adam_select(self._params, self._grads.grad, self._moments, self.step,
+                              self._lr, self._ok)
+            self.step.add_(1)
+        return torch.stack([*(aux[key] for key in self.KEYS), torch.zeros_like(total)])
 
     def state_dict(self) -> dict:
         """The IGR layout, which ``restore_implicit_stack`` reads."""
@@ -422,7 +531,7 @@ def train(args: argparse.Namespace, cfg: TrainConfig, pipeline: InputPipeline,
         best_loss = float(state["best_loss"])
         start_epoch = done + 1
         logger.log(f"Resumed from {ckpt.path('model')}: epoch {done}, "
-                   f"step {trainer.step}, best {best_loss:.4f}")
+                   f"step {int(trainer.step)}, best {best_loss:.4f}")
 
     for epoch in range(start_epoch, cfg.num_epochs + 1):
         t0 = time.time()

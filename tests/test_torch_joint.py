@@ -438,7 +438,9 @@ def test_joint_adam_matches_optax_multi_transform():
     """Three updates of both groups across a staircase boundary, from a
     carried step of 3: the backbone's group on the staircase of the step
     (JAX: ``lr_step_offset`` 3 on a fresh count), the encoder's at 1e-3,
-    both within float32 rounding of ``optax.multi_transform``."""
+    both within float32 rounding of ``optax.multi_transform``. The
+    gradients go into the trainer's flat buffer and the step body's
+    update (``_update``, device-side selects) applies them."""
     jcfg = TrainConfig(batch_size=2, learning_rate=1e-2, decay_step=4, decay_rate=0.5)
     tcfg = TorchTrainConfig(batch_size=2, learning_rate=1e-2, decay_step=4, decay_rate=0.5)
     trainer = small_trainer(cfg=tcfg, step=3)
@@ -455,8 +457,8 @@ def test_joint_adam_matches_optax_multi_transform():
         jp = optax.apply_updates(jp, updates)
         for grp, net in nets.items():
             for n, p in net.named_parameters():
-                p.grad = torch.from_numpy(g[grp][n])
-        trainer.apply_update()
+                p.grad.copy_(torch.from_numpy(g[grp][n]))
+        trainer._update(torch.tensor(True))
     assert trainer.step == 6
     for grp, net in nets.items():
         for n, p in net.named_parameters():

@@ -6,7 +6,8 @@ Each rank joins the group at ``file://<rendezvous file>``, reads the
 inputs the test wrote to ``<dir>/inputs.pt``, runs every case of the
 suite (``parallel``: ``tests/test_torch_parallel.py``; ``sharding``:
 ``tests/test_torch_point_sharding.py``; ``bf16``:
-``tests/test_torch_bf16.py``) and writes what it found to
+``tests/test_torch_bf16.py``; ``graphs``:
+``tests/test_torch_graphs_joint.py``) and writes what it found to
 ``<dir>/rank<rank>.pt``. It imports torch and the port only, so the
 ranks start in a second or two; the tests hold the results against the
 one-process port and the JAX package.
@@ -58,6 +59,7 @@ def dp_forward_step(mesh, inp: dict) -> dict:
     with the FPS starts given (the JAX comparison)."""
     model = backbone(inp["cfg"], inp["state"])
     use_global_batch_norm(model, mesh)
+    grads = steps.FlatGrads(list(model.parameters()), len(steps.AUX_KEYS) - 1)
     batch = shard_batch(mesh, inp["batch"])
     rows = process_batch_slice(inp["batch"]["point_cloud"].shape[0], mesh.rank, mesh.world)
     x_raw, w_raw = model(batch["point_cloud"], train=True, bn_momentum=inp["momentum"],
@@ -65,7 +67,7 @@ def dp_forward_step(mesh, inp: dict) -> dict:
     heads = steps.assemble_heads(x_raw, w_raw, True, True, k=inp["k"])
     total, aux = steps.proxy_losses(heads, batch, inp["tcfg"])
     total.backward()
-    return step_record([model], steps.mean_over_ranks(mesh, [model], aux))
+    return step_record([model], steps.mean_over_ranks(mesh, grads.buffer, aux))
 
 
 def dp_train_step(mesh, inp: dict) -> dict:
@@ -140,7 +142,7 @@ def joint_forward_step(mesh, inp: dict, dtype) -> dict:
     total, aux = trainer.loss(batch, None, fps_starts=[s[rows] for s in inp["joint_starts"]],
                               off_pts=off)
     total.backward()
-    aux = steps.mean_over_ranks(mesh, trainer._trained, aux)
+    aux = steps.mean_over_ranks(mesh, trainer._grads.buffer, aux)
     return step_record([trainer.backbone, trainer.encoder], aux)
 
 
@@ -236,7 +238,35 @@ def bf16_suite(mesh, inp: dict) -> dict:
                                                     local_rows(inp["pts"], mesh))}
 
 
-SUITES = {"parallel": parallel_suite, "sharding": sharding_suite, "bf16": bf16_suite}
+# ---- suite "graphs" ---------------------------------------------------------
+
+
+def graphs_suite(mesh, inp: dict) -> dict:
+    """Trainer A's data-parallel ``train_step``, whose body builds the
+    global batch's ``RowDraws`` from the generator it is handed, beside
+    the body called with the ``RowDraws`` built by the caller, as the
+    data-parallel step was called before it could be captured: both
+    from the same weights and a generator of the same seed."""
+    local = shard_batch(mesh, inp["batch"])
+    rows = local["point_cloud"].shape[0]
+    out = {}
+    for name in ("inside", "caller"):
+        trainer = steps.Trainer(backbone(inp["cfg"], inp["state"]), inp["tcfg"], mesh)
+        gen = torch.Generator().manual_seed(inp["seed"])
+        if name == "inside":
+            aux = trainer.train_step(local, gen)
+            vals = torch.stack([aux[k] for k in steps.AUX_KEYS])
+        else:
+            vals = trainer._step(local, steps.step_generator(mesh, gen, rows)).clone()
+        out[name] = {"vals": vals, "generator": gen.get_state(),
+                     "grads": [p.grad.clone() for p in trainer.model.parameters()],
+                     "state": {k: v.clone() for k, v in trainer.model.state_dict().items()},
+                     "moments": trainer._moments.clone(), "step": int(trainer.step)}
+    return out
+
+
+SUITES = {"parallel": parallel_suite, "sharding": sharding_suite, "bf16": bf16_suite,
+          "graphs": graphs_suite}
 
 
 def main() -> None:
