@@ -6,9 +6,10 @@
     python3 chip_smoke.py --only-parallel multi-card  # only 12c (two cards)
     python3 chip_smoke.py --only-bf16      # the set-up and phase 13 alone
     python3 chip_smoke.py --only-graphs    # the set-up and phases 14 and 15 alone
+    python3 chip_smoke.py --recon-igr-post-process  # reconstruction with the IGR post-process
 
-Phases, in order (phases 14 and 15 run first, right after the set-up);
-any failure raises, exits non-zero and prints no result:
+Phases, in order (phases 14, 15 and 12 run first, right after the
+set-up); any failure raises, exits non-zero and prints no result:
 
 1. Set-up: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, and the build of the kernels from ``point2cyl_torch/csrc``.
@@ -184,24 +185,40 @@ any failure raises, exits non-zero and prints no result:
    bit-equal to the one-process step under deterministic algorithms
    (loss, every gradient, BN statistics; the one-process step repeated
    bit-equal first), and the point-sharded forward at P=1 (N=8192, B=4,
-   heads [3, 16]) bit-equal to ``Backbone.forward``. b. Two ranks on this
-   card over gloo, every collective staged through host memory
-   (``torch.multiprocessing`` spawns them; NCCL refuses two ranks on one
-   card): Trainer A's and the joint trainer's step at B=4 (2 rows a rank,
-   2,048 sketch points) against the one-process card step at the JAX
-   tests' tolerances, the BN statistics within 1e-5, the gradients
-   reported against phase 5's rule; the sharded forward at P=2 with its
-   ring FPS, ball-query and 3-NN indices bit-equal to the FPS, SA1 and
-   3-NN kernels' and its heads within rtol 2e-4, atol 1e-5. c. Where there
-   are two cards, b over NCCL with a card a rank, and an
+   heads [3, 16]) bit-equal to ``Backbone.forward``; the ring-step kernel
+   (``csrc/fps_ring.cu``) against its plain version at SA1 (B=4, N=8192)
+   and at 131,072 points (B=1), 512 steps from one start, the offers and
+   running distances after every step and the centroids bit-equal; then
+   ``ShardedForward`` (the captured forward): five calls (eager, capture,
+   replays) each bit-equal to ``Backbone.forward``, the kernels' wrappers
+   counted in the eager call and the capture only, and one graph launch a
+   replay (a trace). b. Two ranks on this card over gloo, every
+   collective staged through host memory (``torch.multiprocessing``
+   spawns them; NCCL refuses two ranks on one card): Trainer A's and the
+   joint trainer's step at B=4 (2 rows a rank, 2,048 sketch points)
+   against the one-process card step at the JAX tests' tolerances, the BN
+   statistics within 1e-5, the gradients of all parameters together
+   nearer the one-process step's than the nearer of two wrong steps (the
+   sum not divided by the world, one rank's rows alone) by
+   ``GRAD_NEARER`` (phase 5's per-parameter rule reported beside it); the
+   sharded forward at P=2 with its ring FPS, ball-query and 3-NN indices
+   bit-equal to the FPS, SA1 and 3-NN kernels' and its heads within rtol
+   2e-4, atol 1e-5, and ``ShardedForward`` eager over the host-staged
+   mesh, saying so, bit-equal to it. c. Where there are two cards, b over
+   NCCL with a card a rank (``ShardedForward`` captured), and an
    ``InferenceSession`` over two cards bit-equal to one; otherwise the
-   phase says it skipped c. d. CUDA-event medians: the world-1
-   data-parallel step beside the one-process step, the P=1 sharded
-   forward beside the forward, ring FPS at SA1 beside the FPS kernel, one
-   world-1 all-gather and all-reduce, and one cloud of 131,072 points at
-   P=1 (ms and peak GiB) beside the all-plain single-device forward. e.
-   Each kernel's launches a data-parallel step per rank and a sharded
-   forward.
+   phase says it skipped c. d. The world-1 data-parallel step beside the
+   one-process step (CUDA-event medians); in turns (the host's clock),
+   the captured P=1 sharded forward beside the eager one and the forward,
+   the captured ring FPS at SA1 beside the eager one and the FPS kernel,
+   with the replay's device time, busy share and host launches from a
+   trace; one world-1 all-gather and all-reduce; one cloud of 131,072
+   points at P=1 captured beside eager and the all-plain single-device
+   forward (ms, peak GiB, the graph pool's GiB, heads within 1e-3); one
+   cloud of 2^20 points at P=1 captured (the seconds of each call, peak
+   GiB, heads within 1e-3 of the all-plain forward, its seconds). e. Each
+   kernel's launches a data-parallel step per rank, a sharded forward and
+   its capture; ``phase12_s``.
 13. bf16 compute (``compute_dtype="bfloat16"``: the backbone's dense
    layers as bf16 products with float32 results, ``ops/lowp_dense.py``).
    a. The bf16 dense layer at each of the backbone's 19 shapes (B=4,
@@ -288,9 +305,16 @@ the 4 steps trained from the K=8 pack, ``pack_launches``, and in phase
 phases 14 and 15's replays, ``graph_launches``: the launches counted
 in a graph's capture times its replays, for the K=8 train step, bucket
 16, the eval step, the joint step and the world-1 data-parallel Trainer
-A step); the
-last line is ``{"ok": true, "device":
-{...}}``.
+A step). The ring-step kernel's rows (``fps_ring_step@sa1_p1`` and
+``@n131072_p1``) come from phase 12a; their ``launches`` are a P=1
+sharded forward's. The last line is ``{"ok": true, "device": {...}}``.
+
+``--recon-igr-post-process`` runs, after the set-up and alone, the
+reconstruction CLI with ``--igr_post_process`` at R=256 on a joint
+logdir trained as phases 5 and 9 train theirs, at the CLI's own
+fine-tune budget (10,000 steps an instance at most), and prints the
+seconds of each stage and the steps of each instance; a failure exits
+non-zero. It is not part of the default run.
 
 ``--profile`` adds device-time breakdowns of a bucket-16 request, of
 full-width train steps, of full-width eval steps without and with the
@@ -1150,6 +1174,70 @@ def reconstruction_phase(args, card: str, dev: torch.device, counters: dict,
     return launched
 
 
+# ---- opt-in: reconstruction with the IGR post-process ------------------------
+
+
+def igr_post_process_run(card: str, dev: torch.device, root: str) -> dict:
+    """``--recon-igr-post-process``: a joint logdir trained as phases 5 and
+    9 train theirs (Trainer A's CLI, 2 epochs of ``--synthetic 8`` at B=4
+    and a resume to 3; 2 epochs of ``--pretrain_im``; 2 joint epochs from
+    both), then the reconstruction CLI on it at R=256 with
+    ``--igr_post_process`` at the CLI's own fine-tune budget (10,000 steps
+    an instance at most, ended early by its plateau check). Prints the
+    wall seconds by stage and the steps each instance took."""
+    import contextlib
+    import io
+
+    from point2cyl_torch.recon import reconstruct as recon
+    from point2cyl_torch.train import train_joint, train_pc
+
+    t_run = time.perf_counter()
+    pc_dir, igr_dir, joint_dir = (os.path.join(root, d) for d in ("pc", "igr", "joint"))
+    heads = ["--pred_seg", "--pred_normal", "--pred_bb", "--pred_extrusion", "--pred_center"]
+    argv = ["--synthetic", "8", "--num_point", "8192", "--K", str(K), "--batch_size",
+            str(TB), "--logdir", pc_dir, *heads]
+    train_pc.cli_main(argv + ["--num_epochs", "2"])
+    check(int(train_pc.cli_main(argv + ["--num_epochs", "3", "--resume"]).step) == 6,
+          "Trainer A's CLI did not reach step 6")
+    sk_argv = ["--synthetic", "8", "--K", str(K), "--batch_size", str(TB), "--num_sk_point",
+               str(SK), "--num_point", "8192", "--num_epochs", "2"]
+    train_joint.cli_main(sk_argv + ["--pretrain_im", "--logdir", igr_dir])
+    joint = train_joint.cli_main(sk_argv + [
+        "--logdir", joint_dir, "--is_pc_init", "--pc_logdir", pc_dir, "--is_im_init",
+        "--im_logdir", igr_dir, "--is_pc_train", "--is_im_train", "--with_im_loss",
+        "--init_global_step", "-1", *heads])
+    check(int(joint.step) == 10, f"the joint run ended at step {int(joint.step)}")
+    train_s = time.perf_counter() - t_run
+    text = io.StringIO()
+    out_dir = os.path.join(root, "recon_igr")
+    with contextlib.redirect_stdout(text):
+        res = recon.cli_main(["--logdir", joint_dir, "--synthetic", "--K", str(K),
+                              "--num_points", "2048", "--num_sk_point", str(SK),
+                              "--resolution", "256", "--model_id", "0", "--igr_post_process",
+                              "--output_dir", os.path.join(out_dir, "out"),
+                              "--dump_dir", os.path.join(out_dir, "dump")])
+    print(text.getvalue(), end="", flush=True)
+    lines = text.getvalue().splitlines()
+    tuned = [line for line in lines if line.startswith("IGR fine-tuned instance")]
+    steps = res["finetune_steps"]
+    check(lines[:2] == ["Model loaded.",
+                        f"Pre-trained fixed implicit model loaded ({joint_dir})."],
+          f"reconstruction with the post-process: load lines {lines[:2]}")
+    # every instance of the model is tuned; the volumes composited are
+    # those of the instances the design option keeps
+    check(len(steps) == len(tuned) >= res["intermediates"] >= 1
+          and all(1 <= n <= 10_000 for n in steps) and "igr_finetune" in res["timings"],
+          f"the post-process tuned {steps} ({len(tuned)} lines) for "
+          f"{res['intermediates']} composited instances")
+    check(res["faces"] > 0, "the post-processed reconstruction's mesh is empty")
+    report = {"recon": "CLI with --igr_post_process, R=256", "resolution": 256,
+              "finetune_steps": steps, "wall_s": res["timings"], "faces": res["faces"],
+              "composited_instances": res["intermediates"], "training_s": train_s,
+              "card": card}
+    print(json.dumps(report), flush=True)
+    return report
+
+
 # ---- phase 12: the parallel package ----------------------------------------
 
 
@@ -1166,6 +1254,7 @@ def kernel_counters() -> dict:
         "sa_grouped_backward": cuda_ballquery.sa_grouped_backward_kernel,
         "three_nn": cuda_knn.three_nn_interpolate_kernel,
         "three_nn_backward": cuda_knn.three_nn_backward_kernel,
+        "fps_ring_step": cuda_fps.fps_ring_step_kernel,
     }
 
 
@@ -1184,7 +1273,8 @@ def counted(fn):
 # and the feature propagations through the model's kernels
 PER_SHARDED_FORWARD = {"fps": 1, "ball_query": 0, "ball_query_grouped": 0,
                        "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
-                       "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0}
+                       "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
+                       "fps_ring_step": 512}
 # JAX test tolerances of the data-parallel steps (tests/test_parallel.py)
 DP_TOL = {"extrusion": 6e-3, "total": 6e-3}
 JOINT_AXIS_PATH = ("manifold", "eikonal", "sald", "latent", "im_total", "total")
@@ -1198,6 +1288,45 @@ def step_record(modules, aux: dict) -> dict:
                             if p.grad is not None}
         out[f"buffers{i}"] = {n: b.cpu() for n, b in mod.named_buffers()}
     return out
+
+
+# The two ranks' gradients against the one-process step's, all parameters
+# together (relative L2), must lie nearer it than the nearer of two wrong
+# data-parallel steps, computed in the same phase, by GRAD_NEARER: the
+# ranks' sum not divided by the world (twice the gradient) and one rank's
+# rows alone (a missing all-reduce). A reordered sum of BN statistics and
+# gradients moves a near-tied max-pool winner, which reroutes one
+# channel's gradient (phase 5's per-parameter rule fails by 10-13x), but
+# leaves the whole gradient near; a wrong reduction cannot.
+GRAD_NEARER = 0.1
+
+
+def grad_rel_l2(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every parameter's gradient together."""
+    num = sum(float(((got[n].double() - g.double()) ** 2).sum()) for n, g in want.items())
+    den = sum(float((g.double() ** 2).sum()) for g in want.values())
+    return (num / den) ** 0.5
+
+
+def all_grads(record: dict) -> dict:
+    """Every gradient of a ``step_record``, all its modules together."""
+    return {f"{key}.{n}": g for key, grads in record.items() if key.startswith("grads")
+            for n, g in grads.items()}
+
+
+def grads_nearer(label: str, ranks: list, want: dict, one_rank: dict) -> dict:
+    """Hold each rank's gradients (``ranks``, ``step_record``s) nearer the
+    one-process step's (``want``) than the nearer wrong variant by
+    ``GRAD_NEARER``, and show that each wrong variant fails that check."""
+    want_g = all_grads(want)
+    wrong = {"sum_not_divided": grad_rel_l2({n: 2 * g for n, g in want_g.items()}, want_g),
+             "one_rank_rows": grad_rel_l2(all_grads(one_rank), want_g)}
+    limit = GRAD_NEARER * min(wrong.values())
+    got = max(grad_rel_l2(all_grads(r), want_g) for r in ranks)
+    check(got <= limit, f"{label}: the ranks' gradients sit at {got} relative L2 from the "
+          f"one-process step's, the limit {limit} (wrong variants {wrong})")
+    check(all(w > limit for w in wrong.values()), f"{label}: a wrong variant {wrong} passes")
+    return {"rel_l2": got, "limit": limit, "wrong_rel_l2": wrong}
 
 
 def grad_rule_ratio(got: dict, want: dict) -> tuple[float, str]:
@@ -1287,7 +1416,8 @@ def parallel_rank(rank: int, world: int, url: str, backend: str, root: str) -> N
     from point2cyl_torch.parallel import point_sharding as ps
     from point2cyl_torch.parallel.distributed import join
     from point2cyl_torch.parallel.mesh import make_mesh, shard_batch
-    from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+    from point2cyl_torch.parallel.sharded_backbone import (ShardedForward,
+                                                           backbone_apply_point_sharded)
 
     staged = backend == "gloo"
     dev = torch.device("cuda", 0 if staged else rank)
@@ -1315,6 +1445,12 @@ def parallel_rank(rank: int, world: int, url: str, backend: str, root: str) -> N
         heads, out["sharded_launches"] = counted(
             lambda: backbone_apply_point_sharded(mesh, model, inp["cfg"], pts))
         out["heads"] = [h.cpu() for h in heads]
+        # the owner of the captured forward: eager over a host-staged mesh
+        # (three calls: eager, capture and replay where the mesh allows it)
+        owner = ShardedForward(mesh, model, inp["cfg"])
+        out["owner_equal"] = all(torch.equal(a.cpu(), b) for _ in range(3)
+                                 for a, b in zip(owner(pts), out["heads"]))
+        out["owner_eager_because"] = owner.graphs.eager_because
         np0 = inp["cfg"].sa_npoints[0]
         fps = ps.farthest_point_sample_sharded(mesh, pts, np0)
         centres = ps._owned_gather(pts, fps, mesh)
@@ -1353,16 +1489,22 @@ def check_two_ranks(label: str, ranks: list[dict], inp: dict, dev) -> dict:
     parameter is the group-all stage's first layer; the float32 joint
     tests in tests/test_torch_joint.py meet the same). The CPU tests hold
     the rule at a small size, and phase 12a the world-1 step bit for
-    bit."""
+    bit. The gradients of all parameters together are held by
+    ``GRAD_NEARER`` against two wrong variants."""
     from point2cyl_torch.models.backbone import build_backbone
     from point2cyl_torch.ops import cuda_ballquery, cuda_fps, cuda_knn
     from point2cyl_torch.ops.grouping import index_points
 
     report = {"phase": "12" + label}
     batch = {k: v.to(dev) for k, v in inp["batch"].items()}
+    rows0 = {k: v[:TB // 2] for k, v in batch.items()}  # rank 0's rows
     trainer = trainer_from(inp, dev)
     want = step_record([trainer.model], trainer.train_step(
         batch, torch.Generator(dev).manual_seed(7)))
+    del trainer
+    trainer = trainer_from(inp, dev)
+    one_rank = step_record([trainer.model], trainer.train_step(
+        rows0, torch.Generator(dev).manual_seed(7)))
     del trainer
     err = {}
     for r in ranks:
@@ -1380,11 +1522,17 @@ def check_two_ranks(label: str, ranks: list[dict], inp: dict, dev) -> dict:
     report.update(trainer_a_abs_err=err,
                   trainer_a_grad_over_rule=grad_rule_ratio(ranks[0]["dp"]["grads0"],
                                                            want["grads0"]),
+                  trainer_a_grads=grads_nearer(f"12{label} Trainer A",
+                                               [r["dp"] for r in ranks], want, one_rank),
                   dp_launches_per_rank=ranks[0]["dp_launches"])
 
     jtrainer = joint_trainer_from(inp, dev)
     jwant = step_record([jtrainer.backbone, jtrainer.encoder], jtrainer.train_step(
         batch, torch.Generator(dev).manual_seed(7)))
+    del jtrainer
+    jtrainer = joint_trainer_from(inp, dev)
+    jone_rank = step_record([jtrainer.backbone, jtrainer.encoder], jtrainer.train_step(
+        rows0, torch.Generator(dev).manual_seed(7)))
     del jtrainer
     jerr = {}
     for r in ranks:
@@ -1399,6 +1547,8 @@ def check_two_ranks(label: str, ranks: list[dict], inp: dict, dev) -> dict:
             jerr[key] = max(jerr.get(key, 0.0), e)
     report.update(joint_abs_err=jerr, joint_grad_over_rule=grad_rule_ratio(
         ranks[0]["joint"]["grads0"], jwant["grads0"]),
+        joint_grads=grads_nearer(f"12{label} joint", [r["joint"] for r in ranks], jwant,
+                                 jone_rank),
         joint_launches_per_rank=ranks[0]["joint_launches"])
 
     cfg = inp["cfg"]
@@ -1430,6 +1580,9 @@ def check_two_ranks(label: str, ranks: list[dict], inp: dict, dev) -> dict:
     for r in ranks:
         check(r["sharded_launches"] == PER_SHARDED_FORWARD,
               f"12{label}: sharded forward launched {r['sharded_launches']}")
+        check(r["owner_equal"], f"12{label}: ShardedForward differs from the eager forward")
+    report["sharded_forward_owner"] = {"bit_equal_to_eager": True,
+                                       "eager_because": ranks[0]["owner_eager_because"]}
     return report
 
 
@@ -1461,19 +1614,129 @@ def two_card_phase(card: str, dev, root: str, inp: dict) -> None:
                       "card": card}), flush=True)
 
 
-def parallel_phase(card: str, dev, root: str) -> dict:
+def ring_step_row(name: str, xyz: torch.Tensor, npoint: int, card: str) -> dict:
+    """Phase 12a: the ring-step kernel against its plain version at P=1 on
+    the clouds ``xyz``, ``npoint`` steps from the same start (point 0):
+    after every step the offers and the running distances bit-equal, at
+    the end the centroids bit-equal (also to
+    ``farthest_point_sample_plain``) and the kernel's work buffer zero
+    again; then one step of each timed from step 1's state. Returns the
+    kernel table's row."""
+    from point2cyl_torch.ops import cuda_fps
+    from point2cyl_torch.ops.sampling import (farthest_point_sample_plain, fps_ring_offers,
+                                              fps_ring_step_plain)
+
+    b, n, _ = xyz.shape
+    dev = xyz.device
+    first = fps_ring_offers(torch.zeros(b, dtype=torch.int64, device=dev), xyz[:, 0])[None]
+    work = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+    routes = {"kernel": lambda *a: cuda_fps.fps_ring_step_kernel(*a, work),
+              "plain": fps_ring_step_plain}
+    state = {route: [first, torch.full((b, n), 1e10, device=dev),
+                     torch.empty((b, npoint), dtype=torch.int64, device=dev)]
+             for route in routes}
+    for i in range(npoint):
+        if i == 1:
+            step1 = [t.clone() for t in state["kernel"]]
+        offers = {route: fn(xyz, *state[route], i, 0) for route, fn in routes.items()}
+        check(torch.equal(offers["kernel"], offers["plain"])
+              and torch.equal(state["kernel"][1], state["plain"][1]),
+              f"ring step {name}, step {i}: the kernel's offer or distances differ from "
+              "the plain version's")
+        for route in routes:
+            state[route][0] = offers[route][None]
+    got, want = state["kernel"][2], state["plain"][2]
+    check(torch.equal(got, want) and torch.equal(got.int(), farthest_point_sample_plain(
+        xyz, npoint)), f"ring step {name}: the centroids differ")
+    check(not bool(work.any()), f"ring step {name}: the work buffer is not zero again")
+    k_ms = time_ms(lambda: cuda_fps.fps_ring_step_kernel(xyz, *step1, 1, 0, work))
+    p_ms = time_ms(lambda: fps_ring_step_plain(xyz, *step1, 1, 0))
+    # each point's coordinates and distance read, its distance written;
+    # the offers read and written, the centroid written. Per point: 3 sub,
+    # 3 mul, 2 add, 1 min, 1 compare
+    nbytes = b * n * (12 + 4 + 4) + first.numel() * 8 + b * 4 * 8 + b * 8
+    b_ms, b_by = bound(nbytes, 10.0 * b * n)
+    row = {"name": f"fps_ring_step@{name}", "route": "cuda",
+           "source": "point2cyl_torch/csrc/fps_ring.cu",
+           "replaces": "point2cyl_tpu/parallel/point_sharding.py:252 _fps_local's "
+                       "fori_loop body (XLA, no pallas_call)",
+           "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    print(json.dumps({"kernel": row["name"], "batch": b, "shard_points": n, "steps": npoint,
+                      "bit_equal_every_step": True, "kernel_ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      "card": card}), flush=True)
+    return row
+
+
+def huge_cloud_run(mesh, state: dict, dev) -> dict:
+    """Phase 12d: one cloud of 2^20 points at P=1 through
+    ``ShardedForward`` (eager, capture and replay, then three replays): the wall
+    seconds of each call, the peak GiB over them, and the heads against the
+    single-device forward with every ``*_impl="plain"`` (within 1e-3, as
+    at N = 131,072), with its wall seconds and peak."""
+    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.parallel.sharded_backbone import ShardedForward
+
+    cfg = full_width_config(2**20)
+    pts = torch.from_numpy(clouds(15, 1, 2**20)).to(dev)
+    model = build_backbone(cfg, state_dict=state, device=dev)
+    owner = ShardedForward(mesh, model, cfg)
+    out = {"calls_s": []}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            heads = owner(pts)
+            torch.cuda.synchronize()
+            out["calls_s"].append(time.perf_counter() - t0)
+    g = owner.graphs
+    check(g.eager_calls == 1 and g.captures == 1 and g.replays == 4,
+          f"2^20 points: {g.eager_calls} eager, {g.captures} captures, {g.replays} replays")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["captured_pool_gib"] = g.captured_bytes / 2**30
+    out["replay_s"] = statistics.median(out["calls_s"][2:])
+    del owner
+    torch.cuda.empty_cache()
+    plain = build_backbone(dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
+                                               knn_impl="plain"), state_dict=state, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain(pts)
+        torch.cuda.synchronize()
+    out["plain_forward_s"] = time.perf_counter() - t0
+    out["plain_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    err = max(float((a - b).abs().max()) for a, b in zip(heads, want))
+    check(all(h.shape == (1, 2**20, w.shape[-1]) and bool(torch.isfinite(h).all())
+              for h, w in zip(heads, want)), "2^20 points: heads of the wrong shape or not "
+          "finite")
+    check(err <= 1e-3, f"2^20 points: sharded vs plain heads differ by {err}")
+    out["heads_max_abs_err"] = err
+    del plain, model, pts, heads, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
     """Phase 12: the parallel package on the card. Returns the launches of
-    a data-parallel Trainer A step (per rank), of a joint step (per rank)
-    and of a point-sharded forward, by kernel."""
+    a data-parallel Trainer A step (per rank), of a joint step (per rank),
+    of a point-sharded forward and of its capture, by kernel, and the
+    kernel table's rows of the ring-step kernel."""
     import warnings
 
+    from point2cyl_torch.core.graphs import step_graphs
     from point2cyl_torch.models.backbone import build_backbone
     from point2cyl_torch.ops import cuda_fps
     from point2cyl_torch.parallel import collectives
     from point2cyl_torch.parallel import point_sharding as ps
     from point2cyl_torch.parallel.distributed import join
     from point2cyl_torch.parallel.mesh import make_mesh
-    from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+    from point2cyl_torch.parallel.sharded_backbone import (ShardedForward,
+                                                           backbone_apply_point_sharded)
     from point2cyl_torch.train import train_pc
 
     t_phase = time.perf_counter()
@@ -1524,6 +1787,7 @@ def parallel_phase(card: str, dev, root: str) -> dict:
               f"12a: launches {records['dp_launches']} vs {records['single_launches']}")
         model = build_backbone(cfg, state_dict=inp["serve_state"], device=dev)
         pts = inp["pts"].to(dev)
+        np0 = cfg.sa_npoints[0]
         with torch.inference_mode():
             want = model(pts)
         got, sharded_launches = counted(
@@ -1532,16 +1796,49 @@ def parallel_phase(card: str, dev, root: str) -> dict:
               "12a: the P=1 sharded forward differs from Backbone.forward")
         check(sharded_launches == PER_SHARDED_FORWARD,
               f"12a: sharded forward launched {sharded_launches}")
+        # the ring step against its plain version, every step, at SA1 and
+        # at 131,072 points
+        big_pts = torch.from_numpy(clouds(13, 1, 131072)).to(dev)
+        ring_rows = [ring_step_row("sa1_p1", pts, np0, card),
+                     ring_step_row("n131072_p1", big_pts, np0, card)]
+        # the captured forward: eager, capture, replays, each bit-equal to
+        # Backbone.forward (and so to the eager sharded forward)
+        owner = ShardedForward(mesh, model, cfg)
+        calls = []
+        for i in range(5):
+            heads, launched = counted(lambda: owner(pts))
+            check(all(torch.equal(g, w) for g, w in zip(heads, want)),
+                  f"12a: call {i} of the captured P=1 forward differs from Backbone.forward")
+            calls.append(launched)
+        og = owner.graphs
+        check(og.eager_calls == 1 and og.captures == 1 and og.replays == 4,
+              f"12a: {og.eager_calls} eager calls, {og.captures} captures, "
+              f"{og.replays} replays")
+        check(calls[0] == calls[1] == PER_SHARDED_FORWARD and not any(calls[2].values()),
+              f"12a: the captured forward's calls launched {calls[:3]}")
+        replay = traced_calls(lambda: owner(pts))
+        check(replay["host_graph_launches"] == 1,
+              f"12a: a replay made {replay['host_graph_launches']} graph launches")
         ran.append("a")
         print(json.dumps({"phase": "12a", "world": 1, "backend": "nccl",
                           "dp_step_bit_equal": True, "single_step_repeats": repeatable,
                           "cli_steps": [4, 6], "sharded_forward_bit_equal": True,
+                          "ring_step_bit_equal": [r["name"] for r in ring_rows],
+                          "captured_forward_bit_equal": {"calls": 5, "eager": og.eager_calls,
+                                                         "captures": og.captures,
+                                                         "replays": og.replays},
+                          "captured_replay_host_launches": {
+                              "graphs": replay["host_graph_launches"],
+                              "kernels": replay["host_kernel_launches"]},
                           "dp_launches": records["dp_launches"],
-                          "sharded_launches": sharded_launches}), flush=True)
+                          "sharded_launches": sharded_launches,
+                          "captured_forward_capture_launches": calls[1]}), flush=True)
 
         # d. timings at world 1: the data-parallel step beside the
-        # one-process step (the BN and gradient all-reduces), the sharded
-        # forward beside the forward, ring FPS beside the kernel
+        # one-process step (the BN and gradient all-reduces); in turns, the
+        # captured P=1 sharded forward beside the eager one and the
+        # forward, the captured ring FPS beside the eager one and the FPS
+        # kernel
         single, dp_trainer = trainer_from(inp, dev), trainer_from(inp, dev, mesh)
         gen = torch.Generator(dev).manual_seed(8)
         step_ms = {"single": [], "dp": []}
@@ -1556,14 +1853,25 @@ def parallel_phase(card: str, dev, root: str) -> dict:
                 end.synchronize()
                 step_ms[name].append(start.elapsed_time(end))
         del single, dp_trainer
-        with torch.inference_mode():
+        ring = step_graphs(dev, True, mesh)
+
+        def ring_fps():
+            return ring(lambda x, _: ps.farthest_point_sample_sharded(mesh, x["pts"], np0),
+                        {"pts": pts})
+
+        # no_grad, not inference_mode: a replay copies into the graph's
+        # static input, a tensor made outside inference mode
+        with torch.no_grad():
+            check(all(torch.equal(ring_fps(), cuda_fps.farthest_point_sample(pts, np0))
+                      for _ in range(3)), "12d: the captured ring FPS differs from the kernel")
+            turns = in_turns({
+                "captured_forward": lambda: owner(pts),
+                "eager_forward": lambda: backbone_apply_point_sharded(mesh, model, cfg, pts),
+                "forward": lambda: model(pts), "captured_ring_fps": ring_fps,
+                "eager_ring_fps": lambda: ps.farthest_point_sample_sharded(mesh, pts, np0),
+                "fps_kernel": lambda: cuda_fps.farthest_point_sample(pts, np0)}, rounds=5)
             fwd_ms = time_ms(lambda: model(pts))
-            # the ring runs take about half a second a call: five timed
-            sharded_ms = time_ms(lambda: backbone_apply_point_sharded(mesh, model, cfg, pts),
-                                 runs=5)
-            ring_fps_ms = time_ms(lambda: ps.farthest_point_sample_sharded(
-                mesh, pts, cfg.sa_npoints[0]), runs=5)
-            fps_ms = time_ms(lambda: cuda_fps.farthest_point_sample(pts, cfg.sa_npoints[0]))
+            fps_ms = time_ms(lambda: cuda_fps.farthest_point_sample(pts, np0))
             # one world-1 NCCL collective of the ring FPS's size (B x 4
             # int64) and of a BN layer's sums (128 floats), in a run of 100
             offer = torch.zeros((1, TB, 4), dtype=torch.int64, device=dev)
@@ -1572,16 +1880,17 @@ def parallel_phase(card: str, dev, root: str) -> dict:
                                          for _ in range(100)]) * 10
             reduce_us = time_ms(lambda: [collectives.psum(sums, mesh)
                                          for _ in range(100)]) * 10
-        # one cloud of 131,072 points on one rank against the single-device
-        # forward with every *_impl="plain"
+        del owner, ring
+        # one cloud of 131,072 points on one rank, captured beside eager and
+        # beside the single-device forward with every *_impl="plain"
         big_cfg = full_width_config(131072)
         big = build_backbone(big_cfg, state_dict=inp["serve_state"], device=dev)
         plain = build_backbone(dataclasses.replace(big_cfg, fps_impl="plain",
                                                    ballquery_impl="plain", knn_impl="plain"),
                                state_dict=inp["serve_state"], device=dev)
-        big_pts = torch.from_numpy(clouds(13, 1, 131072)).to(dev)
+        big_owner = ShardedForward(mesh, big, big_cfg)
         peaks = {}
-        with torch.inference_mode():
+        with torch.no_grad():
             for name, fn in (("sharded", lambda: backbone_apply_point_sharded(
                     mesh, big, big_cfg, big_pts)), ("plain", lambda: plain(big_pts))):
                 torch.cuda.synchronize()
@@ -1590,25 +1899,44 @@ def parallel_phase(card: str, dev, root: str) -> dict:
                 fn()
                 torch.cuda.synchronize()
                 peaks[name] = (torch.cuda.max_memory_allocated() - before) / 2**30
-            big_ms = {"sharded": time_ms(lambda: backbone_apply_point_sharded(
-                mesh, big, big_cfg, big_pts), runs=5),
-                "plain": time_ms(lambda: plain(big_pts), runs=5)}
-            big_err = max(float((g - w).abs().max()) for g, w in zip(
-                backbone_apply_point_sharded(mesh, big, big_cfg, big_pts), plain(big_pts)))
+            eager_big = backbone_apply_point_sharded(mesh, big, big_cfg, big_pts)
+            captured_big = [big_owner(big_pts) for _ in range(3)][-1]
+            check(all(torch.equal(g, w) for g, w in zip(captured_big, eager_big)),
+                  "12d: the captured N=131072 forward differs from the eager one")
+            big_err = max(float((g - w).abs().max()) for g, w in zip(eager_big,
+                                                                      plain(big_pts)))
+            big_ms = in_turns({"captured": lambda: big_owner(big_pts),
+                               "eager": lambda: backbone_apply_point_sharded(
+                                   mesh, big, big_cfg, big_pts),
+                               "plain": lambda: plain(big_pts)}, rounds=3)
         check(big_err <= 1e-3, f"12d: N=131072 sharded vs plain heads differ by {big_err}")
-        del big, plain, big_pts
+        big_pool = big_owner.graphs.captured_bytes / 2**30
+        del big, plain, big_pts, big_owner, eager_big, captured_big
+        huge = huge_cloud_run(mesh, inp["serve_state"], dev)
         print(json.dumps({"phase": "12d", "card": card,
                           "dp_world1_step_ms": statistics.median(step_ms["dp"]),
                           "single_step_ms": statistics.median(step_ms["single"]),
-                          "sharded_forward_p1_ms": sharded_ms, "forward_ms": fwd_ms,
-                          "ring_fps_sa1_ms": ring_fps_ms, "fps_kernel_sa1_ms": fps_ms,
+                          "sharded_forward_p1_captured_ms": turns["captured_forward"],
+                          "sharded_forward_p1_eager_ms": turns["eager_forward"],
+                          "forward_ms_in_turns": turns["forward"],
+                          "captured_replay": {**replay, "busy_share": replay["device_ms"]
+                                              / turns["captured_forward"]},
+                          "forward_ms": fwd_ms,
+                          "ring_fps_sa1_captured_ms": turns["captured_ring_fps"],
+                          "ring_fps_sa1_eager_ms": turns["eager_ring_fps"],
+                          "fps_kernel_sa1_ms_in_turns": turns["fps_kernel"],
+                          "fps_kernel_sa1_ms": fps_ms,
                           "nccl_world1_all_gather_us": gather_us,
                           "nccl_world1_all_reduce_us": reduce_us,
-                          "n131072_sharded_p1_ms": big_ms["sharded"],
+                          "n131072_sharded_p1_captured_ms": big_ms["captured"],
+                          "n131072_sharded_p1_eager_ms": big_ms["eager"],
                           "n131072_plain_forward_ms": big_ms["plain"],
                           "n131072_sharded_peak_gib": peaks["sharded"],
+                          "n131072_captured_pool_gib": big_pool,
                           "n131072_plain_peak_gib": peaks["plain"],
                           "n131072_heads_max_abs_err": big_err, "batch": TB}), flush=True)
+        print(json.dumps({"phase": "12d", "cloud": "2^20 points, B=1, P=1", **huge,
+                          "card": card}), flush=True)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -1617,8 +1945,9 @@ def parallel_phase(card: str, dev, root: str) -> dict:
     ranks = run_ranks("gloo", root)
     report = check_two_ranks("b", ranks, inp, dev)
     # a host-staged mesh's step is not captured, and says why
-    check(all(r["joint_eager_because"] == "host-staged mesh" for r in ranks),
-          f"12b: {[r['joint_eager_because'] for r in ranks]}")
+    check(all(r["joint_eager_because"] == r["owner_eager_because"] == "host-staged mesh"
+              for r in ranks),
+          f"12b: {[(r['joint_eager_because'], r['owner_eager_because']) for r in ranks]}")
     ran.append("b")
     print(json.dumps({**report, "world": 2, "backend": "gloo, host-staged", "card": card}),
           flush=True)
@@ -1635,7 +1964,8 @@ def parallel_phase(card: str, dev, root: str) -> dict:
                       "phase12_s": time.perf_counter() - t_phase}), flush=True)
     return {"dp_step_per_rank": report["dp_launches_per_rank"],
             "joint_step_per_rank": report["joint_launches_per_rank"],
-            "sharded_forward": sharded_launches}
+            "sharded_forward": sharded_launches,
+            "sharded_forward_capture": calls[1]}, ring_rows
 
 
 # ---- phase 13: bf16 compute --------------------------------------------------
@@ -1829,7 +2159,8 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     counters = kernel_counters()
     per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                 "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
-                "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2}
+                "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2,
+                "fps_ring_step": 0}
     tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
                        pred_extrusion=True, pred_center=True, seed=0)
     tcfg16 = dataclasses.replace(tcfg, compute_dtype="bfloat16")
@@ -1929,7 +2260,8 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     # bucket 16 beside the float32 artifact's, in turns
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
-                   "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0}
+                   "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
+                   "fps_ring_step": 0}
     paths = {}
     for name, c in (("bf16", cfg16), ("fp32", cfg)):
         paths[name] = os.path.join(root, f"{name}.p2ct")
@@ -2908,6 +3240,11 @@ def main() -> None:
     parser.add_argument("--only-graphs", action="store_true",
                         help="run the set-up and phases 14 and 15 (captured steps) alone, "
                         "without the kernel table")
+    parser.add_argument("--recon-igr-post-process", action="store_true",
+                        help="run the set-up and, alone, the reconstruction CLI with "
+                        "--igr_post_process (10,000 fine-tune steps an instance at most) at "
+                        "R=256 on a joint logdir trained as phases 5 and 9 train theirs; "
+                        "not part of the default run")
     args = parser.parse_args()
     faulthandler.enable()  # a crash in native code prints the Python stack
 
@@ -2944,7 +3281,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
           f"kernel build {build_s:.2f} s", flush=True)
     dev = torch.device("cuda")
-    if args.only_parallel or args.only_bf16 or args.only_graphs:
+    if args.only_parallel or args.only_bf16 or args.only_graphs or args.recon_igr_post_process:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             if args.only_graphs:
                 graphs_phase(args, card, dev, tmp)
@@ -2954,20 +3291,23 @@ def main() -> None:
             elif args.only_parallel == "multi-card":
                 two_card_phase(card, dev, tmp, parallel_inputs(full_width_config(8192), dev,
                                                                 tmp))
-            else:
+            elif args.only_parallel:
                 parallel_phase(card, dev, tmp)
+            else:
+                igr_post_process_run(card, dev, tmp)
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
 
-    # phases 14 and 15 first: their traces of graph replays take the
-    # profiler before any other phase has used it (below, after phases
-    # 11-13's traces, the first traced replay crashed in the profiler)
+    # phases 14, 15 and 12 first: their traces of graph replays take the
+    # profiler before any other phase has used it (after phases 11-13's
+    # traces, the first traced replay crashed in the profiler)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         graph_launches = graphs_phase(args, card, dev, tmp)
         graph_launches.update(graphs2_phase(args, card, dev, tmp))
+        parallel_launches, ring_rows = parallel_phase(card, dev, tmp)
 
     cfg = full_width_config(8192)
     plain_cfg = dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
@@ -3621,7 +3961,8 @@ def main() -> None:
     # features) and no backward
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
-                   "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0}
+                   "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
+                   "fps_ring_step": 0}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "fullwidth.p2ct")
         export_artifact(path, state_dict, k=K, backbone_config=cfg,
@@ -3738,7 +4079,8 @@ def main() -> None:
     pipeline = build_pipeline(tcfg, cfg.num_points, K, dev, synthetic=16)
     per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                 "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
-                "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2}
+                "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2,
+                "fps_ring_step": 0}
     gen = epoch_generator(tcfg.seed, 1, dev)
     for fn in counters.values():
         fn.launches = 0
@@ -4392,11 +4734,11 @@ def main() -> None:
     recon_launches = reconstruction_phase(args, card, dev, counters, per_forward, work.name,
                                           logdir, joint_dir)
     pack_launches = preprocessing_phase(card, dev, counters, per_step, work.name)
-    parallel_launches = parallel_phase(card, dev, work.name)
     bf16_launches = bf16_phase(args, card, dev, work.name)
     work.cleanup()
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
+    rows.extend(ring_rows)
     for row in rows:
         kernel = row["name"].split("@")[0]
         row["eval_launches"] = {"n8192": eval_launches[kernel],
@@ -4413,7 +4755,9 @@ def main() -> None:
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],
                                  "pretrain_cli_4_steps": pretrain_launches[kernel]}
-        if kernel == "ball_query":
+        if kernel == "fps_ring_step":
+            row["launches"] = parallel_launches["sharded_forward"][kernel]
+        elif kernel == "ball_query":
             row["launches"] = launches_512[kernel]
         elif kernel == "ball_query_grouped_backward":
             row["launches"] = saliency_launches[kernel]

@@ -158,3 +158,15 @@ class StepGraphs:
             generator.set_state(own.get_state())
         self.replays += 1
         return entry.outputs
+
+
+def step_graphs(device: torch.device, graph: bool, mesh) -> StepGraphs:
+    """A step owner's :class:`StepGraphs`: captured on the card unless
+    ``graph`` is False or ``mesh`` stages its collectives through host
+    memory (a graph cannot hold a host round trip; such a step runs
+    eagerly, ``eager_because`` "host-staged mesh"). A mesh's captures run
+    in ``thread_local`` error mode, out of reach of NCCL's watchdog."""
+    staged = mesh is not None and mesh.group is not None and mesh.host_staged
+    return StepGraphs(device, enabled=graph and not staged,
+                      eager_because="host-staged mesh" if graph and staged else "graph=False",
+                      capture_error_mode="global" if mesh is None else "thread_local")

@@ -1,5 +1,6 @@
-"""Farthest point sampling: the CUDA kernel (``csrc/fps.cu``) and its
-plain version.
+"""Farthest point sampling: the CUDA kernels (``csrc/fps.cu``, and
+``csrc/fps_ring.cu`` for one step over a point-sharded cloud) and their
+plain versions.
 
 :func:`farthest_point_sample` takes the plain version
 (:func:`farthest_point_sample_plain`, ``ops/sampling.py``) for a CPU
@@ -22,10 +23,12 @@ import functools
 import torch
 
 from point2cyl_torch.ops import _build
-from point2cyl_torch.ops.sampling import farthest_point_sample_plain, start_indices
+from point2cyl_torch.ops.sampling import (LOW32, farthest_point_sample_plain,
+                                          fps_ring_step_plain, start_indices)
 
 __all__ = ["farthest_point_sample", "farthest_point_sample_kernel",
-           "farthest_point_sample_plain", "fps_launch_plan"]
+           "farthest_point_sample_plain", "fps_launch_plan", "fps_ring_plan",
+           "fps_ring_step", "fps_ring_step_kernel", "fps_ring_step_plain"]
 
 MAX_POINTS = 16384
 MAX_POINTS_PER_THREAD = 8  # the kernel's register budget (fps.cu)
@@ -34,6 +37,11 @@ MAX_CLUSTER = 8  # 16 CTAs can be scheduled, but were slower on the H100
 H100_SMS = 132
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_RING_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+                  + [ctypes.c_void_p])
+RING_THREADS = 256
+RING_POINTS_PER_THREAD = 4
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -120,3 +128,74 @@ def farthest_point_sample(
     if xyz.device.type == "cpu":
         return farthest_point_sample_plain(xyz, npoint, start_idx)
     return farthest_point_sample_kernel(xyz, npoint, start_idx)
+
+
+def fps_ring_plan(b: int, nl: int, num_sms: int = H100_SMS) -> tuple[int, int]:
+    """(ctas, threads) of one ring step: CTAs per cloud and threads per
+    CTA. ``RING_THREADS`` threads, and enough CTAs to give each thread
+    about ``RING_POINTS_PER_THREAD`` points of the shard, up to two waves
+    of the card's SMs over the batch."""
+    if b < 1 or nl < 1:
+        raise ValueError(f"ring FPS plan needs B >= 1 and Nl >= 1, got B={b} Nl={nl}")
+    ctas = min(_cdiv(nl, RING_THREADS * RING_POINTS_PER_THREAD), max(1, 2 * num_sms // b))
+    return ctas, RING_THREADS
+
+
+def _need(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"ring FPS step: {name} must be contiguous {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def fps_ring_step_kernel(xyz: torch.Tensor, every: torch.Tensor, distance: torch.Tensor,
+                         centroids: torch.Tensor, step: int, off: int,
+                         work: torch.Tensor) -> torch.Tensor:
+    """Launch one ring FPS step (``csrc/fps_ring.cu``) on the current
+    stream; ``.launches`` counts the launches. The arguments are
+    :func:`fps_ring_step_plain`'s, all on one CUDA device; ``work`` is a
+    (B, 2) int64 buffer, zero before the first step (the kernel leaves it
+    zero). Returns this rank's (B, 4) int64 offer."""
+    if xyz.device.type != "cuda":
+        raise ValueError(f"ring FPS kernel needs a CUDA tensor, got {xyz.device}")
+    if xyz.dim() != 3 or xyz.shape[2] != 3:
+        raise ValueError(f"ring FPS kernel needs xyz (B, Nl, 3), got {tuple(xyz.shape)}")
+    b, nl, _ = xyz.shape
+    npoint = centroids.shape[-1]
+    dev = xyz.device
+    _need(xyz, "xyz", torch.float32, (b, nl, 3), dev)
+    if every.dim() != 3:
+        raise ValueError(f"ring FPS step: every must be (P, B, 4), got {tuple(every.shape)}")
+    _need(every, "every", torch.int64, (every.shape[0], b, 4), dev)
+    _need(distance, "distance", torch.float32, (b, nl), dev)
+    _need(centroids, "centroids", torch.int64, (b, npoint), dev)
+    _need(work, "work", torch.int64, (b, 2), dev)
+    if not (0 <= step < npoint) or off < 0 or off + nl > LOW32 or 3 * nl >= 2**31 \
+            or b > 65535:
+        raise ValueError(f"ring FPS step takes 0 <= step < npoint, 0 <= off, "
+                         f"off + Nl <= 2^32 - 1, 3 Nl < 2^31 and B <= 65535, got step={step} "
+                         f"npoint={npoint} off={off} Nl={nl} B={b}")
+    ctas, threads = fps_ring_plan(b, nl, _num_sms(dev.index))
+    offer = torch.empty((b, 4), dtype=torch.int64, device=dev)
+    fn = _build.function("p2c_fps_ring_step", _RING_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        status = fn(xyz.data_ptr(), every.data_ptr(), every.shape[0], distance.data_ptr(),
+                    centroids.data_ptr(), offer.data_ptr(), work.data_ptr(), b, nl, npoint,
+                    step, off, ctas, threads, stream)
+    fps_ring_step_kernel.launches += 1
+    _build.check(f"p2c_fps_ring_step ({ctas} CTAs x {threads} threads a cloud)", status)
+    return offer
+
+
+fps_ring_step_kernel.launches = 0  # kernel launches, for chip_smoke.py
+
+
+def fps_ring_step(xyz: torch.Tensor, every: torch.Tensor, distance: torch.Tensor,
+                  centroids: torch.Tensor, step: int, off: int,
+                  work: torch.Tensor) -> torch.Tensor:
+    """One ring FPS step: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor. Returns this rank's (B, 4) int64 offer."""
+    if xyz.device.type == "cpu":
+        return fps_ring_step_plain(xyz, every, distance, centroids, step, off, work)
+    return fps_ring_step_kernel(xyz, every, distance, centroids, step, off, work)

@@ -1,12 +1,14 @@
 """Farthest point sampling, plain PyTorch, and the random subsampling of
 training clouds.
 
-The plain version of the FPS kernel (``ops/cuda_fps.py``): the CPU path,
-and what ``chip_smoke.py`` holds the kernel against on the card. Its
-indices equal the JAX ``ops/sampling.py:farthest_point_sample`` bit for
-bit: the same running minimum from 1e10, the same sum order
-``((dx*dx + dy*dy) + dz*dz)`` in separate (never fused) operations, and
-``argmax`` ties going to the lowest index.
+The plain versions of the FPS kernels (``ops/cuda_fps.py``): the CPU path,
+and what ``chip_smoke.py`` holds the kernels against on the card.
+:func:`farthest_point_sample_plain`'s indices equal the JAX
+``ops/sampling.py:farthest_point_sample`` bit for bit: the same running
+minimum from 1e10, the same sum order ``((dx*dx + dy*dy) + dz*dz)`` in
+separate (never fused) operations, and ``argmax`` ties going to the lowest
+index. :func:`fps_ring_step_plain` is one step of the same loop over a
+point-sharded cloud (``parallel/point_sharding.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +69,44 @@ def farthest_point_sample_plain(
         distance = torch.minimum(distance, dist)
         farthest = torch.argmax(distance, dim=-1)
     return centroids.to(torch.int32)
+
+
+LOW32 = 0xFFFFFFFF  # an offer key's low half: the complement of the global index
+
+
+def fps_ring_offers(index: torch.Tensor, coords: torch.Tensor,
+                    dist: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, 4) int64 offers of the (B,) global indices ``index`` at
+    float32 ``coords`` (B, 3): the key ``dist``'s float32 bits (0 where
+    None) shifted left 32 over ``LOW32 - index`` (non-negative floats order
+    as their bits, so the largest key is the largest distance at the
+    lowest index), then the coordinates' bits, sign-extended."""
+    bits = 0 if dist is None else dist.view(torch.int32).long() << 32
+    key = bits | (LOW32 - index)
+    return torch.cat([key[:, None], coords.view(torch.int32).long()], dim=-1)
+
+
+def fps_ring_step_plain(xyz: torch.Tensor, every: torch.Tensor, distance: torch.Tensor,
+                        centroids: torch.Tensor, step: int, off: int,
+                        work: torch.Tensor | None = None) -> torch.Tensor:
+    """One step of FPS over this rank's shard ``xyz`` (B, Nl, 3) float32
+    of a cloud whose global indices start at ``off``: take the previous
+    step's winner, the largest key of the ranks' gathered offers ``every``
+    (P, B, 4) (the start's at step 0), write its global index into
+    ``centroids[:, step]``, fold its squared distances into the running
+    minimum ``distance`` (B, Nl) in place, and return this rank's (B, 4)
+    offer of its farthest point (:func:`fps_ring_offers`). ``work`` is the
+    kernel's and unused here. The kernel (``csrc/fps_ring.cu``) computes
+    the same bit for bit."""
+    win = torch.gather(every, 0, every[..., :1].argmax(dim=0)[None].expand(1, -1, 4))[0]
+    centroids[:, step] = LOW32 - (win[:, 0] & LOW32)
+    c = win[:, 1:].to(torch.int32).view(torch.float32)
+    dx, dy, dz = (xyz[..., k] - c[:, k:k + 1] for k in range(3))
+    torch.minimum(distance, dx * dx + dy * dy + dz * dz, out=distance)
+    local = torch.argmax(distance, dim=-1)
+    lmax = torch.gather(distance, 1, local[:, None])[:, 0]
+    coords = torch.gather(xyz, 1, local[:, None, None].expand(-1, 1, 3))[:, 0]
+    return fps_ring_offers(local + off, coords, lmax)
 
 
 def random_subsample_indices(

@@ -3,7 +3,8 @@
 replication, global BN), ``distributed`` (joining a multi-process run,
 each rank's rows and draws), ``collectives`` (the ``jax.lax``
 collectives over ``torch.distributed``), ``point_sharding`` (ring
-neighbour ops) and ``sharded_backbone`` (the point-sharded eval forward).
+neighbour ops) and ``sharded_backbone`` (the point-sharded eval forward,
+eager or captured).
 
 JAX's exported names resolve on first use, so that a model module can
 import ``parallel.collectives`` without importing the models back.
@@ -13,7 +14,7 @@ __all__ = [
     "make_mesh", "replicate", "shard_batch",
     "ball_query_sharded", "farthest_point_sample_sharded", "index_points_sharded",
     "sample_and_group_sharded", "three_nn_interpolate_sharded",
-    "backbone_apply_point_sharded",
+    "backbone_apply_point_sharded", "ShardedForward",
 ]
 
 _HOMES = {
@@ -24,6 +25,7 @@ _HOMES = {
     "sample_and_group_sharded": "point_sharding",
     "three_nn_interpolate_sharded": "point_sharding",
     "backbone_apply_point_sharded": "sharded_backbone",
+    "ShardedForward": "sharded_backbone",
 }
 
 

@@ -28,11 +28,11 @@ from __future__ import annotations
 
 import torch
 
+from point2cyl_torch.models.backbone import _pick
+from point2cyl_torch.ops import cuda_fps
 from point2cyl_torch.ops.grouping import radius_squared, square_distance_exact
-from point2cyl_torch.ops.sampling import start_indices
+from point2cyl_torch.ops.sampling import fps_ring_offers, fps_ring_step_plain, start_indices
 from point2cyl_torch.parallel import collectives
-
-_LOW32 = 0xFFFFFFFF
 
 
 def _shard_offsets(mesh, nl: int):
@@ -149,7 +149,7 @@ def _ring_three_nn_local(xyz_dst: torch.Tensor, xyz_src: torch.Tensor,
 
 
 def _fps_local(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
-               mesh) -> torch.Tensor:
+               mesh, *, impl: str = "auto") -> torch.Tensor:
     """Farthest point sampling over a point-sharded float32 cloud, equal
     to ``ops.sampling.farthest_point_sample_plain`` index for index: the
     (B, N) minimum distances live sharded as (B, Nl), with the plain
@@ -158,32 +158,26 @@ def _fps_local(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
     maximum as one int64 key, the distance's float32 bits (monotone for
     non-negative floats) over the complement of its global index (so the
     largest key is the largest distance at the lowest index, argmax's
-    first occurrence), beside that point's coordinate bits. JAX's ring
-    spends a psum, a pmax and a pmin a step on the same. Returns (B,
-    npoint) int32 global indices, alike on every rank."""
+    first occurrence), beside that point's coordinate bits
+    (``ops.sampling.fps_ring_offers``). JAX's ring spends a psum, a pmax
+    and a pmin a step on the same. A step is one launch of the ring-step
+    kernel (``ops.cuda_fps.fps_ring_step``) and one all-gather; ``impl``
+    picks it as ``BackboneConfig.fps_impl`` does. Returns (B, npoint)
+    int32 global indices, alike on every rank."""
     if xyz.dtype != torch.float32:
         raise ValueError(f"sharded FPS takes float32 points, got {xyz.dtype}")
+    step = _pick(impl, cuda_fps.fps_ring_step, fps_ring_step_plain)
     b, nl, _ = xyz.shape
     off = mesh.rank * nl
-    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
     farthest = start_indices(b, nl * mesh.world, start_idx, xyz.device)
     c = _owned_gather(xyz, farthest[:, None], mesh)[:, 0]  # (B, 3)
+    every = fps_ring_offers(farthest, c)[None]  # the start, as a winning offer
     distance = torch.full((b, nl), 1e10, dtype=xyz.dtype, device=xyz.device)
     centroids = torch.empty((b, npoint), dtype=torch.int64, device=xyz.device)
+    work = torch.zeros((b, 2), dtype=torch.int64, device=xyz.device)
     for i in range(npoint):
-        centroids[:, i] = farthest
-        dx, dy, dz = x - c[:, 0:1], y - c[:, 1:2], z - c[:, 2:3]
-        dist = dx * dx + dy * dy + dz * dz
-        distance = torch.minimum(distance, dist)
-        local = torch.argmax(distance, dim=-1)
-        lmax = torch.gather(distance, 1, local[:, None])[:, 0]
-        key = (lmax.view(torch.int32).long() << 32) | (_LOW32 - (local + off))
-        coords = torch.gather(xyz, 1, local[:, None, None].expand(-1, 1, 3))[:, 0]
-        offer = torch.cat([key[:, None], coords.view(torch.int32).long()], dim=-1)
+        offer = step(xyz, every, distance, centroids, i, off, work)
         every = collectives.all_gather(offer[None], mesh, dim=0)  # (P, B, 4)
-        win = torch.gather(every, 0, every[..., :1].argmax(dim=0)[None].expand(1, -1, 4))[0]
-        farthest = _LOW32 - (win[:, 0] & _LOW32)
-        c = win[:, 1:].to(torch.int32).view(torch.float32)
     return centroids.to(torch.int32)
 
 

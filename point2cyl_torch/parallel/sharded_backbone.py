@@ -19,6 +19,11 @@ The stages split as JAX's do:
   runs the per-point layers there; the heads stay sharded over N.
 
 Memory per rank is O(N / P + npoint). Eval mode only, as in JAX.
+
+:func:`backbone_apply_point_sharded` runs the forward eagerly;
+:class:`ShardedForward` runs it as one captured program on the card (JAX
+runs it as one XLA program): the ring FPS's steps, a kernel launch and
+an all-gather each, and every other stage replay from one CUDA graph.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from point2cyl_torch.core.config import BackboneConfig
+from point2cyl_torch.core.graphs import step_graphs
 from point2cyl_torch.models.backbone import Backbone
 from point2cyl_torch.parallel import collectives
 from point2cyl_torch.parallel.point_sharding import _fps_local, _group_local, _owned_gather
@@ -56,7 +62,7 @@ def backbone_apply_point_sharded(
     num_sa = len(cfg.sa_npoints)
 
     # SA1 on the ring: the eval forward's FPS starts at point 0
-    fps_idx = _fps_local(pts, np0, 0, mesh)
+    fps_idx = _fps_local(pts, np0, 0, mesh, impl=cfg.fps_impl)
     centres = _owned_gather(pts, fps_idx, mesh)  # (B, np0, 3), alike on every rank
     spl = np0 // mesh.world
     q = centres[:, mesh.rank * spl:(mesh.rank + 1) * spl]
@@ -78,3 +84,36 @@ def backbone_apply_point_sharded(
         xyz_up = dst_xyz
     h = torch.relu(model.bn1(model.fc1(feats_up)))
     return [head(h) for head in model.fc2]
+
+
+class ShardedForward:
+    """:func:`backbone_apply_point_sharded` of ``model`` over ``mesh`` as
+    one captured program: through :func:`~point2cyl_torch.core.graphs.step_graphs`,
+    the first call with a shape runs eagerly (it also creates the NCCL
+    communicator), the second captures the forward, collectives included,
+    in ``thread_local`` mode and replays it, and later calls copy their
+    points in and replay. Over a host-staged mesh (``make_mesh(
+    host_staged=True)``) and on the CPU every call runs eagerly, and
+    ``graphs.eager_because`` says why; :func:`backbone_apply_point_sharded`
+    is the eager path on the card. A failed capture or replay raises. Eval
+    mode only."""
+
+    def __init__(self, mesh, model: Backbone, cfg: BackboneConfig):
+        self.mesh = mesh
+        self.model = model
+        self.cfg = cfg
+        self.graphs = step_graphs(mesh.device, True, mesh)
+
+    def __call__(self, pts: torch.Tensor) -> list[torch.Tensor]:
+        """This rank's rows (B, N / P, out) of each head, from its shard
+        ``pts`` (B, N / P, 3) on the mesh's device; fresh tensors at every
+        call."""
+        if self.model.training:
+            raise ValueError("the point-sharded forward is eval mode only; call model.eval()")
+        if pts.device != self.mesh.device:
+            raise ValueError(f"points on {pts.device}, the mesh's device is {self.mesh.device}")
+        heads = self.graphs(self._forward, {"pts": pts})
+        return [h.clone() for h in heads]
+
+    def _forward(self, inputs: dict[str, torch.Tensor], generator) -> list[torch.Tensor]:
+        return backbone_apply_point_sharded(self.mesh, self.model, self.cfg, inputs["pts"])

@@ -393,7 +393,9 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def cli_main(argv: list[str] | None = None) -> dict:
     """Reconstruct one model; returns the mesh's vertex and face counts,
-    its path and the wall seconds of each stage (``timings``)."""
+    its path, the wall seconds of each stage (``timings``) and, with
+    ``--igr_post_process``, the steps each instance's fine-tune took
+    (``finetune_steps``)."""
     args = build_argparser().parse_args(argv)
     dev = resolve_device(args.device)
     timings: dict[str, float] = {}
@@ -524,6 +526,7 @@ def cli_main(argv: list[str] | None = None) -> dict:
 
     # ---- optional per-instance IGR fine-tuning ----
     decoders = [implicit] * k
+    finetune_steps: list[int] = []
     if args.igr_post_process:
         start = implicit
         if args.igr_post_process_reinit:
@@ -534,9 +537,10 @@ def cli_main(argv: list[str] | None = None) -> dict:
             start = start.to(dev)
         tuner = FineTuner(start)
         for j in range(n_instances):
-            tuner.tune(start, latents[0, j], p2d_n[0, j], n2d[0, j], draw)
+            finetune_steps.append(tuner.tune(start, latents[0, j], p2d_n[0, j], n2d[0, j],
+                                             draw))
             decoders[j] = tuner.tuned_copy()
-            print(f"IGR fine-tuned instance {j}.")
+            print(f"IGR fine-tuned instance {j} ({finetune_steps[-1]} steps).")
         t = lap("igr_finetune", t)
 
     # ---- CSG compositing + mesh ----
@@ -581,7 +585,8 @@ def cli_main(argv: list[str] | None = None) -> dict:
     print(f"Reconstructed {len(verts)} verts / {len(faces)} faces -> {out_ply}")
     print(f"Total time: {time.perf_counter() - t_start:.1f}s")
     return {"verts": len(verts), "faces": len(faces), "out_ply": out_ply,
-            "intermediates": len(intermediates), "timings": timings}
+            "intermediates": len(intermediates), "timings": timings,
+            "finetune_steps": finetune_steps}
 
 
 if __name__ == "__main__":

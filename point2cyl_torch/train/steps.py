@@ -35,7 +35,7 @@ data-parallel step over NCCL is captured with its collectives (the BN
 sums, their backward and the gradient all-reduce); a mesh whose
 collectives go through host memory (``make_mesh(host_staged=True)``, a
 gloo group on cards, its creator's choice) runs eagerly, and its
-``graphs.eager_because`` says so (:func:`step_graphs`).
+``graphs.eager_because`` says so (:func:`~point2cyl_torch.core.graphs.step_graphs`).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from typing import Iterable, NamedTuple, Sequence
 import torch
 
 from point2cyl_torch.core.config import TrainConfig
-from point2cyl_torch.core.graphs import StepGraphs
+from point2cyl_torch.core.graphs import step_graphs
 from point2cyl_torch.core.schedules import staircase_bn_momentum, staircase_lr
 from point2cyl_torch.losses.aggregate import base_barrel_ce_loss, compute_all_losses
 from point2cyl_torch.losses.normal import normal_loss
@@ -267,18 +267,6 @@ class KeptState:
         for group, old in zip(self.groups.values(), taken):
             now = torch.cat([t.reshape(-1) for t in group])
             torch._foreach_copy_(group, _views(torch.where(ok, now, old), group))
-
-
-def step_graphs(device: torch.device, graph: bool, mesh) -> StepGraphs:
-    """A step owner's :class:`StepGraphs`: captured on the card unless
-    ``graph`` is False or ``mesh`` stages its collectives through host
-    memory (a graph cannot hold a host round trip; such a step runs
-    eagerly, ``eager_because`` "host-staged mesh"). A mesh's captures run
-    in ``thread_local`` error mode, out of reach of NCCL's watchdog."""
-    staged = mesh is not None and mesh.group is not None and mesh.host_staged
-    return StepGraphs(device, enabled=graph and not staged,
-                      eager_because="host-staged mesh" if graph and staged else "graph=False",
-                      capture_error_mode="global" if mesh is None else "thread_local")
 
 
 class Trainer:

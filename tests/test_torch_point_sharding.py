@@ -28,9 +28,13 @@ from point2cyl_torch.models.backbone import Backbone as TorchBackbone
 from point2cyl_torch.ops.grouping import (ball_query_plain, index_points,
                                           sample_and_group, three_nn_interpolate_plain,
                                           three_nn_weights_plain)
-from point2cyl_torch.ops.sampling import farthest_point_sample_plain
+from point2cyl_torch.ops import cuda_fps
+from point2cyl_torch.ops.sampling import (farthest_point_sample_plain, fps_ring_offers,
+                                          fps_ring_step_plain)
+from point2cyl_torch.parallel import point_sharding as torch_ps
 from point2cyl_torch.parallel.mesh import make_mesh as torch_make_mesh
-from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+from point2cyl_torch.parallel.sharded_backbone import (ShardedForward,
+                                                       backbone_apply_point_sharded)
 from point2cyl_tpu.core.config import BackboneConfig
 from point2cyl_tpu.models.backbone import Backbone
 from point2cyl_tpu.parallel import point_sharding as ps
@@ -74,6 +78,7 @@ def make_inputs() -> dict[str, np.ndarray]:
         "nn_dst": cloud(rng, 2, 256), "nn_src": src,
         "nn_feats": rng.normal(size=(2, 64, 9)).astype(np.float32),
         "fps_xyz": cloud(rng, 3, 512), "fps_start": FPS_START,
+        "fps_dup_xyz": np.tile(cloud(rng, 2, 128), (1, 4, 1)),
         "sag_xyz": sag_xyz, "sag_feats": rng.normal(size=(2, 256, 6)).astype(np.float32),
         "pts": cloud(rng, 2, 256),
     }
@@ -99,6 +104,7 @@ def jax_references(p: int, inp: dict, variables) -> dict:
         "three_nn": ps.three_nn_interpolate_sharded(mesh, j["nn_dst"], j["nn_src"],
                                                     j["nn_feats"]),
         "fps": ps.farthest_point_sample_sharded(mesh, j["fps_xyz"], 64, start_idx=FPS_START),
+        "fps_dup": ps.farthest_point_sample_sharded(mesh, j["fps_dup_xyz"], 64),
         # jitted: shard_map's loops run op by op otherwise (about 20x slower)
         "sag": jax.jit(partial(ps.sample_and_group_sharded, mesh, 0.4, 16))(
             j["sag_xyz"], j["sag_feats"], j["sag_fps"]),
@@ -127,6 +133,10 @@ def sharded(tmp_path_factory):
     procs = {p: start_ranks("sharding", p, roots[p], payload) for p in SIZES}
     try:
         jax_refs = {p: jax_references(p, inp, variables) for p in SIZES}
+        one = make_mesh(1)
+        jax_refs[1] = {key: np.asarray(ps.farthest_point_sample_sharded(
+            one, jax.numpy.asarray(inp[key + "_xyz"]), 64, start_idx=start))
+            for key, start in (("fps", FPS_START), ("fps_dup", 0))}
         model = TorchBackbone(tcfg)
         model.load_state_dict(state)
         model.eval()
@@ -259,3 +269,90 @@ def test_point_sharded_backbone_on_one_rank_is_the_forward(sharded):
         backbone_apply_point_sharded(torch_make_mesh(devices=["cpu"]), model, model.cfg,
                                      inp["pts"])
     model.eval()
+
+
+def test_ring_step_plain_looped_on_one_rank(sharded):
+    """P = 1: the plain ring step looped from the start's offer, each
+    step's offer taken as the next step's gathered offers, gives the
+    single-device FPS's indices and JAX's sharded FPS's on a one-device
+    mesh; each offer is the farthest point's key and coordinates."""
+    _, inp, jax_refs, _, _ = sharded
+    xyz = inp["fps_xyz"]
+    b = xyz.shape[0]
+    start = torch.full((b,), FPS_START, dtype=torch.int64)
+    every = fps_ring_offers(start, xyz[:, FPS_START])[None]
+    distance = torch.full((b, 512), 1e10)
+    centroids = torch.empty((b, 64), dtype=torch.int64)
+    for i in range(64):
+        offer = fps_ring_step_plain(xyz, every, distance, centroids, i, 0)
+        far = distance.argmax(dim=-1)
+        assert torch.equal(offer[:, 0] & 0xFFFFFFFF, 0xFFFFFFFF - far)
+        assert torch.equal(offer[:, 1:].int().view(torch.float32),
+                           xyz[torch.arange(b), far])
+        every = offer[None]
+    want = farthest_point_sample_plain(xyz, 64, FPS_START)
+    torch.testing.assert_close(centroids.int(), want, rtol=0, atol=0)
+    np.testing.assert_array_equal(want.numpy(), jax_refs[1]["fps"])
+
+
+@pytest.mark.parametrize("p", (1, *SIZES))
+def test_sharded_fps_with_cross_rank_ties(sharded, p):
+    """Every shard holds the same points (P = 2 and 4) or the cloud the
+    same 128 points four times (P = 1), so every step's farthest distance
+    ties across ranks: the lowest global index wins, as in the
+    single-device FPS and JAX's sharded FPS."""
+    results, inp, jax_refs, _, _ = sharded
+    want = farthest_point_sample_plain(inp["fps_dup_xyz"], 64)
+    if p == 1:
+        got = [torch_ps._fps_local(inp["fps_dup_xyz"], 64, 0,
+                                   torch_make_mesh(devices=["cpu"]))]
+    else:
+        got = [r["fps_dup"] for r in results[p]]
+    for g in got:
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    assert int(want.max()) < 128  # the first copy's indices, never a later one's
+    np.testing.assert_array_equal(want.numpy(), jax_refs[p]["fps_dup"])
+
+
+@pytest.mark.parametrize("p", (1, *SIZES))
+def test_sharded_forward_owner_on_the_cpu(sharded, p):
+    """``ShardedForward`` on the CPU runs eagerly and says why; its heads
+    equal ``backbone_apply_point_sharded``'s bit for bit at every call; in
+    train mode it raises."""
+    results, inp, _, _, model = sharded
+    if p == 1:
+        owner = ShardedForward(torch_make_mesh(devices=["cpu"]), model, model.cfg)
+        want = backbone_apply_point_sharded(owner.mesh, model, model.cfg, inp["pts"])
+        got = [owner(inp["pts"]) for _ in range(2)]
+        reasons = [owner.graphs.eager_because]
+        assert owner.graphs.eager_calls == 2 and owner.graphs.captures == 0
+        model.train()
+        with pytest.raises(ValueError, match="eval mode"):
+            owner(inp["pts"])
+        model.eval()
+        pairs = [(g, want) for g in got]
+    else:
+        pairs = [(g, r["backbone"]) for r in results[p] for g in r["owner"]]
+        reasons = [r["owner_eager_because"] for r in results[p]]
+    assert reasons == ["cpu"] * len(reasons)
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_ring_fps_kernel_choice_raises_on_the_cpu(sharded):
+    """``fps_impl="kernel"`` (or the kernel's wrapper) with CPU tensors
+    raises: no silent plain version."""
+    _, inp, _, _, model = sharded
+    mesh = torch_make_mesh(devices=["cpu"])
+    xyz = inp["fps_xyz"]
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_ps._fps_local(xyz, 8, 0, mesh, impl="kernel")
+    every = fps_ring_offers(torch.zeros(3, dtype=torch.int64), xyz[:, 0])[None]
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fps.fps_ring_step_kernel(xyz, every, torch.full((3, 512), 1e10),
+                                      torch.empty((3, 8), dtype=torch.int64), 0, 0,
+                                      torch.zeros((3, 2), dtype=torch.int64))
+    kernel_cfg = dataclasses.replace(model.cfg, fps_impl="kernel")
+    with pytest.raises(ValueError, match="CUDA"):
+        backbone_apply_point_sharded(mesh, model, kernel_cfg, inp["pts"])

@@ -29,7 +29,8 @@ from point2cyl_torch.parallel import collectives
 from point2cyl_torch.parallel import point_sharding as ps
 from point2cyl_torch.parallel.distributed import join, process_batch_slice
 from point2cyl_torch.parallel.mesh import make_mesh, shard_batch, use_global_batch_norm
-from point2cyl_torch.parallel.sharded_backbone import backbone_apply_point_sharded
+from point2cyl_torch.parallel.sharded_backbone import (ShardedForward,
+                                                       backbone_apply_point_sharded)
 from point2cyl_torch.train import steps
 from point2cyl_torch.train import train_joint as TJ
 from point2cyl_torch.train import train_pc
@@ -217,12 +218,16 @@ def sharding_suite(mesh, inp: dict) -> dict:
                                                       sh(inp["nn_src"]), sh(inp["nn_feats"]))
     out["fps"] = ps.farthest_point_sample_sharded(mesh, sh(inp["fps_xyz"]), 64,
                                                   start_idx=inp["fps_start"])
+    out["fps_dup"] = ps.farthest_point_sample_sharded(mesh, sh(inp["fps_dup_xyz"]), 64)
     for name, feats in (("sag", sh(inp["sag_feats"])), ("sag_nofeats", None)):
         q, g = ps.sample_and_group_sharded(mesh, 0.4, 16, sh(inp["sag_xyz"]), feats,
                                            inp["sag_fps"])
         out[name] = (q, g)
     model = backbone(inp["cfg"], inp["state"]).eval()
     out["backbone"] = backbone_apply_point_sharded(mesh, model, inp["cfg"], sh(inp["pts"]))
+    owner = ShardedForward(mesh, model, inp["cfg"])
+    out["owner"] = [owner(sh(inp["pts"])) for _ in range(2)]
+    out["owner_eager_because"] = owner.graphs.eager_because
     return out
 
 
