@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing, parallel package, bf16 compute and captured steps on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training, evaluation, reconstruction, preprocessing, parallel package, bf16 compute, captured steps and large clouds on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # what a check of the port runs
     python3 chip_smoke.py --profile        # also print device-time breakdowns
@@ -6,9 +6,10 @@
     python3 chip_smoke.py --only-parallel multi-card  # only 12c (two cards)
     python3 chip_smoke.py --only-bf16      # the set-up and phase 13 alone
     python3 chip_smoke.py --only-graphs    # the set-up and phases 14 and 15 alone
+    python3 chip_smoke.py --only-large     # the set-up and phase 17 alone
     python3 chip_smoke.py --recon-igr-post-process  # reconstruction with the IGR post-process
 
-Phases, in order (phases 14, 15 and 12 run first, right after the
+Phases, in order (phases 14, 15, 12 and 17 run first, right after the
 set-up); any failure raises, exits non-zero and prints no result:
 
 1. Set-up: the card's name and power limit (nvidia-smi), torch/CUDA
@@ -185,14 +186,19 @@ set-up); any failure raises, exits non-zero and prints no result:
    bit-equal to the one-process step under deterministic algorithms
    (loss, every gradient, BN statistics; the one-process step repeated
    bit-equal first), and the point-sharded forward at P=1 (N=8192, B=4,
-   heads [3, 16]) bit-equal to ``Backbone.forward``; the ring-step kernel
+   heads [3, 16]; SA1 through the single-device FPS and fused ball query,
+   no ring step) bit-equal to ``Backbone.forward``; the ring-step kernel
    (``csrc/fps_ring.cu``) against its plain version at SA1 (B=4, N=8192)
    and at 131,072 points (B=1), 512 steps from one start, the offers and
    running distances after every step and the centroids bit-equal; then
    ``ShardedForward`` (the captured forward): five calls (eager, capture,
    replays) each bit-equal to ``Backbone.forward``, the kernels' wrappers
    counted in the eager call and the capture only, and one graph launch a
-   replay (a trace). b. Two ranks on this card over gloo, every
+   replay (a trace); and the ring FPS a P > 1 forward runs
+   (``point_sharding._fps_ring``: a ring-step launch and an NCCL
+   all-gather a step) captured at world 1, five calls each bit-equal to
+   the FPS kernel, 512 ring steps in the eager call and the capture, none
+   in a replay, one graph launch a replay (a trace). b. Two ranks on this card over gloo, every
    collective staged through host memory (``torch.multiprocessing``
    spawns them; NCCL refuses two ranks on one card): Trainer A's and the
    joint trainer's step at B=4 (2 rows a rank, 2,048 sketch points)
@@ -210,7 +216,8 @@ set-up); any failure raises, exits non-zero and prints no result:
    phase says it skipped c. d. The world-1 data-parallel step beside the
    one-process step (CUDA-event medians); in turns (the host's clock),
    the captured P=1 sharded forward beside the eager one and the forward,
-   the captured ring FPS at SA1 beside the eager one and the FPS kernel,
+   the captured world-1 ring FPS at SA1 beside the eager one and the FPS
+   kernel,
    with the replay's device time, busy share and host launches from a
    trace; one world-1 all-gather and all-reduce; one cloud of 131,072
    points at P=1 captured beside eager and the all-plain single-device
@@ -296,18 +303,50 @@ set-up); any failure raises, exits non-zero and prints no result:
    and graph launches a step (a trace), each graph pool's GiB and the
    capture call's ms.
 
+17. Clouds beyond 16,384 points (``csrc/fps_grid.cu``, the streamed
+   query of ``csrc/ballquery.cu``). a. The grid-wide FPS and the streamed
+   SA1 ball query against their plain versions, index for index and
+   value for value: B=1 and 4 at N=16,385 (the query forced onto the
+   stream; the planned staged scan beside it), B=4 and 16 at 32,768, B=1
+   and 4 at 131,072, B=1 at 2^20, FPS at B=64 and 200 (N=20,000: points
+   beyond the registers streamed), start tensors on the card, each FPS
+   twice in a row (the meeting slots reset themselves); a cloud of 4,096
+   points repeated 8 times (ties across CTAs); N=32,767 with a dense
+   cluster, NaN and inf points, a far, a sparse-region and a NaN query,
+   nsample 63 and the idx-only route; a row that is not 16-byte aligned;
+   both inside one captured graph, replayed on new clouds. b. Each new
+   kernel timed (25 CUDA-event runs) beside its plain version and bound
+   at N=32,768 (B=4), 131,072 (B=4 and 1) and 2^20 (B=1); the SA1 gather
+   backward and the 3-NN backward at 32,768 (bit-equal to the host's
+   ordered sum and a second run, beside ``index_add_``), the 3-NN forward
+   at FP1 at 131,072 and 2^20. c. Serving at N=131,072 (buckets 1 and 4):
+   requests of 1 and 4 clouds, eager, capture and replay each bit-equal
+   to an eager session, the heads within 1e-3 of the all-plain forward,
+   launches a request, ms of a 4-cloud request captured and eager. d.
+   Trainer A at N=32,768 (B=4, K=8) through the CLI (2 epochs, random FPS
+   starts), three captured steps bit-equal to eager ones under
+   deterministic algorithms, ms a step, and a saliency backward through
+   the streamed query's gather backward. e. One NCCL rank: the P=1
+   ``ShardedForward`` at 2^20 points (eager, capture, replay) bit-equal to
+   ``Backbone.forward`` at 2^20, with the seconds, peak and pool GiB.
+
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
 with latents, ``serve_latents_launches``, in the joint trainer,
 ``joint_launches``, in one reconstruction, ``recon_launches``, over
 the 4 steps trained from the K=8 pack, ``pack_launches``, and in phase
-12, ``parallel_launches``, in phase 13, ``bf16_launches``, and inside
+12, ``parallel_launches``, in phase 13, ``bf16_launches``, in phase 17's
+paths, ``large_launches``, and inside
 phases 14 and 15's replays, ``graph_launches``: the launches counted
 in a graph's capture times its replays, for the K=8 train step, bucket
 16, the eval step, the joint step and the world-1 data-parallel Trainer
 A step). The ring-step kernel's rows (``fps_ring_step@sa1_p1`` and
-``@n131072_p1``) come from phase 12a; their ``launches`` are a P=1
-sharded forward's. The last line is ``{"ok": true, "device": {...}}``.
+``@n131072_p1``) come from phase 12a; their ``launches`` are a rank's in
+12b's P=2 sharded forward (at P=1 there is no ring). Phase 17's rows
+(``fps_grid@...``, ``ball_query_stream@...`` and the backwards and 3-NN
+at the new N) carry the launches of phase 17's paths: a 131,072-point
+request, a 32,768-point train step, a saliency backward. The last line
+is ``{"ok": true, "device": {...}}``.
 
 ``--recon-igr-post-process`` runs, after the set-up and alone, the
 reconstruction CLI with ``--igr_post_process`` at R=256 on a joint
@@ -401,6 +440,64 @@ def scanned_points(idx: torch.Tensor, n: int) -> int:
     repeats its first index in the last slot)."""
     full = idx[..., -1] != idx[..., 0]
     return int(torch.where(full, idx[..., -1].long() + 1, n).sum())
+
+
+def scanned_rows(idx: torch.Tensor, n: int) -> int:
+    """Cloud rows a first-nsample ball query must read on this data: in each
+    batch row the prefix up to the farthest index any query needs (its
+    nsample-th in-radius point, or all N where a query's row is short)."""
+    full = idx[..., -1] != idx[..., 0]
+    reach = torch.where(full, idx[..., -1].long() + 1, n)
+    return int(reach.reshape(idx.shape[0], -1).amax(dim=1).sum())
+
+
+def fps_work(xyz, npoint):
+    """(bytes, operations) of an FPS call: the cloud read once, the indices
+    written; per point and iteration 3 sub, 3 mul, 2 add, 1 min, 1 compare."""
+    b, n, _ = xyz.shape
+    return xyz.numel() * 4 + b * npoint * 4, 10.0 * b * npoint * n
+
+
+def group_work(xyz, new_xyz, idx, width, feats=None):
+    """(bytes, operations) of a grouped ball query: the cloud's rows the
+    selection needs (:func:`scanned_rows`) and the centres read once, idx
+    and grouped written once; per distance test of the index-order scan (3
+    sub, 3 mul, 2 add, 1 compare), and 3 subs a slot."""
+    b, s, ns = idx.shape
+    row_bytes = 12 + (feats.shape[-1] * 4 if feats is not None else 0)
+    nbytes = scanned_rows(idx, xyz.shape[1]) * row_bytes + new_xyz.numel() * 4 \
+        + idx.numel() * 4 + b * s * ns * width * 4
+    return nbytes, 9.0 * scanned_points(idx, xyz.shape[1]) + 3.0 * idx.numel()
+
+
+def knn_work(dst, src, feats):
+    """(bytes, operations) of the 3-NN forward: per pair 8 for the distance
+    and 1 compare; per output 3 mul, 2 add."""
+    b, n, _ = dst.shape
+    s, c = feats.shape[1], feats.shape[2]
+    nbytes = (dst.numel() + src.numel() + feats.numel() + b * n * c) * 4
+    return nbytes, 9.0 * b * n * s + 5.0 * b * n * c
+
+
+def query_work(xyz, new_xyz, idx):
+    """(bytes, operations) of the idx-only ball query: the cloud's rows the
+    selection needs, the centres read once, idx written once."""
+    nbytes = scanned_rows(idx, xyz.shape[1]) * 12 + (new_xyz.numel() + idx.numel()) * 4
+    return nbytes, 9.0 * scanned_points(idx, xyz.shape[1])
+
+
+def scatter_work(idx, dg, n):
+    """(bytes, operations) of a gather's backward: idx and dg read once,
+    the (B, n, W) table written once; one add per cotangent element."""
+    b, w = idx.shape[0], dg.shape[-1]
+    return (idx.numel() + dg.numel() + b * n * w) * 4, float(dg.numel())
+
+
+def knn_bwd_work(idx, w, g, s):
+    """(bytes, operations) of the 3-NN backward: 3 multiplies and 3 adds
+    per cotangent element."""
+    b, _, c = g.shape
+    return (idx.numel() + w.numel() + g.numel() + b * s * c) * 4, 6.0 * g.numel()
 
 
 def ball_population(xyz: torch.Tensor, new_xyz: torch.Tensor, r2: float) -> int:
@@ -1255,6 +1352,8 @@ def kernel_counters() -> dict:
         "three_nn": cuda_knn.three_nn_interpolate_kernel,
         "three_nn_backward": cuda_knn.three_nn_backward_kernel,
         "fps_ring_step": cuda_fps.fps_ring_step_kernel,
+        "fps_grid": cuda_fps.farthest_point_sample_grid_kernel,
+        "ball_query_stream": cuda_ballquery.ball_query_stream_kernel,
     }
 
 
@@ -1269,12 +1368,17 @@ def counted(fn):
     return out, {name: c.launches for name, c in counters.items()}
 
 
-# the sharded forward's launches: SA1 runs on the ring (plain PyTorch), SA2
-# and the feature propagations through the model's kernels
+# the sharded forward's launches at P > 1: SA1 runs on the ring (a ring-step
+# kernel a step, the rest plain PyTorch), SA2 and the feature propagations
+# through the model's kernels
 PER_SHARDED_FORWARD = {"fps": 1, "ball_query": 0, "ball_query_grouped": 0,
                        "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                        "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
-                       "fps_ring_step": 512}
+                       "fps_ring_step": 512, "fps_grid": 0, "ball_query_stream": 0}
+# at P=1 (N=8192) SA1 takes the single-device FPS and fused ball query: no
+# ring step, no all-gather for its FPS
+PER_SHARDED_FORWARD_P1 = {**PER_SHARDED_FORWARD, "fps": 2, "ball_query_grouped": 1,
+                          "fps_ring_step": 0}
 # JAX test tolerances of the data-parallel steps (tests/test_parallel.py)
 DP_TOL = {"extrusion": 6e-3, "total": 6e-3}
 JOINT_AXIS_PATH = ("manifold", "eikonal", "sald", "latent", "im_total", "total")
@@ -1794,7 +1898,7 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
             lambda: backbone_apply_point_sharded(mesh, model, cfg, pts))
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               "12a: the P=1 sharded forward differs from Backbone.forward")
-        check(sharded_launches == PER_SHARDED_FORWARD,
+        check(sharded_launches == PER_SHARDED_FORWARD_P1,
               f"12a: sharded forward launched {sharded_launches}")
         # the ring step against its plain version, every step, at SA1 and
         # at 131,072 points
@@ -1814,11 +1918,39 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
         check(og.eager_calls == 1 and og.captures == 1 and og.replays == 4,
               f"12a: {og.eager_calls} eager calls, {og.captures} captures, "
               f"{og.replays} replays")
-        check(calls[0] == calls[1] == PER_SHARDED_FORWARD and not any(calls[2].values()),
+        check(calls[0] == calls[1] == PER_SHARDED_FORWARD_P1 and not any(calls[2].values()),
               f"12a: the captured forward's calls launched {calls[:3]}")
         replay = traced_calls(lambda: owner(pts))
         check(replay["host_graph_launches"] == 1,
               f"12a: a replay made {replay['host_graph_launches']} graph launches")
+        # the ring FPS that a P > 1 forward runs, here at world 1 over NCCL:
+        # eager, capture, replays, each bit-equal to the FPS kernel; np0
+        # ring-step launches in the eager call and in the capture, none in a
+        # replay, and one graph launch a replay
+        ring = step_graphs(dev, True, mesh)
+
+        def ring_fps():
+            return ring(lambda x, _: ps._fps_ring(x["pts"], np0, 0, mesh), {"pts": pts})
+
+        # no_grad, not inference_mode: a replay copies into the graph's
+        # static input, a tensor made outside inference mode
+        with torch.no_grad():
+            fps_want = cuda_fps.farthest_point_sample(pts, np0)
+            ring_calls = []
+            for i in range(5):
+                ring_idx, launched = counted(ring_fps)
+                check(torch.equal(ring_idx, fps_want),
+                      f"12a: call {i} of the captured world-1 ring FPS differs from the "
+                      "FPS kernel")
+                ring_calls.append(launched["fps_ring_step"])
+            check(ring.eager_calls == 1 and ring.captures == 1 and ring.replays == 4,
+                  f"12a ring FPS: {ring.eager_calls} eager calls, {ring.captures} captures, "
+                  f"{ring.replays} replays")
+            check(ring_calls == [np0, np0, 0, 0, 0],
+                  f"12a: the captured ring FPS's calls launched {ring_calls} ring steps")
+            ring_replay = traced_calls(ring_fps)
+        check(ring_replay["host_graph_launches"] == 1,
+              f"12a: a ring FPS replay made {ring_replay['host_graph_launches']} graph launches")
         ran.append("a")
         print(json.dumps({"phase": "12a", "world": 1, "backend": "nccl",
                           "dp_step_bit_equal": True, "single_step_repeats": repeatable,
@@ -1832,7 +1964,13 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
                               "kernels": replay["host_kernel_launches"]},
                           "dp_launches": records["dp_launches"],
                           "sharded_launches": sharded_launches,
-                          "captured_forward_capture_launches": calls[1]}), flush=True)
+                          "captured_forward_capture_launches": calls[1],
+                          "captured_ring_fps_bit_equal": {"calls": 5,
+                                                          "ring_step_launches": ring_calls},
+                          "ring_fps_replay_host_launches": {
+                              "graphs": ring_replay["host_graph_launches"],
+                              "kernels": ring_replay["host_kernel_launches"]},
+                          "ring_fps_replay_device_ms": ring_replay["device_ms"]}), flush=True)
 
         # d. timings at world 1: the data-parallel step beside the
         # one-process step (the BN and gradient all-reduces); in turns, the
@@ -1853,22 +1991,14 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
                 end.synchronize()
                 step_ms[name].append(start.elapsed_time(end))
         del single, dp_trainer
-        ring = step_graphs(dev, True, mesh)
-
-        def ring_fps():
-            return ring(lambda x, _: ps.farthest_point_sample_sharded(mesh, x["pts"], np0),
-                        {"pts": pts})
-
-        # no_grad, not inference_mode: a replay copies into the graph's
-        # static input, a tensor made outside inference mode
         with torch.no_grad():
-            check(all(torch.equal(ring_fps(), cuda_fps.farthest_point_sample(pts, np0))
-                      for _ in range(3)), "12d: the captured ring FPS differs from the kernel")
+            check(all(torch.equal(ring_fps(), fps_want) for _ in range(3)),
+                  "12d: the captured ring FPS differs from the kernel")
             turns = in_turns({
                 "captured_forward": lambda: owner(pts),
                 "eager_forward": lambda: backbone_apply_point_sharded(mesh, model, cfg, pts),
                 "forward": lambda: model(pts), "captured_ring_fps": ring_fps,
-                "eager_ring_fps": lambda: ps.farthest_point_sample_sharded(mesh, pts, np0),
+                "eager_ring_fps": lambda: ps._fps_ring(pts, np0, 0, mesh),
                 "fps_kernel": lambda: cuda_fps.farthest_point_sample(pts, np0)}, rounds=5)
             fwd_ms = time_ms(lambda: model(pts))
             fps_ms = time_ms(lambda: cuda_fps.farthest_point_sample(pts, np0))
@@ -1965,7 +2095,8 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
     return {"dp_step_per_rank": report["dp_launches_per_rank"],
             "joint_step_per_rank": report["joint_launches_per_rank"],
             "sharded_forward": sharded_launches,
-            "sharded_forward_capture": calls[1]}, ring_rows
+            "sharded_forward_capture": calls[1],
+            "sharded_forward_p2": report["sharded_launches_per_rank"]}, ring_rows
 
 
 # ---- phase 13: bf16 compute --------------------------------------------------
@@ -2160,7 +2291,7 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                 "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                 "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2,
-                "fps_ring_step": 0}
+                "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
     tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
                        pred_extrusion=True, pred_center=True, seed=0)
     tcfg16 = dataclasses.replace(tcfg, compute_dtype="bfloat16")
@@ -2261,7 +2392,7 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                    "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
-                   "fps_ring_step": 0}
+                   "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
     paths = {}
     for name, c in (("bf16", cfg16), ("fp32", cfg)):
         paths[name] = os.path.join(root, f"{name}.p2ct")
@@ -2355,7 +2486,7 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
             lambda: backbone_apply_point_sharded(mesh, model, cfg16, pts))
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               "13d: the P=1 sharded bf16 forward differs from Backbone.forward")
-        check(sharded_launches == PER_SHARDED_FORWARD,
+        check(sharded_launches == PER_SHARDED_FORWARD_P1,
               f"13d: sharded bf16 forward launched {sharded_launches}")
     finally:
         torch.distributed.destroy_process_group()
@@ -3224,6 +3355,445 @@ def graphs2_phase(args, card: str, dev, root: str) -> dict:
     return graph_launches
 
 
+# ---- phase 17: clouds beyond 16,384 points -------------------------------------
+
+# the heads of a large cloud against the all-plain forward (phase 12d's)
+LARGE_HEADS_ATOL = 1e-3
+# one forward of a cloud above the old limits: SA1 through the grid FPS and
+# the streamed ball query, SA2 and the feature propagations as at N=8192
+PER_LARGE_FORWARD = {**PER_SHARDED_FORWARD_P1, "fps": 1, "ball_query_grouped": 0,
+                     "fps_grid": 1, "ball_query_stream": 1}
+# Trainer A's step at N=32,768: the forward's, and the SA2 gather and 3-NN
+# backwards (the clouds take no gradient)
+PER_LARGE_STEP = {**PER_LARGE_FORWARD, "sa_grouped_backward": 1, "three_nn_backward": 2}
+LARGE_SOURCE = {"fps_grid": "point2cyl_torch/csrc/fps_grid.cu",
+                "ball_query_stream": "point2cyl_torch/csrc/ballquery.cu",
+                "ball_query_grouped_backward": "point2cyl_torch/csrc/target_sum.cu",
+                "three_nn": "point2cyl_torch/csrc/knn3.cu",
+                "three_nn_backward": "point2cyl_torch/csrc/target_sum.cu"}
+LARGE_REPLACES = {
+    "fps_grid": "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
+    "ball_query_stream": "point2cyl_tpu/ops/pallas_ballquery.py:276 _ballquery_grouped_kernel",
+    "ball_query_grouped_backward": "point2cyl_tpu/ops/pallas_ballquery.py:675 "
+                                   "_bqg_scatter_kernel",
+    "three_nn": "point2cyl_tpu/ops/pallas_knn.py:97 _knn3_kernel",
+    "three_nn_backward": "point2cyl_tpu/ops/pallas_knn.py:110 _knn3_bwd_kernel"}
+
+
+def large_kernel_checks(dev, rng) -> dict:
+    """Phase 17a: the grid FPS and the streamed ball query against their
+    plain versions on the card, index for index and value for value: the
+    main shapes above the old limits, FPS with points streamed beyond
+    its registers, a cloud of repeated points (ties
+    across CTAs), start tensors on the card, two calls in a row, N not a
+    multiple of 4 or of the tile, NaN and inf coordinates, a far and a
+    sparse-region query, a dense cluster, nsample 63, a row that is not
+    16-byte aligned, the idx-only route; then both inside one captured
+    graph, replayed on new clouds. Returns the inputs the timings use."""
+    from point2cyl_torch.ops import cuda_ballquery, cuda_fps
+    from point2cyl_torch.ops.grouping import ball_query_plain, index_points
+
+    cfg = full_width_config(8192)
+    r1, ns1, np1 = cfg.sa_radii[0], cfg.sa_nsamples[0], cfg.sa_npoints[0]
+    fps_k, bq_k = cuda_fps.farthest_point_sample_grid_kernel, cuda_ballquery.ball_query_stream_kernel
+    cases, kept = [], {}
+
+    def fps_case(label, xyz, start):
+        want = cuda_fps.farthest_point_sample_plain(xyz, np1, start)
+        before = fps_k.launches
+        got = [cuda_fps.farthest_point_sample(xyz, np1, start) for _ in range(2)]
+        check(all(torch.equal(g, want) for g in got) and fps_k.launches == before + 2,
+              f"17a fps {label}: the grid kernel differs from the plain version")
+        cases.append(f"fps {label}")
+        return want
+
+    def bq_case(label, xyz, centres, nsample=ns1, gather=True):
+        plan = cuda_ballquery.ball_query_plan(xyz.shape[0], xyz.shape[1], centres.shape[1],
+                                              nsample, gather=gather, select="stream")
+        if gather:
+            want = cuda_ballquery.ball_query_grouped_plain(r1, nsample, xyz, centres)
+            got = bq_k(r1, nsample, xyz, centres, plan)
+            ok = torch.equal(got[0], want[0]) and same_bits(got[1], want[1])
+        else:
+            want = ball_query_plain(r1, nsample, xyz, centres)
+            got = bq_k(r1, nsample, xyz, centres, plan, gather=False)
+            ok = torch.equal(got, want)
+        check(ok, f"17a ball query {label}: the streamed kernel differs from the plain version")
+        cases.append(f"ball query {label}")
+        return got
+
+    with torch.inference_mode():
+        for b, n in ((1, 16385), (4, 16385), (4, 32768), (16, 32768), (1, 131072), (4, 131072),
+                     (1, 2**20)):
+            xyz = torch.from_numpy(clouds(1700 + n % 1000 + b, b, n)).to(dev)
+            start = torch.from_numpy(rng.integers(0, n, size=b)).to(dev)
+            idx = fps_case(f"B={b} N={n}, card start", xyz, start)
+            centres = index_points(xyz, idx)
+            bq_case(f"B={b} N={n}", xyz, centres)
+            if n <= 131072:
+                # the routes the planner picks (the staged scan at 16,385)
+                got = cuda_ballquery.ball_query_grouped(r1, ns1, xyz, centres)
+                want = cuda_ballquery.ball_query_grouped_plain(r1, ns1, xyz, centres)
+                check(torch.equal(got[0], want[0]) and same_bits(got[1], want[1]),
+                      f"17a ball query B={b} N={n}: the planned route differs")
+            kept[(b, n)] = (xyz, start, centres)
+        # points beyond the plan's registers, streamed from global memory
+        # every step: 2 CTAs of 1,024 threads a cloud at B=64, one CTA of
+        # 512 threads at B=200
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for b, n in ((64, 20000), (200, 20000)):
+            plan = cuda_fps.fps_grid_plan(b, n, sms)
+            check(plan.streamed > 0, f"17a: the plan at B={b} N={n} streams nothing: {plan}")
+            xyz = torch.from_numpy(clouds(1800 + b, b, n)).to(dev)
+            fps_case(f"B={b} N={n}, {plan.streamed} points streamed",
+                     xyz, torch.from_numpy(rng.integers(0, n, size=b)).to(dev))
+        # repeated points: 4,096 distinct points 8 times, so the farthest
+        # distance ties across the CTAs of a cloud at every step
+        base = clouds(1801, 2, 4096)
+        dup = torch.from_numpy(np.tile(base, (1, 8, 1))).to(dev)
+        idx = fps_case("repeated points", dup, 0)
+        check(int(idx.max()) < 4096, "17a fps repeated points: a later copy won a tie")
+        bq_case("repeated points", dup, index_points(dup, idx))
+        # N not a multiple of 4 or of the tile, a far and a sparse-region
+        # query, NaN and inf coordinates, a dense cluster
+        odd = clouds(1802, 2, 32767)
+        odd[0, :1000] = odd[0, 5000]  # a dense cluster: 1,000 copies of one point
+        odd[1, 7] = np.nan
+        odd[1, 9] = [np.inf, 0.0, 0.0]
+        odd = torch.from_numpy(odd).to(dev)
+        q = index_points(odd, torch.from_numpy(rng.integers(0, 32767, size=(2, 200))).to(dev))
+        q[:, 0] = 1e4  # far: an empty row
+        q[:, 1] = odd[:, 5000] * 1.19  # off the sphere: fewer than nsample in its ball
+        q[1, 2] = float("nan")
+        bq_case("N=32767, NaN/inf, far and sparse queries, a cluster", odd, q.contiguous())
+        bq_case("N=32767, nsample 63", odd, q.contiguous(), nsample=63)
+        bq_case("N=32767, idx only", odd, q.contiguous(), gather=False)
+        # a row that is not 16-byte aligned: 4-byte copies into the tiles
+        flat = torch.empty(2 * 32768 * 3 + 1, device=dev)
+        shifted = flat[1:].view(2, 32768, 3)
+        shifted.copy_(kept[(4, 32768)][0][:2])
+        bq_case("misaligned row", shifted, kept[(4, 32768)][2][:2].contiguous())
+        bq_case("B=4 N=32768, idx only", kept[(4, 32768)][0], kept[(4, 32768)][2],
+                gather=False)
+        # both kernels through ball_query_grouped's and FPS's dispatch inside
+        # one captured graph, replayed on new clouds and starts
+        xyz, start, _ = kept[(4, 32768)]
+        sx, ss = xyz.clone(), start.clone()
+        cuda_ballquery.ball_query_grouped(r1, ns1, sx, index_points(sx, cuda_fps.
+                                          farthest_point_sample(sx, np1, ss)))
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_idx = cuda_fps.farthest_point_sample(sx, np1, ss)
+            g_out = cuda_ballquery.ball_query_grouped(r1, ns1, sx, index_points(sx, g_idx))
+        for seed in (1803, 1804):
+            sx.copy_(torch.from_numpy(clouds(seed, 4, 32768)).to(dev))
+            ss.copy_(torch.from_numpy(rng.integers(0, 32768, size=4)).to(dev))
+            graph.replay()
+            want_idx = cuda_fps.farthest_point_sample_plain(sx, np1, ss)
+            want = cuda_ballquery.ball_query_grouped_plain(r1, ns1, sx, index_points(sx, want_idx))
+            check(torch.equal(g_idx, want_idx) and torch.equal(g_out[0], want[0])
+                  and same_bits(g_out[1], want[1]),
+                  f"17a: the captured grid FPS and streamed query differ on clouds {seed}")
+        cases.append("captured graph, 2 replays")
+        del graph, g_idx, g_out
+    torch.cuda.synchronize()
+    return {"cases": cases, "kept": kept}
+
+
+def large_rows(dev, kept: dict, card: str) -> list:
+    """Phase 17b: each new kernel timed beside its plain version (median of
+    25 CUDA-event timings) with its bound, at the new N, and the SA1
+    gather backward, the 3-NN forward at FP1 and the 3-NN backward there.
+    The ordered sums are held bit-equal to the host's and to a second run.
+    Returns the kernel table's rows (without launches)."""
+    from point2cyl_torch.ops import cuda_ballquery, cuda_fps, cuda_knn
+    from point2cyl_torch.ops.grouping import group_scatter_plain, three_nn_weights_plain
+
+    cfg = full_width_config(8192)
+    r1, ns1, np1 = cfg.sa_radii[0], cfg.sa_nsamples[0], cfg.sa_npoints[0]
+    rng = np.random.default_rng(17)
+
+    def cotangent(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    cases = []
+    for b, n in ((4, 32768), (4, 131072), (1, 131072), (1, 2**20)):
+        xyz, start, centres = kept[(b, n)]
+        tag = f"n{n}_b{b}"
+        cases.append((f"fps_grid@{tag}", cuda_fps.farthest_point_sample_grid_kernel,
+                      cuda_fps.farthest_point_sample_plain, (xyz, np1, start),
+                      fps_work(xyz, np1), None))
+        with torch.inference_mode():
+            idx = cuda_ballquery.ball_query_stream_kernel(r1, ns1, xyz, centres)[0]
+        cases.append((f"ball_query_stream@{tag}", cuda_ballquery.ball_query_stream_kernel,
+                      cuda_ballquery.ball_query_grouped_plain, (r1, ns1, xyz, centres),
+                      group_work(xyz, centres, idx, 3), None))
+    xyz4, _, c4 = kept[(4, 32768)]
+    with torch.inference_mode():
+        idx4 = cuda_ballquery.ball_query_stream_kernel(r1, ns1, xyz4, c4)[0]
+        nn4 = [t.to(dt).contiguous() for t, dt in zip(three_nn_weights_plain(xyz4, c4),
+                                                        (torch.int32, torch.float32))]
+    dg = cotangent(4, np1, ns1, 3)
+    g = cotangent(4, 32768, 128)
+    cases.append(("ball_query_grouped_backward@sa1_n32768",
+                  cuda_ballquery.ball_query_grouped_backward_kernel, group_scatter_plain,
+                  (idx4, dg, 32768), scatter_work(idx4, dg, 32768),
+                  index_add_call(idx4, dg, 32768)))
+    cases.append(("three_nn_backward@fp1_n32768", cuda_knn.three_nn_backward_kernel,
+                  cuda_knn.three_nn_backward_plain, (*nn4, g, np1),
+                  knn_bwd_work(*nn4, g, np1), knn_index_add_call(*nn4, g, np1)))
+    for b, n in ((4, 131072), (1, 2**20)):
+        xyz, _, centres = kept[(b, n)]
+        feats = cotangent(b, np1, 128)
+        cases.append((f"three_nn@fp1_n{n}_b{b}", cuda_knn.three_nn_interpolate_kernel,
+                      cuda_knn.three_nn_interpolate_plain, (xyz, centres, feats),
+                      knn_work(xyz, centres, feats), None))
+    rows = []
+    with torch.inference_mode():
+        for name, kernel, plain, inputs, work, library in cases:
+            kind = name.split("@")[0]
+            got = kernel(*inputs)
+            want = plain(*inputs)
+            torch.cuda.synchronize()
+            if kind == "fps_grid":
+                check(torch.equal(got, want), f"17b {name}: indices differ from plain")
+                err = 0.0
+            elif kind == "ball_query_stream":
+                check(torch.equal(got[0], want[0]) and same_bits(got[1], want[1]),
+                      f"17b {name}: differs from plain")
+                err = float((got[1] - want[1]).abs().max())
+            elif kind == "three_nn":
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                           msg=lambda m: f"17b {name}: {m}")
+                err = float((got - want).abs().max())
+            else:
+                # the plain scatter adds in another order: 1e-4; the ordered
+                # sums bit-equal to the host's ordered sum and a second run
+                torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                           msg=lambda m: f"17b {name}: {m}")
+                err = float((got - want).abs().max())
+                again, host = ordered_sum_case(kernel, inputs)
+                check(same_bits(got, torch.from_numpy(host).to(dev)) and same_bits(got, again),
+                      f"17b {name}: differs from the host's ordered sum or a second run")
+            k_ms = time_ms(lambda: kernel(*inputs))
+            p_ms = time_ms(lambda: plain(*inputs))
+            l_ms = time_ms(library) if library is not None else None
+            b_ms, b_by = bound(*work)
+            row = {"name": name, "route": "cuda", "source": LARGE_SOURCE[kind],
+                   "replaces": LARGE_REPLACES[kind], "max_abs_err": err, "ms": k_ms,
+                   "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
+            rows.append(row)
+            print(json.dumps({"phase": "17b", "kernel": name, "kernel_ms": k_ms,
+                              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": l_ms, "max_abs_err": err, "card": card}),
+                  flush=True)
+    return rows
+
+
+def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
+    """Phase 17: clouds beyond 16,384 points on one card. a. The grid FPS
+    and the streamed ball query against their plain versions
+    (:func:`large_kernel_checks`). b. Their times and the backwards' and
+    3-NN's at the new N (:func:`large_rows`). c. Serving at N=131,072
+    (buckets 1 and 4): requests of 1 and 4 clouds three times each
+    (eager, capture, replay) bit-equal to an eager session, the heads
+    within LARGE_HEADS_ATOL of the all-plain forward, the launches of each
+    request. d. Trainer A at N=32,768 (B=4, K=8) through the CLI, 2
+    epochs (eager, capture, replays), then three captured steps bit-equal
+    to eager ones under deterministic algorithms, and a saliency backward
+    (SA1's gather backward at the new N). e. One NCCL rank: the P=1
+    ``ShardedForward`` at 2^20 points (eager, capture, replay) bit-equal
+    to ``Backbone.forward``, with its pool and peak GiB. Returns the
+    kernel table's rows (with the launches of the main paths) and the
+    launches of each path."""
+    import warnings
+
+    from point2cyl_torch.core.config import TrainConfig
+    from point2cyl_torch.models.backbone import build_backbone
+    from point2cyl_torch.parallel.distributed import join
+    from point2cyl_torch.parallel.mesh import make_mesh
+    from point2cyl_torch.parallel.sharded_backbone import ShardedForward
+    from point2cyl_torch.serve.export import _backbone_forward, export_artifact
+    from point2cyl_torch.serve.session import InferenceSession
+    from point2cyl_torch.train import steps, train_pc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(1700)
+    checked = large_kernel_checks(dev, rng)
+    t_checks = time.perf_counter() - t_phase
+    rows = large_rows(dev, checked["kept"], card)
+    del checked["kept"]
+    torch.cuda.empty_cache()
+    t_rows = time.perf_counter() - t_phase - t_checks
+    state = build_backbone(full_width_config(8192), generator=torch.Generator().manual_seed(0),
+                           device="cpu").state_dict()
+    paths = {}
+
+    # c. serving at N=131,072
+    n = 131072
+    cfg = full_width_config(n)
+    art = os.path.join(root, "large.p2ct")
+    export_artifact(art, state, k=K, backbone_config=cfg, buckets=(1, 4), num_sk_points=SK)
+    sess, eager = InferenceSession(art), InferenceSession(art, graph=False)
+    requests = {b: clouds(1710 + b, b, n) for b in (1, 4)}
+    for b, req in requests.items():
+        want = eager.predict(req, assemble=False)
+        for call in range(3):
+            got, launched = counted(lambda: sess.predict(req, assemble=False))
+            check(all(np.array_equal(got[k], want[k]) for k in want),
+                  f"17c: request of {b} call {call} differs from the eager session")
+            if call == 0:
+                check(launched == PER_LARGE_FORWARD, f"17c: a request launched {launched}")
+                paths["serve_n131072_request"] = launched
+    # a capture call replays its graph too: 2 replays a bucket
+    check(sess._graphs[0].captures == 2 and sess._graphs[0].replays == 4,
+          f"17c: {sess._graphs[0].captures} captures, {sess._graphs[0].replays} replays")
+    plain = build_backbone(dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
+                                               knn_impl="plain"), state_dict=state, device=dev)
+    pts4 = torch.from_numpy(requests[4]).to(dev)
+    with torch.inference_mode():
+        got = _backbone_forward(sess.model, pts4, k=K, num_sk_points=SK)
+        want = _backbone_forward(plain, pts4, k=K, num_sk_points=SK)
+    serve_err = max(float((got[k] - want[k]).abs().max()) for k in ("x_raw", "w_raw"))
+    check(serve_err <= LARGE_HEADS_ATOL and all(bool(torch.isfinite(got[k]).all())
+                                                for k in ("x_raw", "w_raw")),
+          f"17c: kernel vs all-plain heads differ by {serve_err}")
+    serve_ms = in_turns({"captured": lambda: sess.predict(requests[4], assemble=False),
+                         "eager": lambda: eager.predict(requests[4], assemble=False)}, 3)
+    print(json.dumps({"phase": "17c", "num_points": n, "buckets": [1, 4],
+                      "replays_bit_equal_eager": True, "plain_max_abs_err": serve_err,
+                      "request4_ms": serve_ms,
+                      "pool_gib": sess._graphs[0].captured_bytes / 2**30,
+                      "launches_per_request": paths["serve_n131072_request"], "card": card}),
+          flush=True)
+    del sess, eager, plain, got, want, pts4
+    torch.cuda.empty_cache()
+
+    # d. Trainer A at N=32,768, B=4, K=8: the CLI (random FPS starts from
+    # its generator), then captured steps against eager ones bit for bit
+    n = 32768
+    logdir = os.path.join(root, "large_run")
+    argv = ["--synthetic", "8", "--synthetic_resolution", str(n), "--num_point", str(n),
+            "--K", str(K), "--batch_size", str(TB), "--logdir", logdir, "--num_epochs", "2",
+            "--pred_seg", "--pred_normal", "--pred_bb", "--pred_extrusion", "--pred_center"]
+    trained, launched = counted(lambda: train_pc.cli_main(argv))
+    with open(os.path.join(logdir, "log.txt")) as f:
+        log = f.read()
+    calls = wrapper_calls(trained.graphs)
+    check(trained.step == 4 and "Epoch 0002 done" in log and trained.graphs.replays == 3,
+          f"17d: the CLI ran {trained.step} steps, {trained.graphs.replays} replays")
+    check(launched == {k: v * calls for k, v in PER_LARGE_STEP.items()},
+          f"17d: the CLI's steps launched {launched} over {calls} wrapper calls")
+    paths["train_n32768_step"] = {k: v // calls for k, v in launched.items()}
+    del trained
+    tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
+                       pred_extrusion=True, pred_center=True, seed=0)
+    pipe = train_pc.build_pipeline(tcfg, n, K, dev, synthetic=8, synthetic_resolution=n)
+    gen = torch.Generator(dev).manual_seed(17)
+    batches = [pipe.batch(torch.arange(i * TB, (i + 1) * TB, device=dev) % 8, gen)
+               for i in range(3)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det_g = steps.Trainer(train_pc.build_model(tcfg, n, K, dev), tcfg)
+            det_e = steps.Trainer(train_pc.build_model(tcfg, n, K, dev), tcfg, graph=False)
+            bit_equal, losses = [], []
+            for i, batch in enumerate(batches):
+                a = det_g.train_step(batch, torch.Generator(dev).manual_seed(70 + i))
+                e = det_e.train_step(batch, torch.Generator(dev).manual_seed(70 + i))
+                sa, se = state_tensors(det_g), state_tensors(det_e)
+                bit_equal.append(all(torch.equal(a[k], e[k]) for k in a)
+                                 and all(torch.equal(sa[k], se[k]) for k in sa))
+                losses.append(float(a["total"]))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    check(det_g.graphs.replays == 2 and all(bit_equal) and all(np.isfinite(losses)),
+          f"17d: captured vs eager steps bit-equal {bit_equal}, losses {losses}")
+    step_ms = in_turns({"captured": lambda: det_g.train_step(batches[0], gen),
+                        "eager": lambda: det_e.train_step(batches[0], gen)}, 3)
+    # the loss's gradient with respect to the clouds: SA1's gather backward
+    model = det_e.model.eval()
+    cloud = batches[0]["point_cloud"].detach().clone().requires_grad_(True)
+
+    def saliency():
+        heads = model(cloud)
+        (heads[0].square().mean() + heads[1].square().mean()).backward()
+
+    _, launched = counted(saliency)
+    check(launched["ball_query_grouped_backward"] == 1 and launched["ball_query_stream"] == 1
+          and bool(torch.isfinite(cloud.grad).all()) and bool(cloud.grad.abs().max() > 0),
+          f"17d: the saliency backward launched {launched}")
+    paths["saliency_n32768"] = launched
+    print(json.dumps({"phase": "17d", "num_points": n, "batch": TB, "K": K, "cli_steps": 4,
+                      "captured_bit_equal_eager": bit_equal, "losses": losses,
+                      "step_ms": step_ms, "pool_gib": det_g.graphs.captured_bytes / 2**30,
+                      "launches_per_step": paths["train_n32768_step"], "card": card}),
+          flush=True)
+    del det_g, det_e, model, cloud, batches, pipe
+    torch.cuda.empty_cache()
+
+    # e. one NCCL rank: the P=1 sharded forward at 2^20 points against
+    # Backbone.forward, which now runs on one card too
+    n = 2**20
+    cfg = full_width_config(n)
+    join("file://" + os.path.join(root, "rdv_large"), 1, 0, "nccl")
+    try:
+        mesh = make_mesh()
+        model = build_backbone(cfg, state_dict=state, device=dev)
+        pts = torch.from_numpy(clouds(1720, 1, n)).to(dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            want, launched = counted(lambda: model(pts))
+            forward_s = time.perf_counter() - t0
+            forward_peak = torch.cuda.max_memory_allocated() / 2**30
+            check(launched == PER_LARGE_FORWARD, f"17e: Backbone.forward launched {launched}")
+            owner = ShardedForward(mesh, model, cfg)
+            torch.cuda.reset_peak_memory_stats()
+            calls_s, sharded = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                heads, launched = counted(lambda: owner(pts))
+                calls_s.append(time.perf_counter() - t0)
+                sharded.append(launched)
+                check(all(torch.equal(h, w) for h, w in zip(heads, want)),
+                      f"17e: call {len(calls_s)} of the P=1 sharded forward at 2^20 differs "
+                      "from Backbone.forward")
+        og = owner.graphs
+        check(og.eager_calls == 1 and og.captures == 1 and og.replays == 2
+              and sharded[0] == sharded[1] == PER_LARGE_FORWARD and not any(sharded[2].values()),
+              f"17e: {og.eager_calls} eager, {og.captures} captures, {og.replays} replays, "
+              f"launches {sharded}")
+        paths["sharded_p1_n1048576"] = sharded[0]
+        print(json.dumps({"phase": "17e", "num_points": n, "world": 1,
+                          "bit_equal_backbone_forward": True, "calls_s": calls_s,
+                          "forward_s": forward_s, "forward_peak_gib": forward_peak,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                          "pool_gib": og.captured_bytes / 2**30,
+                          "pr16_pool_gib": 20.03, "pr16_peak_gib": [12.44, 14.03],
+                          "launches": paths["sharded_p1_n1048576"], "card": card}), flush=True)
+        del owner, model, pts, want, heads
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    main_path = {"fps_grid": "serve_n131072_request", "ball_query_stream": "serve_n131072_request",
+                 "three_nn": "serve_n131072_request", "three_nn_backward": "train_n32768_step",
+                 "ball_query_grouped_backward": "saliency_n32768"}
+    for row in rows:
+        kernel = row["name"].split("@")[0]
+        row["launches"] = paths[main_path[kernel]][kernel]
+        row["large_launches"] = {key: val[kernel] for key, val in paths.items()}
+    check(all(row["launches"] > 0 for row in rows), "17: a kernel of the paths did not launch")
+    print(json.dumps({"phase": "17", "checked": checked["cases"], "checks_s": t_checks,
+                      "timings_s": t_rows, "phase17_s": time.perf_counter() - t_phase}),
+          flush=True)
+    return rows, paths
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3240,6 +3810,9 @@ def main() -> None:
     parser.add_argument("--only-graphs", action="store_true",
                         help="run the set-up and phases 14 and 15 (captured steps) alone, "
                         "without the kernel table")
+    parser.add_argument("--only-large", action="store_true",
+                        help="run the set-up and phase 17 (clouds beyond 16,384 points) "
+                        "alone, with its own kernel rows")
     parser.add_argument("--recon-igr-post-process", action="store_true",
                         help="run the set-up and, alone, the reconstruction CLI with "
                         "--igr_post_process (10,000 fine-tune steps an instance at most) at "
@@ -3281,6 +3854,15 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()} | "
           f"kernel build {build_s:.2f} s", flush=True)
     dev = torch.device("cuda")
+    if args.only_large:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            rows, _ = large_phase(card, dev, tmp)
+        print(card)
+        print(json.dumps({"kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if args.only_parallel or args.only_bf16 or args.only_graphs or args.recon_igr_post_process:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             if args.only_graphs:
@@ -3308,6 +3890,7 @@ def main() -> None:
         graph_launches = graphs_phase(args, card, dev, tmp)
         graph_launches.update(graphs2_phase(args, card, dev, tmp))
         parallel_launches, ring_rows = parallel_phase(card, dev, tmp)
+        large_rows_, large_paths = large_phase(card, dev, tmp)
 
     cfg = full_width_config(8192)
     plain_cfg = dataclasses.replace(cfg, fps_impl="plain", ballquery_impl="plain",
@@ -3327,25 +3910,6 @@ def main() -> None:
         f2 = m.fp2(l1_xyz, l2_xyz, l1_f, f3)
     r1, r2 = cfg.sa_radii
     ns1, ns2 = cfg.sa_nsamples
-
-    def fps_work(xyz, npoint):
-        b, n, _ = xyz.shape
-        # per point and iteration: 3 sub, 3 mul, 2 add, 1 min, 1 compare
-        return xyz.numel() * 4 + b * npoint * 4, 10.0 * b * npoint * n
-
-    def group_work(xyz, new_xyz, idx, width, feats=None):
-        b, s, ns = idx.shape
-        nbytes = (xyz.numel() + new_xyz.numel()) * 4 + idx.numel() * 4 \
-            + b * s * ns * width * 4 + (feats.numel() * 4 if feats is not None else 0)
-        # per distance test: 3 sub, 3 mul, 2 add, 1 compare; 3 subs a slot
-        return nbytes, 9.0 * scanned_points(idx, xyz.shape[1]) + 3.0 * idx.numel()
-
-    def knn_work(dst, src, feats):
-        b, n, _ = dst.shape
-        s, c = feats.shape[1], feats.shape[2]
-        nbytes = (dst.numel() + src.numel() + feats.numel() + b * n * c) * 4
-        # per pair: 8 for the distance, 1 compare; per output: 3 mul, 2 add
-        return nbytes, 9.0 * b * n * s + 5.0 * b * n * c
 
     # the training shapes of the same kernels: B=4, per-row random starts
     # (the training plan of the FPS kernel differs from serving's)
@@ -3473,21 +4037,6 @@ def main() -> None:
     g_fp2 = cotangent(TB, l1_4.shape[1], l1f_4.shape[2] + f3_4.shape[2])[
         ..., l1f_4.shape[2]:]
     g_fp1 = cotangent(TB, cfg.num_points, f2_4.shape[2])
-
-    def query_work(xyz, new_xyz, idx):
-        nbytes = (xyz.numel() + new_xyz.numel() + idx.numel()) * 4
-        return nbytes, 9.0 * scanned_points(idx, xyz.shape[1])
-
-    def scatter_work(idx, dg, n):
-        # idx and dg read once, the (B, n, W) table written once; one add
-        # per cotangent element
-        b, w = idx.shape[0], dg.shape[-1]
-        return (idx.numel() + dg.numel() + b * n * w) * 4, float(dg.numel())
-
-    def knn_bwd_work(idx, w, g, s):
-        b, _, c = g.shape
-        # per cotangent element: 3 multiplies and 3 adds
-        return (idx.numel() + w.numel() + g.numel() + b * s * c) * 4, 6.0 * g.numel()
 
     n1 = cfg.num_points
     train_cases = [
@@ -3962,7 +4511,7 @@ def main() -> None:
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                    "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
-                   "fps_ring_step": 0}
+                   "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "fullwidth.p2ct")
         export_artifact(path, state_dict, k=K, backbone_config=cfg,
@@ -4080,7 +4629,7 @@ def main() -> None:
     per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                 "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                 "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2,
-                "fps_ring_step": 0}
+                "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
     gen = epoch_generator(tcfg.seed, 1, dev)
     for fn in counters.values():
         fn.launches = 0
@@ -4739,8 +5288,10 @@ def main() -> None:
     print(json.dumps({"script_s": time.perf_counter() - script_t0}), flush=True)
 
     rows.extend(ring_rows)
+    rows.extend(large_rows_)
     for row in rows:
         kernel = row["name"].split("@")[0]
+        row["large_launches"] = {key: val[kernel] for key, val in large_paths.items()}
         row["eval_launches"] = {"n8192": eval_launches[kernel],
                                 "n512": eval_launches_512[kernel],
                                 "n8192_implicit": im_launches["sketch"][kernel],
@@ -4755,8 +5306,10 @@ def main() -> None:
                                  "step_pc_frozen": frozen_launches[kernel],
                                  "cli_4_steps": joint_cli_launches[kernel],
                                  "pretrain_cli_4_steps": pretrain_launches[kernel]}
-        if kernel == "fps_ring_step":
-            row["launches"] = parallel_launches["sharded_forward"][kernel]
+        if "launches" in row:  # phase 17's rows: the launches of its paths
+            pass
+        elif kernel == "fps_ring_step":
+            row["launches"] = parallel_launches["sharded_forward_p2"][kernel]
         elif kernel == "ball_query":
             row["launches"] = launches_512[kernel]
         elif kernel == "ball_query_grouped_backward":

@@ -9,7 +9,8 @@
 //   - _ballquery_grouped_kernel (pallas_call at :637, reached through
 //     ball_query_grouped_pallas / ball_query_grouped): ball query, then
 //     grouped = xyz[idx] - centre. SA1 of the backbone (N=8192, no
-//     features). Entry point p2c_ball_query_grouped.
+//     features). Entry point p2c_ball_query_grouped; above ~19 K points
+//     p2c_ball_query_stream.
 //   - _sa_grouped_exact_kernel (pallas_call at :474, reached through
 //     sa_grouped_exact_pallas / sa_grouped_exact): exact ball query, then
 //     grouped = [xyz[idx] - centre | feats[idx]]. SA2 (N=512, C=128).
@@ -60,10 +61,24 @@
 //     CTA, cap) comes from the caller (ops/cuda_ballquery.py:
 //     ball_query_plan), which takes the index-order scan
 //     (ball_query_scan_kernel) for rows whose grid does not fit shared
-//     memory (N above ~11.9 K at nsample 64). Permuting the planes into
-//     cell order, so that a candidate's coordinates sit beside its
+//     memory (N above ~11.9 K at nsample 64), and the streamed query
+//     below where the staged row does not fit either. Permuting the planes
+//     into cell order, so that a candidate's coordinates sit beside its
 //     neighbours', cost more in the build than it saved in the tests
 //     (PERF.md).
+//   - SA1 above ~19 K points (p2c_ball_query_stream, also idx only): the
+//     grid and the scan both stage the whole row in shared memory, which
+//     caps them; the TPU kernel walks the cloud in blocks and takes any N.
+//     By the roofline its bytes (the row read once, idx and grouped
+//     written); in practice the index-order selection, which stops at
+//     the nsample-th in-radius point (a few thousand points into the row
+//     for a ball holding ~1% of the cloud). ball_query_stream_kernel
+//     streams the row through shared memory in index-order tiles of
+//     kStreamTile points, double-buffered with cp.async, a warp a query,
+//     ballots as in the scan, and stops fetching once all its warps have
+//     nsample; the gather reads the selected points from global memory.
+//     Warps a CTA: as many as fill the card with one query a warp (4 at
+//     B=1 and S=512: 128 CTAs), at most 32.
 //   - Coverage of the grid. Let t = fl(fl(p - lo) * inv) be a coordinate's
 //     cell position, inv = fl(1 / e). A pair passes the float test only if
 //     fl(d_a^2) <= r2 on every axis a (the partial sums are monotone and
@@ -252,10 +267,10 @@ __device__ __forceinline__ void finish_slots(int* sel, int count, int ns, int n,
 
 // A warp writes a query's contiguous (ns, 3) block of centred coordinates
 // to dst, V floats a lane (V = 4 needs ns * 3 % 4 == 0 and a 16-byte
-// aligned dst), from the planes px, py, pz in shared memory.
-template <int V>
-__device__ __forceinline__ void write_coords(float* dst, const float* px, const float* py,
-                                             const float* pz, const int* sel, int ns,
+// aligned dst); coord(j, ch) reads coordinate ch of point j (from the
+// planes in shared memory, or from the row in global memory).
+template <int V, typename Coord>
+__device__ __forceinline__ void write_coords(float* dst, Coord coord, const int* sel, int ns,
                                              float cx, float cy, float cz, int lane) {
   const int total = ns * 3 / V;
   for (int v = lane; v < total; v += 32) {
@@ -265,8 +280,7 @@ __device__ __forceinline__ void write_coords(float* dst, const float* px, const 
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const float centre = ch == 0 ? cx : (ch == 1 ? cy : cz);
-      const float* plane = ch == 0 ? px : (ch == 1 ? py : pz);
-      val[i] = __fsub_rn(plane[sel[slot]], centre);
+      val[i] = __fsub_rn(coord(sel[slot], ch), centre);
       if (++ch == 3) {
         ch = 0;
         ++slot;
@@ -379,7 +393,8 @@ ball_query_scan_kernel(const float* __restrict__ xyz, const float* __restrict__ 
     const int count = scan_select<1>(sx, n4, n, cx, cy, cz, r2, ns, sel, lane);
     finish_slots(sel, count, ns, n, idx_out + row * ns, lane);
     if constexpr (kGather) {
-      write_coords<kVec ? 4 : 1>(grouped + row * ns * 3, sx, sx + n4, sx + 2 * n4, sel, ns,
+      write_coords<kVec ? 4 : 1>(grouped + row * ns * 3,
+                                 [=](int j, int ch) { return sx[ch * n4 + j]; }, sel, ns,
                                  cx, cy, cz, lane);
     }
     __syncwarp();  // sel is rewritten by the next query
@@ -865,10 +880,146 @@ ball_query_grid_kernel(const float* __restrict__ xyz, const float* __restrict__ 
     if (count < 0) count = scan_select<4>(px, n4, n, cx, cy, cz, r2, ns, sel, lane);
     finish_slots(sel, count, ns, n, idx_out + row * ns, lane);
     if constexpr (kGather) {
-      write_coords<kVec ? 4 : 1>(grouped + row * ns * 3, px, py, pz, sel, ns, cx, cy, cz,
-                                 lane);
+      write_coords<kVec ? 4 : 1>(grouped + row * ns * 3,
+                                 [=](int j, int ch) { return px[ch * n4 + j]; }, sel, ns, cx,
+                                 cy, cz, lane);
     }
     __syncwarp();  // sel and the bitmap are rewritten by the next query
+  }
+}
+
+// Copies from global to shared memory that complete asynchronously
+// (cp.async): 4 bytes (any alignment) or 16 (both 16-byte aligned), then
+// a commit of this thread's copies as one group, and a wait until at most
+// N of its groups are pending.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(shared_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// scan_select over one tile of the row: `len` points (x y z each, in
+// index order) whose first has index t0, after `count` in-radius indices
+// already found. Returns the count up to the stop.
+template <int kUnroll>
+__device__ __forceinline__ int tile_select(const float* tile, int len, int t0, float cx,
+                                           float cy, float cz, float r2, int ns, int* sel,
+                                           int lane, int count) {
+  for (int base = 0; base < len && count < ns; base += 32 * kUnroll) {
+    unsigned hits[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = base + 32 * u + lane;
+      hits[u] = __ballot_sync(
+          kFullMask,
+          j < len && sq_dist(cx, cy, cz, tile[3 * j], tile[3 * j + 1], tile[3 * j + 2]) <= r2);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if ((hits[u] >> lane) & 1u) {
+        const int pos = count + __popc(hits[u] & ((1u << lane) - 1u));
+        if (pos < ns) sel[pos] = t0 + base + 32 * u + lane;
+      }
+      count += __popc(hits[u]);
+    }
+  }
+  return count;
+}
+
+// Grid (ctas, b); the CTA serves queries q = blockIdx.x * warps + warp in
+// rounds of one a warp (every ctas * warps-th on). A round streams the row
+// through shared memory in tiles of kStreamTile points, index order, two
+// buffers: the next tile's cp.async copies are in flight while the warps
+// select from this one. A warp takes the first ns in-radius indices of
+// its query with ballots (tile_select) and stops at ns; the CTA fetches no
+// further tile once all its warps have stopped (a query in a sparse region
+// runs to the end of the row). kGather: each warp then writes its
+// query's centred coordinates (kVec: 16 bytes a lane), reading the
+// selected points from the row in global memory (L2). tile_vec: the row
+// is 16-byte aligned and n % 4 == 0, so a tile moves in 16-byte copies.
+template <bool kGather, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+ball_query_stream_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+                         int n, int s, int ns, float r2, bool tile_vec,
+                         int* __restrict__ idx_out, float* __restrict__ grouped) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tiles = reinterpret_cast<float*>(smem);  // [2][3 * kStreamTile]
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y;
+  int* sel = reinterpret_cast<int*>(tiles + 6 * kStreamTile) + warp * ns;
+  const float* p = xyz + static_cast<size_t>(b) * n * 3;
+  const int ntiles = (n + kStreamTile - 1) / kStreamTile;
+
+  const auto fetch = [&](int t) {
+    float* dst = tiles + (t & 1) * 3 * kStreamTile;
+    const int t0 = t * kStreamTile;
+    const int floats = 3 * min(kStreamTile, n - t0);
+    const float* src = p + static_cast<size_t>(t0) * 3;
+    if (tile_vec) {
+      for (int k = 4 * threadIdx.x; k < floats; k += 4 * blockDim.x) {
+        cp_async16(dst + k, src + k);
+      }
+    } else {
+      for (int k = threadIdx.x; k < floats; k += blockDim.x) cp_async4(dst + k, src + k);
+    }
+    cp_async_commit();
+  };
+
+  for (int q0 = blockIdx.x * warps; q0 < s; q0 += gridDim.x * warps) {
+    const int q = q0 + warp;
+    const size_t row = static_cast<size_t>(b) * s + q;
+    float cx = 0.0f, cy = 0.0f, cz = 0.0f;
+    if (q < s) {
+      cx = new_xyz[row * 3];
+      cy = new_xyz[row * 3 + 1];
+      cz = new_xyz[row * 3 + 2];
+    }
+    int count = 0;  // warp-uniform
+    bool done = q >= s;
+    fetch(0);
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + 1 < ntiles) {
+        fetch(t + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // tile t has landed, from every thread's copies
+      if (!done) {
+        const int t0 = t * kStreamTile;
+        count = tile_select<4>(tiles + (t & 1) * 3 * kStreamTile, min(kStreamTile, n - t0),
+                               t0, cx, cy, cz, r2, ns, sel, lane, count);
+        done = count >= ns;
+      }
+      // every warp is done with tile t before its buffer takes tile t + 2
+      if (__syncthreads_and(done)) break;
+    }
+    cp_async_wait<0>();  // a tile fetched ahead of the stop
+    __syncthreads();     // ... has landed before the next round fetches again
+    if (q < s) {
+      finish_slots(sel, count, ns, n, idx_out + row * ns, lane);
+      if constexpr (kGather) {
+        write_coords<kVec ? 4 : 1>(grouped + row * ns * 3,
+                                   [=](int j, int ch) { return __ldg(p + 3 * j + ch); }, sel,
+                                   ns, cx, cy, cz, lane);
+      }
+      __syncwarp();  // sel is rewritten by the next round
+    }
   }
 }
 
@@ -968,6 +1119,25 @@ extern "C" int p2c_ball_query_grouped(const float* xyz, const float* new_xyz,
   return launch(kernel, plan_ok(b, n, s, ns, ctas, warps, smem) && n <= 65535 && cap >= 0,
                 b, ctas, warps, smem, stream, xyz, new_xyz, n, s, ns, r2, cap, stage_vec,
                 idx, grouped);
+}
+
+// xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32 and, unless
+// `grouped` is null (idx only), grouped (b, s, ns, 3) f32: the row
+// streamed through shared memory in tiles, any n with 3 n < 2^31, `ctas`
+// CTAs of `warps` warps a row. 16-byte stores where ns * 3 % 4 == 0 and
+// `grouped` is 16-byte aligned.
+extern "C" int p2c_ball_query_stream(const float* xyz, const float* new_xyz, int* idx,
+                                     float* grouped, int b, int n, int s, int ns, float r2,
+                                     int ctas, int warps, void* stream) {
+  const bool gather = grouped != nullptr;
+  const bool vec = ns * 3 % 4 == 0 && aligned16(grouped);
+  const size_t smem = stream_smem(ns, warps);
+  const auto kernel = !gather ? ball_query_stream_kernel<false, false>
+                      : vec   ? ball_query_stream_kernel<true, true>
+                              : ball_query_stream_kernel<true, false>;
+  const bool tile_vec = n % 4 == 0 && aligned16(xyz);
+  return launch(kernel, plan_ok(b, n, s, ns, ctas, warps, smem) && n <= 0x7fffffff / 3, b,
+                ctas, warps, smem, stream, xyz, new_xyz, n, s, ns, r2, tile_vec, idx, grouped);
 }
 
 // xyz (b, n, 3), feats (b, n, c), new_xyz (b, s, 3) f32 -> idx (b, s, ns)

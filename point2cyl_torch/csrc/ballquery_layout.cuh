@@ -18,6 +18,7 @@
 constexpr int kMaxCells = 4096;    // cells of a row's grid, at most
 constexpr int kGridHeader = 1024;  // bytes ahead of the grid kernel's planes
 constexpr int kBallotMaxN = 1024;  // most points a row of the idx-only ballots: 32 steps
+constexpr int kStreamTile = 2048;  // points a tile of the streamed query (a multiple of 4)
 
 // How the SA2 kernel writes a query's grouped block: 4 bytes a lane
 // straight into `grouped`, or composed in shared memory and sent with one
@@ -32,6 +33,12 @@ P2C_HD constexpr size_t round16(size_t x) { return (x + 15) / 16 * 16; }
 // slots a warp.
 P2C_HD constexpr size_t scan_smem(int n, int ns, int warps) {
   return 12 * static_cast<size_t>(round_up(n, 4)) + 4 * static_cast<size_t>(warps) * ns;
+}
+
+// Shared memory of the streamed query: two tiles of kStreamTile points
+// (x y z each, in index order), then ns int slots a warp.
+P2C_HD constexpr size_t stream_smem(int ns, int warps) {
+  return 2 * 12 * static_cast<size_t>(kStreamTile) + 4 * static_cast<size_t>(warps) * ns;
 }
 
 // Shared memory of the idx-only ballot kernel: ns int slots a warp.

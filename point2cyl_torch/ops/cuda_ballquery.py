@@ -17,6 +17,10 @@ per-target sums of ``ops/cuda_scatter.py``) and sends
 ``-sum_slots dg[..., :3]`` to the centres; the indices carry no gradient.
 Under ``inference_mode`` nothing is saved and no backward launches.
 
+Where the row does not fit shared memory (SA1 and the idx-only query
+above ~19 K points), both launch the streamed query
+(:func:`ball_query_stream_kernel`), which takes any N.
+
 All select exactly at every N (the first ``nsample`` in-radius indices in
 ascending order, padded with the first). A CPU tensor takes the plain
 version, forward and backward; a CUDA tensor the kernel; a CUDA input the
@@ -44,12 +48,17 @@ GRID_MIN_WARPS = 4  # fewer warps than this build a grid too slowly
 SA2_WARPS = 16  # warps of an SA2 CTA
 BALLOT_MAX_N = 1024  # most points a row the idx-only ballots take (kBallotMaxN)
 BALLOT_WARPS = 32  # warps of an idx-only ballot CTA
+STREAM_TILE = 2048  # points a tile of the streamed query (kStreamTile)
+STREAM_MIN_WARPS = 4  # warps a streamed CTA, at least (while slots fit)
 
 # xyz, new_xyz, idx; b, n, s, ns; r2; select, ctas, warps; stream
 _ARGS_IDX = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _ARGS_GROUPED = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# xyz, new_xyz, idx, grouped; b, n, s, ns; r2; ctas, warps; stream
+_ARGS_STREAM = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _ARGS_FEATURES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -92,6 +101,12 @@ def _scan_smem(n: int, nsample: int, warps: int) -> int:
     return 12 * _cdiv(n, 4) * 4 + 4 * warps * nsample
 
 
+def _stream_smem(nsample: int, warps: int) -> int:
+    """Shared memory of the streamed query (``stream_smem``): two tiles
+    and a warp's slots."""
+    return 2 * 12 * STREAM_TILE + 4 * warps * nsample
+
+
 def _ballot_smem(nsample: int, warps: int) -> int:
     """Shared memory of the idx-only ballot kernel (``ballot_smem``): a
     warp's slots."""
@@ -117,8 +132,10 @@ class BallQueryPlan(NamedTuple):
     """How a ball-query kernel is launched over a batch row."""
 
     # "grid": a cell grid of the row in shared memory; "scan": index order,
-    # the row staged in shared memory; "ballot": idx only at N <= 1024, a
-    # warp's independent ballots over the row read through L1
+    # the row staged in shared memory; "stream": index order, the row
+    # streamed through shared memory in tiles (SA1 and idx only, any N);
+    # "ballot": idx only at N <= 1024, a warp's independent ballots over
+    # the row read through L1
     select: str
     store: str   # SA2: one of _STORES; SA1: "coords"; idx only: "none"
     ctas: int    # CTAs a batch row
@@ -139,6 +156,24 @@ def _scan_plan(s: int, n: int, nsample: int, store: str) -> BallQueryPlan | None
     return BallQueryPlan("scan", store, _cdiv(s, warps), warps, 0, smem)
 
 
+def _stream_plan(b: int, s: int, nsample: int, store: str, num_sms: int,
+                 ctas: int | None = None, warps: int | None = None) -> BallQueryPlan | None:
+    # a warp a query and S / warps CTAs a row, as the scan; 32 warps a CTA,
+    # halved (down to STREAM_MIN_WARPS) while the batch's CTAs would not
+    # fill the card, and further while the slots would not fit
+    fixed = warps is not None
+    if not fixed:
+        warps = 32
+        while warps > STREAM_MIN_WARPS and b * _cdiv(s, warps) < num_sms:
+            warps //= 2
+        while warps > 1 and _stream_smem(nsample, warps) > SMEM_LIMIT:
+            warps //= 2
+    smem = _stream_smem(nsample, warps)
+    if smem > SMEM_LIMIT or not 1 <= warps <= 32:
+        return None
+    return BallQueryPlan("stream", store, ctas or _cdiv(s, warps), warps, 0, smem)
+
+
 def ball_query_plan(
     b: int, n: int, s: int, nsample: int, c: int | None = None, *,
     gather: bool = True, num_sms: int = H100_SMS, ctas: int | None = None,
@@ -152,13 +187,19 @@ def ball_query_plan(
       BALLOT_MAX_N points ("ballot"): BALLOT_WARPS warps a CTA and S /
       warps CTAs a row (128 CTAs at the N=512 protocol's B=8), no staging
       of the row; above, the index-order scan of the staged row with its
-      early stop ("scan").
+      early stop ("scan"), and where the row does not fit shared memory
+      (N above ~19 K at nsample 64) the streamed row ("stream", below).
     - ``c is None`` (SA1's gather, coordinates only): the cell grid where
       the row's grid fits, with about num_sms / B CTAs a row so that the
       card fills in one wave (8 at B=16, 33 at B=4), but no more than at
       B=4 (33 at B=1 too), and as many warps a CTA as it has queries, at
       most 32; fewer warps where the grid would not fit, down to
-      GRID_MIN_WARPS; the index-order scan (a warp a query) above that.
+      GRID_MIN_WARPS; the index-order scan (a warp a query) above that;
+      and where the staged row does not fit either, the streamed query
+      ("stream"): the row through shared memory in tiles of STREAM_TILE
+      points, a warp a query, 32 warps a CTA, fewer (down to
+      STREAM_MIN_WARPS) while B x S / warps CTAs would not fill the card,
+      and S / warps CTAs a row. It takes any N.
     - ``c`` features (SA2): the index-order scan, each CTA taking its
       queries in rounds of one a warp (each warp selects one, then all
       write the round's rows): each query's block composed in shared
@@ -169,13 +210,19 @@ def ball_query_plan(
       the shared memory would not fit) and 2 x num_sms / B CTAs a row (16
       at B=16, 66 at B=4), at most S.
 
-    ``ctas``, ``warps``, ``cap``, ``store`` and (idx only) ``select``
-    override the choice (``kernel_sweep.py``); an override that does not
-    fit gives None.
+    ``ctas``, ``warps``, ``cap``, ``store`` and ``select`` (idx only, and
+    "stream" for SA1) override the choice (``kernel_sweep.py``); an
+    override that does not fit gives None.
     """
+    if select == "stream" and c is None:
+        return _stream_plan(b, s, nsample, "coords" if gather else "none", num_sms, ctas,
+                            warps)
     if not gather:
         if select == "scan" or (select is None and n > BALLOT_MAX_N):
-            return _scan_plan(s, n, nsample, "none")
+            plan = _scan_plan(s, n, nsample, "none")
+            if plan is None and select is None:
+                plan = _stream_plan(b, s, nsample, "none", num_sms, ctas, warps)
+            return plan
         warps = warps or BALLOT_WARPS
         smem = _ballot_smem(nsample, warps)
         if select not in (None, "ballot") or n > BALLOT_MAX_N or not 1 <= warps <= 32 \
@@ -197,7 +244,10 @@ def ball_query_plan(
         smem = _grid_smem(n, nsample, warps)
         if n <= 65535 and smem <= SMEM_LIMIT:
             return BallQueryPlan("grid", "coords", ctas, warps, cap, smem)
-        return None if fixed else _scan_plan(s, n, nsample, "coords")
+        if fixed:
+            return None
+        return (_scan_plan(s, n, nsample, "coords")
+                or _stream_plan(b, s, nsample, "coords", num_sms))
     if store is None:
         store = "bulk" if _sa_smem(n, nsample, c, 1, "bulk") <= SMEM_LIMIT else "scalar"
     fixed = warps is not None
@@ -280,6 +330,8 @@ def ball_query_kernel(
     ``plan`` overrides :func:`ball_query_plan`."""
     plan = _check_inputs("ball_query", nsample, {"xyz": xyz, "new_xyz": new_xyz}, plan,
                          gather=False)
+    if plan.select == "stream":
+        return ball_query_stream_kernel(radius, nsample, xyz, new_xyz, plan, gather=False)
     b, n, _ = xyz.shape
     s = new_xyz.shape[1]
     idx = torch.empty((b, s, nsample), dtype=torch.int32, device=xyz.device)
@@ -305,6 +357,8 @@ def ball_query_grouped_kernel(
     overrides :func:`ball_query_plan`."""
     plan = _check_inputs("ball_query_grouped", nsample, {"xyz": xyz, "new_xyz": new_xyz},
                          plan)
+    if plan.select == "stream":
+        return ball_query_stream_kernel(radius, nsample, xyz, new_xyz, plan)
     b, n, _ = xyz.shape
     s = new_xyz.shape[1]
     idx = torch.empty((b, s, nsample), dtype=torch.int32, device=xyz.device)
@@ -322,6 +376,41 @@ def ball_query_grouped_kernel(
 
 
 ball_query_grouped_kernel.launches = 0  # kernel launches, for chip_smoke.py
+
+
+def ball_query_stream_kernel(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+    plan: BallQueryPlan | None = None, gather: bool = True,
+):
+    """Launch the streamed query (any N); ``.launches`` counts the
+    launches. Returns ``(idx, grouped)``, or ``idx`` alone where
+    ``gather`` is False. ``plan`` (a "stream" plan) overrides
+    :func:`ball_query_plan`. :func:`ball_query_kernel` and
+    :func:`ball_query_grouped_kernel` hand their stream plans here."""
+    plan = _check_inputs("ball_query_stream", nsample, {"xyz": xyz, "new_xyz": new_xyz},
+                         plan, gather=gather, select="stream")
+    if plan.select != "stream":
+        raise ValueError(f"ball_query_stream: a stream plan, got {plan.select!r}")
+    b, n, _ = xyz.shape
+    s = new_xyz.shape[1]
+    if 3 * n >= 2**31:
+        raise ValueError(f"ball_query_stream: needs 3 N < 2^31, got N={n}")
+    idx = torch.empty((b, s, nsample), dtype=torch.int32, device=xyz.device)
+    grouped = (torch.empty((b, s, nsample, 3), dtype=torch.float32, device=xyz.device)
+               if gather else None)
+    fn = _build.function("p2c_ball_query_stream", _ARGS_STREAM)
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    with torch.cuda.device(xyz.device):  # the runtime launches on the current device
+        status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
+                    None if grouped is None else grouped.data_ptr(), b, n, s, nsample,
+                    radius_squared(radius), plan.ctas, plan.warps, stream)
+    ball_query_stream_kernel.launches += 1
+    _build.check(f"p2c_ball_query_stream ({plan.ctas} CTAs x {plan.warps} warps a row)",
+                 status)
+    return (idx, grouped) if gather else idx
+
+
+ball_query_stream_kernel.launches = 0  # kernel launches, for chip_smoke.py
 
 
 def sa_grouped_exact_kernel(

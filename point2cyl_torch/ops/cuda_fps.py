@@ -1,24 +1,28 @@
-"""Farthest point sampling: the CUDA kernels (``csrc/fps.cu``, and
-``csrc/fps_ring.cu`` for one step over a point-sharded cloud) and their
-plain versions.
+"""Farthest point sampling: the CUDA kernels (``csrc/fps.cu`` up to
+``MAX_POINTS`` points, ``csrc/fps_grid.cu`` above, and ``csrc/fps_ring.cu``
+for one step over a point-sharded cloud) and their plain versions.
 
 :func:`farthest_point_sample` takes the plain version
 (:func:`farthest_point_sample_plain`, ``ops/sampling.py``) for a CPU
-tensor and launches the kernel for a CUDA tensor; it raises on anything
-the kernel does not take. There is no fallback between the two.
+tensor and launches a kernel for a CUDA tensor: the cluster kernel up to
+``MAX_POINTS`` points, the grid-wide kernel above; it raises on anything
+the kernel does not take. There is no fallback between the routes.
 
-The kernel runs each cloud on a thread-block cluster of CTAs;
+The cluster kernel runs each cloud on a thread-block cluster of CTAs;
 :func:`fps_launch_plan` picks the cluster size and the threads per CTA
-from (B, N). A start index is checked without a host sync: on the host
-when it is a Python int or a CPU tensor (``ValueError``), in the kernel
-when it is a CUDA tensor (a device-side assert, reported as a
-``RuntimeError`` at the next synchronising call).
+from (B, N). The grid-wide kernel spreads a cloud over CTAs that meet in
+global memory once a step; :func:`fps_grid_plan` picks them. A start
+index is checked without a host sync: on the host when it is a Python int
+or a CPU tensor (``ValueError``), in the kernel when it is a CUDA tensor
+(a device-side assert, reported as a ``RuntimeError`` at the next
+synchronising call).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,9 +30,10 @@ from point2cyl_torch.ops import _build
 from point2cyl_torch.ops.sampling import (LOW32, farthest_point_sample_plain,
                                           fps_ring_step_plain, start_indices)
 
-__all__ = ["farthest_point_sample", "farthest_point_sample_kernel",
-           "farthest_point_sample_plain", "fps_launch_plan", "fps_ring_plan",
-           "fps_ring_step", "fps_ring_step_kernel", "fps_ring_step_plain"]
+__all__ = ["farthest_point_sample", "farthest_point_sample_grid_kernel",
+           "farthest_point_sample_kernel", "farthest_point_sample_plain", "fps_grid_plan",
+           "fps_launch_plan", "fps_ring_plan", "fps_ring_step", "fps_ring_step_kernel",
+           "fps_ring_step_plain"]
 
 MAX_POINTS = 16384
 MAX_POINTS_PER_THREAD = 8  # the kernel's register budget (fps.cu)
@@ -42,6 +47,13 @@ _RING_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4
                   + [ctypes.c_void_p])
 RING_THREADS = 256
 RING_POINTS_PER_THREAD = 4
+# the grid-wide kernel's limits (csrc/fps_grid_layout.cuh)
+GRID_MAX_THREADS = 1024
+GRID_PPT = 8
+GRID_REGS = 64
+SM_REGS = 65536
+GRID_MEET_WORDS = 32
+_GRID_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -120,13 +132,109 @@ def farthest_point_sample_kernel(
 farthest_point_sample_kernel.launches = 0  # kernel launches, for chip_smoke.py
 
 
+def grid_blocks_per_sm(threads: int) -> int:
+    """CTAs of ``threads`` threads one SM holds at once, by registers
+    (``grid_blocks_per_sm``)."""
+    return SM_REGS // (GRID_REGS * threads)
+
+
+def grid_streamed(n: int, ctas: int, threads: int) -> int:
+    """Points of a cloud beyond the plan's registers (``grid_streamed``)."""
+    return max(0, n - ctas * threads * GRID_PPT)
+
+
+class FpsGridPlan(NamedTuple):
+    """How the grid-wide FPS kernel is launched over a batch."""
+
+    ctas: int      # CTAs a cloud
+    threads: int   # threads a CTA, each holding GRID_PPT points in registers
+    streamed: int  # points a cloud beyond the registers, read every step
+
+
+def fps_grid_plan(b: int, n: int, num_sms: int = H100_SMS) -> FpsGridPlan:
+    """The launch of the grid-wide FPS kernel over B clouds of N points.
+
+    Every CTA must be resident at once (the steps meet in global memory),
+    so B x ctas stays within the CTAs the card holds: ``num_sms`` x
+    :func:`grid_blocks_per_sm`. Threads a CTA: GRID_MAX_THREADS, halved
+    while B clouds of one CTA would not fit. CTAs a cloud: those that hold
+    the cloud at GRID_PPT points a thread (the slots past its end hold
+    copies that never win), at most the card's share of one cloud. Where
+    those registers do not hold the cloud (large B at large N: at B=64,
+    N=2^20, 2 CTAs a cloud hold 16,384 points), the points beyond stream
+    from global memory every step, their running distances in a (B,
+    streamed) scratch array: right, but each step reads them again. Raises
+    ValueError where B clouds cannot be resident at once.
+    """
+    if b < 1 or n < 1:
+        raise ValueError(f"grid FPS plan needs B >= 1 and N >= 1, got B={b} N={n}")
+    threads = GRID_MAX_THREADS
+    while threads > 32 and b > num_sms * grid_blocks_per_sm(threads):
+        threads //= 2
+    resident = num_sms * grid_blocks_per_sm(threads)
+    if b > resident:
+        raise ValueError(f"grid FPS: B={b} clouds exceed the {resident} CTAs the card "
+                         "holds at once")
+    ctas = max(1, min(resident // b, _cdiv(n, threads * GRID_PPT)))
+    return FpsGridPlan(ctas, threads, grid_streamed(n, ctas, threads))
+
+
+def farthest_point_sample_grid_kernel(
+    xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor = 0,
+    plan: FpsGridPlan | None = None,
+) -> torch.Tensor:
+    """Launch the grid-wide FPS kernel (``csrc/fps_grid.cu``), any N;
+    ``.launches`` counts the launches.
+
+    xyz (B, N, 3) float32 contiguous on CUDA. Returns (B, npoint) int32.
+    ``plan`` overrides :func:`fps_grid_plan`. Each call gets its own zeroed
+    (B, GRID_MEET_WORDS) int64 buffer where a cloud's CTAs meet, so calls
+    on several streams, or graphs replayed at once, never share one.
+    """
+    if xyz.device.type != "cuda":
+        raise ValueError(f"FPS kernel needs a CUDA tensor, got {xyz.device}")
+    if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[2] != 3:
+        raise ValueError(
+            f"FPS kernel needs float32 (B, N, 3), got {xyz.dtype} {tuple(xyz.shape)}"
+        )
+    if not xyz.is_contiguous():
+        raise ValueError("FPS kernel needs a contiguous xyz")
+    b, n, _ = xyz.shape
+    if not (1 <= npoint <= n) or 3 * n >= 2**31:
+        raise ValueError(f"grid FPS kernel takes 1 <= npoint <= N and 3 N < 2^31, "
+                         f"got N={n} npoint={npoint}")
+    start = start_indices(b, n, start_idx, xyz.device, torch.int32)
+    if plan is None:
+        plan = fps_grid_plan(b, n, _num_sms(xyz.device.index))
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    scratch = (torch.empty((b, plan.streamed), dtype=torch.float32, device=xyz.device)
+               if plan.streamed else None)
+    meet = torch.zeros((b, GRID_MEET_WORDS), dtype=torch.int64, device=xyz.device)
+    fn = _build.function("p2c_fps_grid", _GRID_ARGTYPES)
+    stream = torch.cuda.current_stream(xyz.device).cuda_stream
+    with torch.cuda.device(xyz.device):
+        status = fn(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), meet.data_ptr(), b, n,
+                    npoint, plan.ctas, plan.threads, stream)
+    farthest_point_sample_grid_kernel.launches += 1
+    _build.check(f"p2c_fps_grid ({plan.ctas} CTAs x {plan.threads} threads a cloud, "
+                 f"{plan.streamed} points streamed)", status)
+    return out
+
+
+farthest_point_sample_grid_kernel.launches = 0  # kernel launches, for chip_smoke.py
+
+
 def farthest_point_sample(
     xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor = 0
 ) -> torch.Tensor:
-    """Iterative FPS: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor. Returns (B, npoint) int32 indices."""
+    """Iterative FPS: for a CUDA tensor the cluster kernel up to
+    ``MAX_POINTS`` points and the grid-wide kernel above, the plain
+    version for a CPU tensor. Returns (B, npoint) int32 indices."""
     if xyz.device.type == "cpu":
         return farthest_point_sample_plain(xyz, npoint, start_idx)
+    if xyz.dim() == 3 and xyz.shape[1] > MAX_POINTS:
+        return farthest_point_sample_grid_kernel(xyz, npoint, start_idx)
     return farthest_point_sample_kernel(xyz, npoint, start_idx)
 
 

@@ -12,12 +12,18 @@ gather of selected rows is a second ring pass. FPS keeps its running
 minimum distances sharded and settles each step's global farthest point
 in one collective.
 
+At one rank (``mesh.world == 1``) there is no ring: FPS and the ball
+queries call the single-device ops (``ops/cuda_fps.py``,
+``ops/cuda_ballquery.py``: one kernel launch each on the card, no
+collective), which give the ring's results index for index.
+
 Selections are over global indices with the single-device ops' own
 arithmetic (``ops/grouping.py``'s exact squared differences, the FPS
 plain version's sum order) and tie-breaks (the lowest index), so every
 index equals the single-device op's and every gathered value is a copy:
-the ring moves the work, not the arithmetic. Everything here is plain
-PyTorch, as the JAX module is XLA code without a hand kernel.
+the ring moves the work, not the arithmetic. The ring is plain PyTorch,
+as the JAX module is XLA code without a hand kernel, apart from each FPS
+step (``csrc/fps_ring.cu``).
 
 The functions take this rank's shard and a
 :class:`~point2cyl_torch.parallel.mesh.Mesh`, where JAX's take a global
@@ -29,9 +35,11 @@ from __future__ import annotations
 import torch
 
 from point2cyl_torch.models.backbone import _pick
-from point2cyl_torch.ops import cuda_fps
-from point2cyl_torch.ops.grouping import radius_squared, square_distance_exact
-from point2cyl_torch.ops.sampling import fps_ring_offers, fps_ring_step_plain, start_indices
+from point2cyl_torch.ops import cuda_ballquery, cuda_fps
+from point2cyl_torch.ops.grouping import (ball_query_plain, radius_squared,
+                                          square_distance_exact)
+from point2cyl_torch.ops.sampling import (farthest_point_sample_plain, fps_ring_offers,
+                                          fps_ring_step_plain, start_indices)
 from point2cyl_torch.parallel import collectives
 
 
@@ -91,7 +99,7 @@ def _owned_gather(points: torch.Tensor, idx: torch.Tensor, mesh) -> torch.Tensor
 
 
 def _ring_ball_query_local(radius: float, nsample: int, xyz: torch.Tensor,
-                           queries: torch.Tensor, mesh) -> torch.Tensor:
+                           queries: torch.Tensor, mesh, *, impl: str = "auto") -> torch.Tensor:
     """``ops.grouping.ball_query_plain`` with resident queries (B, Sl, 3)
     and ring-rotating key shards (B, Nl, 3): per query the ``nsample``
     smallest global in-radius indices, ascending, a short row padded with
@@ -99,7 +107,12 @@ def _ring_ball_query_local(radius: float, nsample: int, xyz: torch.Tensor,
     smallest ``nsample`` (N standing for none), merged with each visiting
     shard's in-radius indices by one ``topk``; the keys are distinct
     global indices (equal only as the N of none), so the merge has no tie
-    to break."""
+    to break. At one rank, the single-device query
+    (``ops.cuda_ballquery.ball_query``), picked by ``impl`` as
+    ``BackboneConfig.ballquery_impl`` does."""
+    if mesh.world == 1:
+        return _pick(impl, cuda_ballquery.ball_query, ball_query_plain)(
+            radius, nsample, xyz, queries)
     nl = xyz.shape[1]
     n = nl * mesh.world
     b, sl = queries.shape[:2]
@@ -160,12 +173,25 @@ def _fps_local(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
     largest key is the largest distance at the lowest index, argmax's
     first occurrence), beside that point's coordinate bits
     (``ops.sampling.fps_ring_offers``). JAX's ring spends a psum, a pmax
-    and a pmin a step on the same. A step is one launch of the ring-step
-    kernel (``ops.cuda_fps.fps_ring_step``) and one all-gather; ``impl``
-    picks it as ``BackboneConfig.fps_impl`` does. Returns (B, npoint)
-    int32 global indices, alike on every rank."""
+    and a pmin a step on the same. At one rank there is no ring: the
+    single-device FPS (``ops.cuda_fps.farthest_point_sample``: one launch,
+    no collective); at more, :func:`_fps_ring`. ``impl`` picks the kernel
+    or the plain version as ``BackboneConfig.fps_impl`` does. Returns (B,
+    npoint) int32 global indices, alike on every rank."""
     if xyz.dtype != torch.float32:
         raise ValueError(f"sharded FPS takes float32 points, got {xyz.dtype}")
+    if mesh.world == 1:
+        return _pick(impl, cuda_fps.farthest_point_sample, farthest_point_sample_plain)(
+            xyz, npoint, start_idx)
+    return _fps_ring(xyz, npoint, start_idx, mesh, impl=impl)
+
+
+def _fps_ring(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
+              mesh, *, impl: str = "auto") -> torch.Tensor:
+    """The ring of :func:`_fps_local` at any world size, one rank
+    included: a step is one launch of the ring-step kernel
+    (``ops.cuda_fps.fps_ring_step``) and one all-gather of the ranks'
+    offers. Returns (B, npoint) int32 global indices."""
     step = _pick(impl, cuda_fps.fps_ring_step, fps_ring_step_plain)
     b, nl, _ = xyz.shape
     off = mesh.rank * nl
@@ -187,11 +213,18 @@ def _fps_local(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
 
 
 def _group_local(radius: float, nsample: int, xyz_s: torch.Tensor,
-                 feats_s: torch.Tensor | None, q: torch.Tensor, mesh) -> torch.Tensor:
+                 feats_s: torch.Tensor | None, q: torch.Tensor, mesh, *,
+                 impl: str = "auto") -> torch.Tensor:
     """``ops.grouping.group_points`` of the resident centres ``q`` (B, Sl,
     3) over the sharded cloud: the ring ball query, then one ring gather
-    of the [xyz | feats] rows, centred."""
-    idx = _ring_ball_query_local(radius, nsample, xyz_s, q, mesh)
+    of the [xyz | feats] rows, centred. At one rank without features, the
+    single-device fused query and gather (``ops.cuda_ballquery.
+    ball_query_grouped``, SA1's); ``impl`` picks the ball query as
+    ``BackboneConfig.ballquery_impl`` does."""
+    if mesh.world == 1 and feats_s is None:
+        return _pick(impl, cuda_ballquery.ball_query_grouped,
+                     cuda_ballquery.ball_query_grouped_plain)(radius, nsample, xyz_s, q)[1]
+    idx = _ring_ball_query_local(radius, nsample, xyz_s, q, mesh, impl=impl)
     table = xyz_s if feats_s is None else torch.cat([xyz_s, feats_s], dim=-1)
     g = _ring_gather_local(table, idx, mesh)
     grouped = g[..., :3] - q[:, :, None, :]

@@ -8,7 +8,8 @@ The stages split as JAX's do:
   FPS, ring ball query and ring gather of ``parallel/point_sharding.py``
   (exact selection, index for index the single-device ops'), then SA1's
   own shared MLP and neighbourhood max on this rank's slice of the
-  centres.
+  centres. At one rank, the single-device FPS and fused ball query
+  instead of the ring (one launch each on the card).
 - **The middle of the pyramid** (SA2, group-all, the feature
   propagations above FP1): after SA1 the cloud is ``sa_npoints[0]``
   centres, so one all-gather brings them and their features to every
@@ -23,7 +24,8 @@ Memory per rank is O(N / P + npoint). Eval mode only, as in JAX.
 :func:`backbone_apply_point_sharded` runs the forward eagerly;
 :class:`ShardedForward` runs it as one captured program on the card (JAX
 runs it as one XLA program): the ring FPS's steps, a kernel launch and
-an all-gather each, and every other stage replay from one CUDA graph.
+an all-gather each (one FPS launch at one rank), and every other stage
+replay from one CUDA graph.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def backbone_apply_point_sharded(
     centres = _owned_gather(pts, fps_idx, mesh)  # (B, np0, 3), alike on every rank
     spl = np0 // mesh.world
     q = centres[:, mesh.rank * spl:(mesh.rank + 1) * spl]
-    grouped = _group_local(cfg.sa_radii[0], cfg.sa_nsamples[0], pts, None, q, mesh)
+    grouped = _group_local(cfg.sa_radii[0], cfg.sa_nsamples[0], pts, None, q, mesh,
+                           impl=cfg.ballquery_impl)
     f = collectives.all_gather(model.sa1.mlp(grouped).amax(dim=2), mesh, dim=1)
 
     # the middle of the pyramid, replicated

@@ -1,0 +1,332 @@
+"""Clouds beyond 16,384 points: the launch plans of the grid-wide FPS
+kernel (``csrc/fps_grid.cu``) and of the streamed SA1 ball query
+(``csrc/ballquery.cu``), their layout headers, the world-1 point-sharded
+ops against the ring at two ranks (gloo), and the port's backbone at
+N = 20,480 against the JAX package, all on the CPU. The kernels
+themselves run on the card only (``chip_smoke.py --only-large``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import shutil
+import subprocess
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from point2cyl_torch.core.config import BackboneConfig as TorchConfig
+from point2cyl_torch.core.convert import backbone_state_dict_from_jax
+from point2cyl_torch.models.backbone import build_backbone
+from point2cyl_torch.ops import _build, cuda_ballquery, cuda_fps
+from point2cyl_torch.ops.grouping import ball_query_plain, index_points
+from point2cyl_torch.ops.sampling import farthest_point_sample_plain
+from point2cyl_torch.parallel import point_sharding as torch_ps
+from point2cyl_torch.parallel.mesh import make_mesh as torch_make_mesh
+from point2cyl_tpu.core.config import BackboneConfig
+from point2cyl_tpu.models.backbone import Backbone
+from point2cyl_tpu.ops.grouping import ball_query as jax_ball_query
+from point2cyl_tpu.ops.sampling import farthest_point_sample as jax_fps
+from test_torch_parallel import finish_ranks, start_ranks
+
+SMS = cuda_fps.H100_SMS
+LARGE_N = (16385, 16386, 19999, 20000, 24575, 32768, 65537, 131072, 500001, 2**20)
+BATCHES = (1, 2, 3, 4, 8, 16, 33, 64)
+
+
+# ---- launch plans ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_fps_grid_plan_covers_large_n(b):
+    """Every (B, N) gets a plan whose CTAs are all resident at once (B x
+    ctas within the SMs' blocks), whose registers (8 points a thread) and
+    streamed points cover the cloud, with a power of two of threads;
+    streaming only where the card's share of a cloud cannot hold it."""
+    for n in LARGE_N:
+        plan = cuda_fps.fps_grid_plan(b, n)
+        blocks = cuda_fps.grid_blocks_per_sm(plan.threads)
+        assert b * plan.ctas <= SMS * blocks, (b, n, plan)
+        assert plan.threads in (32, 64, 128, 256, 512, 1024)
+        held = plan.ctas * plan.threads * cuda_fps.GRID_PPT
+        assert held + plan.streamed >= n and plan.streamed == max(0, n - held)
+        if plan.streamed:
+            assert b * (plan.ctas + 1) > SMS * blocks, (b, n, plan)
+        else:
+            assert held - plan.threads * cuda_fps.GRID_PPT < n  # no more CTAs than needed
+
+
+def test_fps_grid_plan_main_shapes_and_limits():
+    """The slice's shapes fit in registers; a batch that cannot be
+    resident at once, or an empty one, raises ValueError."""
+    assert cuda_fps.fps_grid_plan(1, 2**20) == (128, 1024, 0)
+    assert cuda_fps.fps_grid_plan(4, 131072) == (16, 1024, 0)
+    assert cuda_fps.fps_grid_plan(4, 32768) == (4, 1024, 0)
+    assert cuda_fps.fps_grid_plan(16, 32768) == (4, 1024, 0)
+    # small CTAs where the batch outnumbers the SMs
+    assert cuda_fps.fps_grid_plan(200, 20000).threads == 512
+    most = SMS * cuda_fps.grid_blocks_per_sm(32)
+    assert cuda_fps.fps_grid_plan(most, 20000).ctas == 1
+    for b, n in ((most + 1, 20000), (0, 20000), (1, 0)):
+        with pytest.raises(ValueError):
+            cuda_fps.fps_grid_plan(b, n)
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_stream_plan_covers_large_n(b):
+    """SA1 and the idx-only query get a plan at every N: the grid or the
+    staged scan where they fit shared memory, else the streamed query,
+    whose warps serve every query, fill the card where the batch allows,
+    and whose shared memory is the header's and within the limit."""
+    for n in LARGE_N:
+        for gather in (True, False):
+            plan = cuda_ballquery.ball_query_plan(b, n, 512, 64, gather=gather)
+            assert plan is not None and plan.smem <= cuda_ballquery.SMEM_LIMIT, (b, n)
+            staged = cuda_ballquery._scan_smem(n, 64, 1) <= cuda_ballquery.SMEM_LIMIT
+            assert (plan.select == "stream") == (not staged), (b, n, plan)
+            if plan.select == "stream":
+                assert plan.smem == cuda_ballquery._stream_smem(64, plan.warps)
+                assert plan.ctas * plan.warps >= 512 and plan.ctas == -(-512 // plan.warps)
+                assert b * plan.ctas >= SMS or plan.warps == cuda_ballquery.STREAM_MIN_WARPS
+                assert plan.store == ("coords" if gather else "none")
+
+
+def test_stream_plan_forced_and_limits():
+    """``select="stream"`` takes the streamed query at any N (the card's
+    checks at N = 16,385); a nsample whose slots exceed shared memory has
+    no plan, and the wrappers' check raises there."""
+    plan = cuda_ballquery.ball_query_plan(4, 16385, 512, 64, select="stream")
+    assert plan[:4] == ("stream", "coords", 64, 8)
+    assert cuda_ballquery.ball_query_plan(1, 2**20, 512, 64)[:4] == ("stream", "coords", 128, 4)
+    assert cuda_ballquery.ball_query_plan(16, 32768, 512, 64)[:4] == ("stream", "coords", 16, 32)
+    assert cuda_ballquery.ball_query_plan(1, 2**20, 512, 60000) is None
+    with pytest.raises(ValueError, match="exceed shared memory"):
+        cuda_ballquery.plan_or_raise("sa1", 1, 2**20, 512, 60000)
+    # SA2 keeps its staged row: no stream route with features
+    assert cuda_ballquery.ball_query_plan(4, 32768, 128, 64, 128) is None
+
+
+@pytest.mark.skipif(shutil.which("c++") is None, reason="needs a host C++ compiler")
+def test_large_n_layouts_match_headers(tmp_path):
+    """The plans' constants and sizes are the kernels' own: the headers
+    (csrc/fps_grid_layout.cuh, csrc/ballquery_layout.cuh) compiled on the
+    host give the same grid FPS limits, blocks a SM and streamed points,
+    and the same streamed query's tile and shared memory."""
+    cf, cb = cuda_fps, cuda_ballquery
+    exprs = {"kGridMaxThreads": cf.GRID_MAX_THREADS, "kGridPPT": cf.GRID_PPT,
+             "kGridMeetWords": cf.GRID_MEET_WORDS, "kGridRegs": cf.GRID_REGS,
+             "kSmRegs": cf.SM_REGS, "kStreamTile": cb.STREAM_TILE}
+    for threads in (32, 64, 128, 256, 512, 1024):
+        exprs[f"grid_blocks_per_sm({threads})"] = cf.grid_blocks_per_sm(threads)
+    for b in (1, 4, 64):
+        for n in LARGE_N:
+            plan = cf.fps_grid_plan(b, n)
+            exprs[f"grid_streamed({n}, {plan.ctas}, {plan.threads})"] = plan.streamed
+    for ns in (1, 63, 64, 128, 1024):
+        for warps in (1, 4, 8, 16, 32):
+            exprs[f"stream_smem({ns}, {warps})"] = cb._stream_smem(ns, warps)
+    src = tmp_path / "layout.cpp"
+    src.write_text('#include <cstdio>\n#include "fps_grid_layout.cuh"\n'
+                   '#include "ballquery_layout.cuh"\nint main() {\n'
+                   + "".join(f'  std::printf("%lld\\n", (long long)({e}));\n' for e in exprs)
+                   + "}\n")
+    subprocess.run(["c++", "-std=c++17", "-I", str(_build.CSRC), str(src), "-o",
+                    str(tmp_path / "layout")], check=True, capture_output=True)
+    out = subprocess.run([str(tmp_path / "layout")], check=True, capture_output=True,
+                         text=True).stdout.split()
+    assert len(out) == len(exprs) and dict(zip(exprs, map(int, out))) == exprs
+    assert _build.CSRC / "fps_grid_layout.cuh" in _build._hashed()
+
+
+def test_new_kernels_refuse_cpu_tensors():
+    """The new kernels' wrappers raise on CPU tensors, and a large cloud
+    on the CPU takes the plain versions (no kernel, no fallback the other
+    way): ``impl="kernel"`` raises on the CPU at any N."""
+    xyz = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 16400, 3))
+                           .astype(np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fps.farthest_point_sample_grid_kernel(xyz, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_ballquery.ball_query_stream_kernel(0.2, 8, xyz, xyz[:, :4].contiguous())
+    before = (cuda_fps.farthest_point_sample_grid_kernel.launches,
+              cuda_ballquery.ball_query_stream_kernel.launches)
+    torch.testing.assert_close(cuda_fps.farthest_point_sample(xyz, 8),
+                               farthest_point_sample_plain(xyz, 8), rtol=0, atol=0)
+    centres = xyz[:, :4].contiguous()
+    torch.testing.assert_close(cuda_ballquery.ball_query_grouped(0.2, 8, xyz, centres)[0],
+                               ball_query_plain(0.2, 8, xyz, centres), rtol=0, atol=0)
+    assert (cuda_fps.farthest_point_sample_grid_kernel.launches,
+            cuda_ballquery.ball_query_stream_kernel.launches) == before
+    cfg = dataclasses.replace(_torch_config(), fps_impl="kernel")
+    model = build_backbone(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        model.eval()(xyz)
+
+
+# ---- world 1 against the ring ------------------------------------------------
+
+
+def test_world1_sharded_ops_equal_the_ring(tmp_path):
+    """At one rank ``_fps_local`` and ``_ring_ball_query_local`` take the
+    single-device ops; their indices equal the ring's at two ranks (gloo)
+    and at one (``_fps_ring``) index for index: FPS from a start tensor,
+    FPS over a cloud of repeated points (ties across the ranks' shards)
+    and the ball query."""
+    rng = np.random.default_rng(17)
+    xyz = rng.uniform(-1.0, 1.0, (2, 4096, 3)).astype(np.float32)
+    inp = {"xyz": torch.from_numpy(xyz),
+           "dup_xyz": torch.from_numpy(np.tile(xyz[:, :512], (1, 8, 1))),
+           "q": torch.from_numpy(xyz[:, ::32].copy()), "start": torch.tensor([5, 4000]),
+           "npoint": 128, "radius": 0.3, "nsample": 32}
+    procs = start_ranks("large_n", 2, str(tmp_path), inp)
+    one = torch_make_mesh(devices=["cpu"])
+    want = {"fps": torch_ps._fps_local(inp["xyz"], 128, inp["start"], one),
+            "fps_dup": torch_ps._fps_local(inp["dup_xyz"], 128, 0, one),
+            "ball_query": torch_ps._ring_ball_query_local(0.3, 32, inp["xyz"], inp["q"], one)}
+    ranks = finish_ranks(procs, str(tmp_path))
+    torch.testing.assert_close(want["fps"], farthest_point_sample_plain(
+        inp["xyz"], 128, inp["start"]), rtol=0, atol=0)
+    torch.testing.assert_close(want["ball_query"], ball_query_plain(
+        0.3, 32, inp["xyz"], inp["q"]), rtol=0, atol=0)
+    assert int(want["fps_dup"].max()) < 512  # the first copy's indices win the ties
+    torch.testing.assert_close(torch_ps._fps_ring(inp["xyz"], 128, inp["start"], one),
+                               want["fps"], rtol=0, atol=0)
+    for r in ranks:
+        torch.testing.assert_close(r["fps"], want["fps"], rtol=0, atol=0)
+        torch.testing.assert_close(r["fps_dup"], want["fps_dup"], rtol=0, atol=0)
+    joined = torch.cat([r["ball_query"] for r in ranks], dim=1)
+    torch.testing.assert_close(joined, want["ball_query"], rtol=0, atol=0)
+
+
+def test_world1_sharded_ops_make_no_collective(monkeypatch):
+    """At one rank the FPS and the ball queries call no collective: no
+    ring step, no all-gather, no ring rotation."""
+    from point2cyl_torch.parallel import collectives
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a collective at one rank")
+
+    for name in ("all_gather", "ppermute", "psum", "pmax", "pmin"):
+        monkeypatch.setattr(collectives, name, refuse)
+    rng = np.random.default_rng(18)
+    xyz = torch.from_numpy(rng.uniform(-1.0, 1.0, (2, 2048, 3)).astype(np.float32))
+    one = torch_make_mesh(devices=["cpu"])
+    idx = torch_ps._fps_local(xyz, 64, 3, one)
+    torch.testing.assert_close(idx, farthest_point_sample_plain(xyz, 64, 3), rtol=0, atol=0)
+    q = index_points(xyz, idx)
+    torch.testing.assert_close(torch_ps._ring_ball_query_local(0.3, 16, xyz, q, one),
+                               ball_query_plain(0.3, 16, xyz, q), rtol=0, atol=0)
+    grouped = torch_ps._group_local(0.3, 16, xyz, None, q, one)
+    torch.testing.assert_close(grouped, cuda_ballquery.ball_query_grouped_plain(
+        0.3, 16, xyz, q)[1], rtol=0, atol=0)
+
+
+# ---- the backbone at N = 20,480 against JAX ---------------------------------
+
+N_LARGE = 20480
+K = 4
+CFG = BackboneConfig(
+    num_points=N_LARGE, sa_npoints=(512, 128), sa_radii=(0.2, 0.4), sa_nsamples=(64, 64),
+    sa_mlps=((16, 32), (32, 64)), sa_global_mlp=(64, 128), fp_mlps=((64,), (32,), (32, 32)),
+    fc_width=32, output_sizes=(3, 2 * K), approx_neighbors=False,
+)
+# JAX's CPU path measures a ball query's distances by expansion (|q|^2 +
+# |p|^2 - 2 q.p, about 1e-6 off at these magnitudes), the port by exact
+# differences: no centre-point pair may lie within RADIUS_MARGIN of a
+# squared radius, or the two would select differently for that reason.
+RADIUS_MARGIN = 1e-5
+# The heads differ by float32 summation order in the dense layers and by
+# JAX's expansion distances in the 3-NN weights (about 6e-8 on this
+# cloud); 1e-5 holds them well clear of a wrong neighbour or weight.
+HEADS_ATOL = 1e-5
+
+
+def _torch_config() -> TorchConfig:
+    return TorchConfig.from_dict(dataclasses.asdict(CFG))
+
+
+def _near_radius(q: np.ndarray, pts: np.ndarray, radius: float) -> np.ndarray:
+    """Indices of ``pts`` within RADIUS_MARGIN of ``radius``^2 from any of ``q``."""
+    q, pts = q.astype(np.float64), pts.astype(np.float64)
+    d2 = (q * q).sum(-1)[:, None] + (pts * pts).sum(-1)[None] - 2.0 * q @ pts.T
+    return np.nonzero((np.abs(d2 - radius * radius) < RADIUS_MARGIN).any(axis=0))[0]
+
+
+def screened_cloud(seed: int) -> np.ndarray:
+    """A unit-sphere cloud of N_LARGE points, its points nudged outward by
+    1e-3 of their norm until no SA1 or SA2 centre (FPS from 0, the eval
+    forward's start) has a point within RADIUS_MARGIN of its squared
+    radius."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(N_LARGE, 3))
+    pts = (pts / np.linalg.norm(pts, axis=-1, keepdims=True)).astype(np.float32)
+    for _ in range(20):
+        fps1 = farthest_point_sample_plain(torch.from_numpy(pts[None]), 512)[0].numpy()
+        c1 = pts[fps1]
+        fps2 = farthest_point_sample_plain(torch.from_numpy(c1[None]), 128)[0].numpy()
+        bad = np.union1d(_near_radius(c1, pts, CFG.sa_radii[0]),
+                         fps1[_near_radius(c1[fps2], c1, CFG.sa_radii[1])])
+        if bad.size == 0:
+            return pts[None]
+        pts[bad] *= np.float32(1.001)
+    raise AssertionError("the cloud did not clear the radii")
+
+
+def jax_variables(seed: int):
+    """JAX init with non-trivial BN affine parameters and statistics."""
+    model = Backbone(CFG)
+    key = jax.random.key(seed)
+    variables = jax.jit(lambda k, x: model.init(
+        {"params": k, "sample": k, "dropout": k}, x, train=False))(key, jnp.zeros((1, 1024, 3)))
+    rng = np.random.default_rng(seed)
+
+    def bn(path, leaf):
+        name = path[-1].key
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, np.shape(leaf)).astype(np.float32)
+        if name in ("bias", "mean") and "TorchBatchNorm" in str(path):
+            return rng.normal(0.0, 0.1, np.shape(leaf)).astype(np.float32)
+        return np.asarray(leaf)
+
+    params = jax.tree_util.tree_map_with_path(bn, jax.device_get(variables["params"]))
+    stats = jax.tree_util.tree_map_with_path(bn, jax.device_get(variables["batch_stats"]))
+    return model, {"params": params, "batch_stats": stats}
+
+
+def test_backbone_at_20480_points_matches_jax():
+    """B=1, N=20,480 (past the old 16,384-point limit), K=4, narrow
+    widths, exact neighbours, the eval forward's FPS start (point 0): the
+    port's SA1 and SA2 FPS and ball-query indices equal JAX's (the
+    screened cloud keeps every pair off the radii), and its heads lie
+    within HEADS_ATOL of JAX's eval forward."""
+    pts = screened_cloud(20)
+    model, variables = jax_variables(3)
+    sd = backbone_state_dict_from_jax(variables["params"], variables["batch_stats"])
+    port = build_backbone(_torch_config(), state_dict=sd, device="cpu")
+    x = torch.from_numpy(pts)
+    with torch.inference_mode():
+        fps1 = cuda_fps.farthest_point_sample(x, 512)
+        c1 = index_points(x, fps1)
+        idx1 = cuda_ballquery.ball_query_grouped(CFG.sa_radii[0], 64, x, c1)[0]
+        fps2 = cuda_fps.farthest_point_sample(c1, 128)
+        idx2 = ball_query_plain(CFG.sa_radii[1], 64, c1, index_points(c1, fps2))
+        heads = port(x)
+    xj = jnp.asarray(pts)
+    fps1_j = jax_fps(xj, 512)
+    c1_j = jnp.take_along_axis(xj, fps1_j[..., None], axis=1)
+    fps2_j = jax_fps(c1_j, 128)
+    np.testing.assert_array_equal(fps1.numpy(), np.asarray(fps1_j))
+    np.testing.assert_array_equal(fps2.numpy(), np.asarray(fps2_j))
+    query = jax.jit(jax_ball_query, static_argnums=(0, 1))
+    np.testing.assert_array_equal(idx1.numpy(), np.asarray(
+        query(CFG.sa_radii[0], 64, xj, c1_j)))
+    np.testing.assert_array_equal(idx2.numpy(), np.asarray(query(
+        CFG.sa_radii[1], 64, c1_j, jnp.take_along_axis(c1_j, fps2_j[..., None], axis=1))))
+    want = jax.jit(lambda v, p: model.apply(v, p, train=False))(variables, xj)
+    assert np.abs(np.asarray(want[0])).max() > 0.1  # a forward worth comparing
+    for got, w in zip(heads, want):
+        assert got.shape == (1, N_LARGE, w.shape[-1])
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), atol=HEADS_ATOL, rtol=0)

@@ -298,14 +298,15 @@ def test_ring_step_plain_looped_on_one_rank(sharded):
 @pytest.mark.parametrize("p", (1, *SIZES))
 def test_sharded_fps_with_cross_rank_ties(sharded, p):
     """Every shard holds the same points (P = 2 and 4) or the cloud the
-    same 128 points four times (P = 1), so every step's farthest distance
+    same 128 points four times (P = 1, through the ring itself:
+    ``_fps_ring``), so every step's farthest distance
     ties across ranks: the lowest global index wins, as in the
     single-device FPS and JAX's sharded FPS."""
     results, inp, jax_refs, _, _ = sharded
     want = farthest_point_sample_plain(inp["fps_dup_xyz"], 64)
     if p == 1:
-        got = [torch_ps._fps_local(inp["fps_dup_xyz"], 64, 0,
-                                   torch_make_mesh(devices=["cpu"]))]
+        got = [torch_ps._fps_ring(inp["fps_dup_xyz"], 64, 0,
+                                  torch_make_mesh(devices=["cpu"]))]
     else:
         got = [r["fps_dup"] for r in results[p]]
     for g in got:

@@ -7,7 +7,8 @@ inputs the test wrote to ``<dir>/inputs.pt``, runs every case of the
 suite (``parallel``: ``tests/test_torch_parallel.py``; ``sharding``:
 ``tests/test_torch_point_sharding.py``; ``bf16``:
 ``tests/test_torch_bf16.py``; ``graphs``:
-``tests/test_torch_graphs_joint.py``) and writes what it found to
+``tests/test_torch_graphs_joint.py``; ``large_n``:
+``tests/test_torch_large_n.py``) and writes what it found to
 ``<dir>/rank<rank>.pt``. It imports torch and the port only, so the
 ranks start in a second or two; the tests hold the results against the
 one-process port and the JAX package.
@@ -270,8 +271,21 @@ def graphs_suite(mesh, inp: dict) -> dict:
     return out
 
 
+# ---- suite "large_n" --------------------------------------------------------
+
+
+def large_n_suite(mesh, inp: dict) -> dict:
+    """The ring FPS (from a start tensor, and on a cloud of repeated
+    points) and the ring ball query on this rank's shards."""
+    sh = lambda x: local_rows(x, mesh)  # noqa: E731
+    return {"fps": ps._fps_local(sh(inp["xyz"]), inp["npoint"], inp["start"], mesh),
+            "fps_dup": ps._fps_local(sh(inp["dup_xyz"]), inp["npoint"], 0, mesh),
+            "ball_query": ps._ring_ball_query_local(inp["radius"], inp["nsample"],
+                                                    sh(inp["xyz"]), sh(inp["q"]), mesh)}
+
+
 SUITES = {"parallel": parallel_suite, "sharding": sharding_suite, "bf16": bf16_suite,
-          "graphs": graphs_suite}
+          "graphs": graphs_suite, "large_n": large_n_suite}
 
 
 def main() -> None:
