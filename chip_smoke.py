@@ -40,7 +40,8 @@ set-up); any failure raises, exits non-zero and prints no result:
    query and 3-NN rows are also measured at the training shapes (B=4,
    random FPS starts). Then the corner cases of the cluster FPS (N=512
    at B=8, N=5000, N=16384, a cloud of 64 distinct points each repeated,
-   so that ties fall across CTAs), of the 3-NN forward (C=67, S=3,
+   so that ties fall across CTAs, NaN and inf coordinates), of the 3-NN
+   forward (C=67, S=3,
    duplicated sources, feats that are not 16-byte aligned; with 1, 2 and
    4 threads searching for a point, with and without the saved sources
    and weights) and of the grouped ball queries (the main shapes at B=1,
@@ -188,9 +189,11 @@ set-up); any failure raises, exits non-zero and prints no result:
    bit-equal first), and the point-sharded forward at P=1 (N=8192, B=4,
    heads [3, 16]; SA1 through the single-device FPS and fused ball query,
    no ring step) bit-equal to ``Backbone.forward``; the ring-step kernel
-   (``csrc/fps_ring.cu``) against its plain version at SA1 (B=4, N=8192)
-   and at 131,072 points (B=1), 512 steps from one start, the offers and
-   running distances after every step and the centroids bit-equal; then
+   (``csrc/fps_ring.cu``, one cluster a cloud) against its plain version
+   at SA1 (B=4, N=8192: 8 CTAs) and at 131,072 points (B=1: 16 CTAs),
+   512 steps from one start, the offers and
+   running distances after every step and the centroids bit-equal (at SA1
+   first 64 steps of the clouds with a NaN and an inf coordinate); then
    ``ShardedForward`` (the captured forward): five calls (eager, capture,
    replays) each bit-equal to ``Backbone.forward``, the kernels' wrappers
    counted in the eager call and the capture only, and one graph launch a
@@ -303,27 +306,33 @@ set-up); any failure raises, exits non-zero and prints no result:
    and graph launches a step (a trace), each graph pool's GiB and the
    capture call's ms.
 
-17. Clouds beyond 16,384 points (``csrc/fps_grid.cu``, the streamed
-   query of ``csrc/ballquery.cu``). a. The grid-wide FPS and the streamed
-   SA1 ball query against their plain versions, index for index and
-   value for value: B=1 and 4 at N=16,385 (the query forced onto the
-   stream; the planned staged scan beside it), B=4 and 16 at 32,768, B=1
-   and 4 at 131,072, B=1 at 2^20, FPS at B=64 and 200 (N=20,000: points
-   beyond the registers streamed), start tensors on the card, each FPS
-   twice in a row (the meeting slots reset themselves); a cloud of 4,096
-   points repeated 8 times (ties across CTAs); N=32,767 with a dense
-   cluster, NaN and inf points, a far, a sparse-region and a NaN query,
-   nsample 63 and the idx-only route; a row that is not 16-byte aligned;
-   both inside one captured graph, replayed on new clouds. b. Each new
-   kernel timed (25 CUDA-event runs) beside its plain version and bound
-   at N=32,768 (B=4), 131,072 (B=4 and 1) and 2^20 (B=1); the SA1 gather
-   backward and the 3-NN backward at 32,768 (bit-equal to the host's
-   ordered sum and a second run, beside ``index_add_``), the 3-NN forward
-   at FP1 at 131,072 and 2^20. c. Serving at N=131,072 (buckets 1 and 4):
-   requests of 1 and 4 clouds, eager, capture and replay each bit-equal
-   to an eager session, the heads within 1e-3 of the all-plain forward,
-   launches a request, ms of a 4-cloud request captured and eager. d.
-   Trainer A at N=32,768 (B=4, K=8) through the CLI (2 epochs, random FPS
+17. Clouds beyond 16,384 points (the FPS's cluster route,
+   ``csrc/fps_cluster.cu``, up to 131,072 points and its grid route,
+   ``csrc/fps_grid.cu``, above, the streamed query of
+   ``csrc/ballquery.cu``). a. The FPS and the streamed SA1 ball query
+   against their plain versions, index for index and value for value:
+   B=1 and 4 at N=16,385 (the query forced onto the stream; the planned
+   staged scan beside it), B=4 and 16 at 32,768, B=1 and 4 at 131,072,
+   B=1 at 2^20, FPS at B=2 and N=131,072 and 131,073 (both routes at their
+   border), B=64 at 20,000 (clusters in several waves), B=2 at 2^20 and
+   B=64 and 200 at 131,073 (the grid route's points beyond its registers
+   streamed), NaN and inf points at 20,000 and 131,073, start tensors on
+   the card, each FPS twice in a row; clouds of 4,096 points repeated 8
+   times and to 2^20 (ties across the CTAs of either route); N=32,767
+   with a dense cluster, NaN and inf points, a far, a sparse-region and a
+   NaN query, nsample 63 and the idx-only route; a row that is not
+   16-byte aligned; the cluster route and the query inside one captured
+   graph and the grid route inside another, replayed on new clouds. b.
+   Each new kernel timed (25 CUDA-event runs) beside its plain version and
+   bound at N=32,768 (B=4), 131,072 (B=4 and 1) and 2^20 (B=1), the FPS
+   with its plan and µs a step; the SA1 gather backward and the 3-NN
+   backward at 32,768 (bit-equal to the host's ordered sum and a second
+   run, beside ``index_add_``), the 3-NN forward at FP1 at 131,072 and
+   2^20. c. Serving at N=131,072 (buckets 1 and 4): requests of 1 and 4
+   clouds, eager, capture and replay each bit-equal to an eager session,
+   the heads within 1e-3 of the all-plain forward, launches a request, ms
+   of a 4-cloud request captured and eager. d. Trainer A at N=32,768 (B=4,
+   K=8) through the CLI (2 epochs, random FPS
    starts), three captured steps bit-equal to eager ones under
    deterministic algorithms, ms a step, and a saliency backward through
    the streamed query's gather backward. e. One NCCL rank: the P=1
@@ -343,10 +352,11 @@ in a graph's capture times its replays, for the K=8 train step, bucket
 A step). The ring-step kernel's rows (``fps_ring_step@sa1_p1`` and
 ``@n131072_p1``) come from phase 12a; their ``launches`` are a rank's in
 12b's P=2 sharded forward (at P=1 there is no ring). Phase 17's rows
-(``fps_grid@...``, ``ball_query_stream@...`` and the backwards and 3-NN
-at the new N) carry the launches of phase 17's paths: a 131,072-point
-request, a 32,768-point train step, a saliency backward. The last line
-is ``{"ok": true, "device": {...}}``.
+(``fps_cluster@...``, ``fps_grid@...``, ``ball_query_stream@...`` and the
+backwards and 3-NN at the new N) carry the launches of phase 17's paths:
+a 131,072-point request, a 2^20-point forward, a 32,768-point train step,
+a saliency backward. The ``fps_step`` line also gives each FPS route's
+µs a step. The last line is ``{"ok": true, "device": {...}}``.
 
 ``--recon-igr-post-process`` runs, after the set-up and alone, the
 reconstruction CLI with ``--igr_post_process`` at R=256 on a joint
@@ -1352,6 +1362,7 @@ def kernel_counters() -> dict:
         "three_nn": cuda_knn.three_nn_interpolate_kernel,
         "three_nn_backward": cuda_knn.three_nn_backward_kernel,
         "fps_ring_step": cuda_fps.fps_ring_step_kernel,
+        "fps_cluster": cuda_fps.farthest_point_sample_cluster_kernel,
         "fps_grid": cuda_fps.farthest_point_sample_grid_kernel,
         "ball_query_stream": cuda_ballquery.ball_query_stream_kernel,
     }
@@ -1374,7 +1385,8 @@ def counted(fn):
 PER_SHARDED_FORWARD = {"fps": 1, "ball_query": 0, "ball_query_grouped": 0,
                        "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                        "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
-                       "fps_ring_step": 512, "fps_grid": 0, "ball_query_stream": 0}
+                       "fps_ring_step": 512, "fps_cluster": 0, "fps_grid": 0,
+                       "ball_query_stream": 0}
 # at P=1 (N=8192) SA1 takes the single-device FPS and fused ball query: no
 # ring step, no all-gather for its FPS
 PER_SHARDED_FORWARD_P1 = {**PER_SHARDED_FORWARD, "fps": 2, "ball_query_grouped": 1,
@@ -1718,47 +1730,59 @@ def two_card_phase(card: str, dev, root: str, inp: dict) -> None:
                       "card": card}), flush=True)
 
 
-def ring_step_row(name: str, xyz: torch.Tensor, npoint: int, card: str) -> dict:
+def ring_step_row(name: str, xyz: torch.Tensor, npoint: int, card: str,
+                  nan_check: bool = False) -> dict:
     """Phase 12a: the ring-step kernel against its plain version at P=1 on
     the clouds ``xyz``, ``npoint`` steps from the same start (point 0):
     after every step the offers and the running distances bit-equal, at
     the end the centroids bit-equal (also to
-    ``farthest_point_sample_plain``) and the kernel's work buffer zero
-    again; then one step of each timed from step 1's state. Returns the
-    kernel table's row."""
+    ``farthest_point_sample_plain``); with ``nan_check`` first the same over
+    64 steps of a copy with a NaN and an inf coordinate (a NaN distance
+    equal to a NaN); then one step of each timed from step 1's state.
+    Returns the kernel table's row."""
     from point2cyl_torch.ops import cuda_fps
     from point2cyl_torch.ops.sampling import (farthest_point_sample_plain, fps_ring_offers,
                                               fps_ring_step_plain)
 
     b, n, _ = xyz.shape
     dev = xyz.device
-    first = fps_ring_offers(torch.zeros(b, dtype=torch.int64, device=dev), xyz[:, 0])[None]
-    work = torch.zeros((b, 2), dtype=torch.int64, device=dev)
-    routes = {"kernel": lambda *a: cuda_fps.fps_ring_step_kernel(*a, work),
-              "plain": fps_ring_step_plain}
-    state = {route: [first, torch.full((b, n), 1e10, device=dev),
-                     torch.empty((b, npoint), dtype=torch.int64, device=dev)]
-             for route in routes}
-    for i in range(npoint):
-        if i == 1:
-            step1 = [t.clone() for t in state["kernel"]]
-        offers = {route: fn(xyz, *state[route], i, 0) for route, fn in routes.items()}
-        check(torch.equal(offers["kernel"], offers["plain"])
-              and torch.equal(state["kernel"][1], state["plain"][1]),
-              f"ring step {name}, step {i}: the kernel's offer or distances differ from "
-              "the plain version's")
-        for route in routes:
-            state[route][0] = offers[route][None]
-    got, want = state["kernel"][2], state["plain"][2]
-    check(torch.equal(got, want) and torch.equal(got.int(), farthest_point_sample_plain(
-        xyz, npoint)), f"ring step {name}: the centroids differ")
-    check(not bool(work.any()), f"ring step {name}: the work buffer is not zero again")
-    k_ms = time_ms(lambda: cuda_fps.fps_ring_step_kernel(xyz, *step1, 1, 0, work))
+    plan = cuda_fps.fps_ring_plan(b, n)
+    routes = {"kernel": cuda_fps.fps_ring_step_kernel, "plain": fps_ring_step_plain}
+
+    def run(pts: torch.Tensor, steps: int, label: str) -> dict:
+        first = fps_ring_offers(torch.zeros(b, dtype=torch.int64, device=dev), pts[:, 0])[None]
+        state = {route: [first, torch.full((b, n), 1e10, device=dev),
+                         torch.empty((b, steps), dtype=torch.int64, device=dev)]
+                 for route in routes}
+        for i in range(steps):
+            if i == 1:
+                state["step1"] = [t.clone() for t in state["kernel"]]
+            offers = {route: fn(pts, *state[route], i, 0) for route, fn in routes.items()}
+            check(torch.equal(offers["kernel"], offers["plain"])
+                  and same_bits(state["kernel"][1], state["plain"][1]),
+                  f"ring step {label}, step {i}: the kernel's offer or distances differ from "
+                  "the plain version's")
+            for route in routes:
+                state[route][0] = offers[route][None]
+        check(torch.equal(state["kernel"][2], state["plain"][2]),
+              f"ring step {label}: the centroids differ")
+        return state
+
+    if nan_check:
+        bad = xyz.clone()
+        bad[b - 1, n // 3] = float("nan")
+        bad[0, n // 5, 0] = float("inf")
+        run(bad, 64, f"{name} with NaN and inf")
+    state = run(xyz, npoint, name)
+    check(torch.equal(state["kernel"][2].int(), farthest_point_sample_plain(xyz, npoint)),
+          f"ring step {name}: the centroids differ from the single-device FPS")
+    step1 = state["step1"]
+    k_ms = time_ms(lambda: cuda_fps.fps_ring_step_kernel(xyz, *step1, 1, 0))
     p_ms = time_ms(lambda: fps_ring_step_plain(xyz, *step1, 1, 0))
     # each point's coordinates and distance read, its distance written;
     # the offers read and written, the centroid written. Per point: 3 sub,
     # 3 mul, 2 add, 1 min, 1 compare
-    nbytes = b * n * (12 + 4 + 4) + first.numel() * 8 + b * 4 * 8 + b * 8
+    nbytes = b * n * (12 + 4 + 4) + step1[0].numel() * 8 + b * 4 * 8 + b * 8
     b_ms, b_by = bound(nbytes, 10.0 * b * n)
     row = {"name": f"fps_ring_step@{name}", "route": "cuda",
            "source": "point2cyl_torch/csrc/fps_ring.cu",
@@ -1767,7 +1791,8 @@ def ring_step_row(name: str, xyz: torch.Tensor, npoint: int, card: str) -> dict:
            "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": None}
     print(json.dumps({"kernel": row["name"], "batch": b, "shard_points": n, "steps": npoint,
-                      "bit_equal_every_step": True, "kernel_ms": k_ms, "plain_ms": p_ms,
+                      "plan": plan._asdict(), "bit_equal_every_step": True,
+                      "nan_inf_checked": nan_check, "kernel_ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                       "card": card}), flush=True)
     return row
@@ -1903,7 +1928,7 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
         # the ring step against its plain version, every step, at SA1 and
         # at 131,072 points
         big_pts = torch.from_numpy(clouds(13, 1, 131072)).to(dev)
-        ring_rows = [ring_step_row("sa1_p1", pts, np0, card),
+        ring_rows = [ring_step_row("sa1_p1", pts, np0, card, nan_check=True),
                      ring_step_row("n131072_p1", big_pts, np0, card)]
         # the captured forward: eager, capture, replays, each bit-equal to
         # Backbone.forward (and so to the eager sharded forward)
@@ -2291,7 +2316,8 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                 "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                 "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2,
-                "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
+                "fps_ring_step": 0, "fps_cluster": 0, "fps_grid": 0,
+                "ball_query_stream": 0}
     tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
                        pred_extrusion=True, pred_center=True, seed=0)
     tcfg16 = dataclasses.replace(tcfg, compute_dtype="bfloat16")
@@ -2392,7 +2418,8 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                    "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
-                   "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
+                   "fps_ring_step": 0, "fps_cluster": 0, "fps_grid": 0,
+                   "ball_query_stream": 0}
     paths = {}
     for name, c in (("bf16", cfg16), ("fp32", cfg)):
         paths[name] = os.path.join(root, f"{name}.p2ct")
@@ -3359,19 +3386,24 @@ def graphs2_phase(args, card: str, dev, root: str) -> dict:
 
 # the heads of a large cloud against the all-plain forward (phase 12d's)
 LARGE_HEADS_ATOL = 1e-3
-# one forward of a cloud above the old limits: SA1 through the grid FPS and
-# the streamed ball query, SA2 and the feature propagations as at N=8192
+# one forward of a cloud above the old limits: SA1 through the FPS above
+# 16,384 points (the cluster route up to 131,072 points, the grid route
+# above) and the streamed ball query, SA2 and the feature propagations as
+# at N=8192
 PER_LARGE_FORWARD = {**PER_SHARDED_FORWARD_P1, "fps": 1, "ball_query_grouped": 0,
-                     "fps_grid": 1, "ball_query_stream": 1}
+                     "fps_cluster": 1, "ball_query_stream": 1}
+PER_HUGE_FORWARD = {**PER_LARGE_FORWARD, "fps_cluster": 0, "fps_grid": 1}
 # Trainer A's step at N=32,768: the forward's, and the SA2 gather and 3-NN
 # backwards (the clouds take no gradient)
 PER_LARGE_STEP = {**PER_LARGE_FORWARD, "sa_grouped_backward": 1, "three_nn_backward": 2}
-LARGE_SOURCE = {"fps_grid": "point2cyl_torch/csrc/fps_grid.cu",
+LARGE_SOURCE = {"fps_cluster": "point2cyl_torch/csrc/fps_cluster.cu",
+                "fps_grid": "point2cyl_torch/csrc/fps_grid.cu",
                 "ball_query_stream": "point2cyl_torch/csrc/ballquery.cu",
                 "ball_query_grouped_backward": "point2cyl_torch/csrc/target_sum.cu",
                 "three_nn": "point2cyl_torch/csrc/knn3.cu",
                 "three_nn_backward": "point2cyl_torch/csrc/target_sum.cu"}
 LARGE_REPLACES = {
+    "fps_cluster": "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
     "fps_grid": "point2cyl_tpu/ops/pallas_fps.py:22 _fps_kernel",
     "ball_query_stream": "point2cyl_tpu/ops/pallas_ballquery.py:276 _ballquery_grouped_kernel",
     "ball_query_grouped_backward": "point2cyl_tpu/ops/pallas_ballquery.py:675 "
@@ -3380,31 +3412,46 @@ LARGE_REPLACES = {
     "three_nn_backward": "point2cyl_tpu/ops/pallas_knn.py:110 _knn3_bwd_kernel"}
 
 
+def fps_step_routes(rows: list) -> dict:
+    """Microseconds a step of each FPS route above 16,384 points, from
+    phase 17b's rows (npoint 512: 511 steps)."""
+    return {row["name"]: row["ms"] * 1e3 / 511 for row in rows
+            if row["name"].startswith(("fps_cluster@", "fps_grid@"))}
+
+
 def large_kernel_checks(dev, rng) -> dict:
-    """Phase 17a: the grid FPS and the streamed ball query against their
-    plain versions on the card, index for index and value for value: the
-    main shapes above the old limits, FPS with points streamed beyond
-    its registers, a cloud of repeated points (ties
-    across CTAs), start tensors on the card, two calls in a row, N not a
-    multiple of 4 or of the tile, NaN and inf coordinates, a far and a
-    sparse-region query, a dense cluster, nsample 63, a row that is not
-    16-byte aligned, the idx-only route; then both inside one captured
-    graph, replayed on new clouds. Returns the inputs the timings use."""
+    """Phase 17a: the FPS above 16,384 points (its cluster and grid
+    routes) and the streamed ball query against their plain versions on
+    the card, index for index and value for value: the main shapes above
+    the old limits, N at the cluster route's capacity and one above, FPS
+    clusters in several waves (B=64), the grid route with points streamed
+    beyond its registers, clouds of repeated points (ties across CTAs, also
+    the grid route's at 2^20), start tensors on the card, two calls in a
+    row, N not a multiple of 4 or of the tile, NaN and inf coordinates, a
+    far and a sparse-region query, a dense cluster, nsample 63, a row that
+    is not 16-byte aligned, the idx-only route; then the cluster route and
+    the streamed query inside one captured graph, and the grid route in
+    another, replayed on new clouds. Returns the inputs the timings use."""
     from point2cyl_torch.ops import cuda_ballquery, cuda_fps
     from point2cyl_torch.ops.grouping import ball_query_plain, index_points
 
     cfg = full_width_config(8192)
     r1, ns1, np1 = cfg.sa_radii[0], cfg.sa_nsamples[0], cfg.sa_npoints[0]
-    fps_k, bq_k = cuda_fps.farthest_point_sample_grid_kernel, cuda_ballquery.ball_query_stream_kernel
+    bq_k = cuda_ballquery.ball_query_stream_kernel
+    routes = {"cluster": cuda_fps.farthest_point_sample_cluster_kernel,
+              "grid": cuda_fps.farthest_point_sample_grid_kernel}
     cases, kept = [], {}
 
-    def fps_case(label, xyz, start):
-        want = cuda_fps.farthest_point_sample_plain(xyz, np1, start)
+    def fps_case(label, xyz, start, npoint=np1):
+        want = cuda_fps.farthest_point_sample_plain(xyz, npoint, start)
+        plan = cuda_fps.fps_grid_plan(*xyz.shape[:2])
+        fps_k = routes[plan.route]
         before = fps_k.launches
-        got = [cuda_fps.farthest_point_sample(xyz, np1, start) for _ in range(2)]
+        got = [cuda_fps.farthest_point_sample(xyz, npoint, start) for _ in range(2)]
         check(all(torch.equal(g, want) for g in got) and fps_k.launches == before + 2,
-              f"17a fps {label}: the grid kernel differs from the plain version")
-        cases.append(f"fps {label}")
+              f"17a fps {label}: the {plan.route} route differs from the plain version")
+        cases.append(f"fps {label} ({plan.route}: {plan.ctas} CTAs of {plan.threads} threads, "
+                     f"{plan.streamed} streamed)")
         return want
 
     def bq_case(label, xyz, centres, nsample=ns1, gather=True):
@@ -3437,23 +3484,49 @@ def large_kernel_checks(dev, rng) -> dict:
                 check(torch.equal(got[0], want[0]) and same_bits(got[1], want[1]),
                       f"17a ball query B={b} N={n}: the planned route differs")
             kept[(b, n)] = (xyz, start, centres)
-        # points beyond the plan's registers, streamed from global memory
-        # every step: 2 CTAs of 1,024 threads a cloud at B=64, one CTA of
-        # 512 threads at B=200
+        # both routes at their border: the cluster route's capacity and
+        # one point more (the grid route)
+        cap = cuda_fps.CLUSTER_CAPACITY
+        for n in (cap, cap + 1):
+            fps_case(f"B=2 N={n} (the cluster route's capacity{' + 1' if n > cap else ''})",
+                     torch.from_numpy(clouds(1805 + n % 2, 2, n)).to(dev),
+                     torch.from_numpy(rng.integers(0, n, size=2)).to(dev))
+        # clusters in several waves: 64 clouds of 16 CTAs
+        fps_case("B=64 N=20000 (clusters in waves)",
+                 torch.from_numpy(clouds(1806, 64, 20000)).to(dev),
+                 torch.from_numpy(rng.integers(0, 20000, size=64)).to(dev))
+        # points beyond the grid route's registers, streamed from global
+        # memory every step: 66 CTAs a cloud at B=2, N=2^20, 2 at B=64, one
+        # CTA of 512 threads at B=200
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        for b, n in ((64, 20000), (200, 20000)):
+        for b, n in ((2, 2**20), (64, cap + 1), (200, cap + 1)):
             plan = cuda_fps.fps_grid_plan(b, n, sms)
-            check(plan.streamed > 0, f"17a: the plan at B={b} N={n} streams nothing: {plan}")
+            check(plan.route == "grid" and plan.streamed > 0,
+                  f"17a: the plan at B={b} N={n} streams nothing: {plan}")
             xyz = torch.from_numpy(clouds(1800 + b, b, n)).to(dev)
-            fps_case(f"B={b} N={n}, {plan.streamed} points streamed",
-                     xyz, torch.from_numpy(rng.integers(0, n, size=b)).to(dev))
+            fps_case(f"B={b} N={n}", xyz, torch.from_numpy(rng.integers(0, n, size=b)).to(dev),
+                     npoint=128)
+            del xyz
+        # NaN and inf coordinates: a NaN point wins the next step, then every
+        # distance is NaN and the lowest index wins, as in the plain version
+        for n in (20000, cap + 1):
+            bad = clouds(1807, 2, n)
+            bad[0, n // 3] = np.nan
+            bad[1, n // 5] = [np.inf, 0.0, 0.0]
+            fps_case(f"N={n}, NaN and inf coordinates", torch.from_numpy(bad).to(dev), 0,
+                     npoint=64)
         # repeated points: 4,096 distinct points 8 times, so the farthest
-        # distance ties across the CTAs of a cloud at every step
+        # distance ties across the CTAs of a cloud at every step; repeated
+        # to 2^20, across the CTAs of the grid route too
         base = clouds(1801, 2, 4096)
         dup = torch.from_numpy(np.tile(base, (1, 8, 1))).to(dev)
         idx = fps_case("repeated points", dup, 0)
         check(int(idx.max()) < 4096, "17a fps repeated points: a later copy won a tie")
         bq_case("repeated points", dup, index_points(dup, idx))
+        huge_dup = torch.from_numpy(np.tile(base[:1], (1, 256, 1))).to(dev)
+        idx = fps_case("repeated points, N=2^20", huge_dup, 5)
+        check(int(idx.max()) < 4096, "17a fps repeated points at 2^20: a later copy won a tie")
+        del huge_dup
         # N not a multiple of 4 or of the tile, a far and a sparse-region
         # query, NaN and inf coordinates, a dense cluster
         odd = clouds(1802, 2, 32767)
@@ -3494,9 +3567,26 @@ def large_kernel_checks(dev, rng) -> dict:
             want = cuda_ballquery.ball_query_grouped_plain(r1, ns1, sx, index_points(sx, want_idx))
             check(torch.equal(g_idx, want_idx) and torch.equal(g_out[0], want[0])
                   and same_bits(g_out[1], want[1]),
-                  f"17a: the captured grid FPS and streamed query differ on clouds {seed}")
-        cases.append("captured graph, 2 replays")
+                  f"17a: the captured cluster FPS and streamed query differ on clouds {seed}")
+        cases.append("captured graph (cluster route, streamed query), 2 replays")
         del graph, g_idx, g_out
+        # the grid route inside a graph: its meeting buffer zeroed by the
+        # graph's own fill at every replay
+        xyz, start, _ = kept[(1, 2**20)]
+        sx, ss = xyz.clone(), start.clone()
+        cuda_fps.farthest_point_sample(sx, np1, ss)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_idx = cuda_fps.farthest_point_sample(sx, np1, ss)
+        for seed in (1808, 1809):
+            sx.copy_(torch.from_numpy(clouds(seed, 1, 2**20)).to(dev))
+            ss.copy_(torch.from_numpy(rng.integers(0, 2**20, size=1)).to(dev))
+            graph.replay()
+            check(torch.equal(g_idx, cuda_fps.farthest_point_sample_plain(sx, np1, ss)),
+                  f"17a: the captured grid FPS differs on clouds {seed}")
+        cases.append("captured graph (grid route), 2 replays")
+        del graph, g_idx, sx
     torch.cuda.synchronize()
     return {"cases": cases, "kept": kept}
 
@@ -3521,7 +3611,9 @@ def large_rows(dev, kept: dict, card: str) -> list:
     for b, n in ((4, 32768), (4, 131072), (1, 131072), (1, 2**20)):
         xyz, start, centres = kept[(b, n)]
         tag = f"n{n}_b{b}"
-        cases.append((f"fps_grid@{tag}", cuda_fps.farthest_point_sample_grid_kernel,
+        route = cuda_fps.fps_grid_plan(b, n).route
+        cases.append((f"fps_{route}@{tag}", getattr(
+            cuda_fps, f"farthest_point_sample_{route}_kernel"),
                       cuda_fps.farthest_point_sample_plain, (xyz, np1, start),
                       fps_work(xyz, np1), None))
         with torch.inference_mode():
@@ -3556,7 +3648,7 @@ def large_rows(dev, kept: dict, card: str) -> list:
             got = kernel(*inputs)
             want = plain(*inputs)
             torch.cuda.synchronize()
-            if kind == "fps_grid":
+            if kind in ("fps_cluster", "fps_grid"):
                 check(torch.equal(got, want), f"17b {name}: indices differ from plain")
                 err = 0.0
             elif kind == "ball_query_stream":
@@ -3584,9 +3676,13 @@ def large_rows(dev, kept: dict, card: str) -> list:
                    "replaces": LARGE_REPLACES[kind], "max_abs_err": err, "ms": k_ms,
                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms}
             rows.append(row)
+            extra = {}
+            if kind in ("fps_cluster", "fps_grid"):
+                extra = {"plan": cuda_fps.fps_grid_plan(*inputs[0].shape[:2])._asdict(),
+                         "us_per_step": k_ms * 1e3 / (np1 - 1)}
             print(json.dumps({"phase": "17b", "kernel": name, "kernel_ms": k_ms,
                               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "library_ms": l_ms, "max_abs_err": err, "card": card}),
+                              "library_ms": l_ms, "max_abs_err": err, **extra, "card": card}),
                   flush=True)
     return rows
 
@@ -3750,7 +3846,7 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
             want, launched = counted(lambda: model(pts))
             forward_s = time.perf_counter() - t0
             forward_peak = torch.cuda.max_memory_allocated() / 2**30
-            check(launched == PER_LARGE_FORWARD, f"17e: Backbone.forward launched {launched}")
+            check(launched == PER_HUGE_FORWARD, f"17e: Backbone.forward launched {launched}")
             owner = ShardedForward(mesh, model, cfg)
             torch.cuda.reset_peak_memory_stats()
             calls_s, sharded = [], []
@@ -3764,7 +3860,7 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
                       "from Backbone.forward")
         og = owner.graphs
         check(og.eager_calls == 1 and og.captures == 1 and og.replays == 2
-              and sharded[0] == sharded[1] == PER_LARGE_FORWARD and not any(sharded[2].values()),
+              and sharded[0] == sharded[1] == PER_HUGE_FORWARD and not any(sharded[2].values()),
               f"17e: {og.eager_calls} eager, {og.captures} captures, {og.replays} replays, "
               f"launches {sharded}")
         paths["sharded_p1_n1048576"] = sharded[0]
@@ -3780,7 +3876,8 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
 
-    main_path = {"fps_grid": "serve_n131072_request", "ball_query_stream": "serve_n131072_request",
+    main_path = {"fps_cluster": "serve_n131072_request", "fps_grid": "sharded_p1_n1048576",
+                 "ball_query_stream": "serve_n131072_request",
                  "three_nn": "serve_n131072_request", "three_nn_backward": "train_n32768_step",
                  "ball_query_grouped_backward": "saliency_n32768"}
     for row in rows:
@@ -3857,6 +3954,8 @@ def main() -> None:
     if args.only_large:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             rows, _ = large_phase(card, dev, tmp)
+        print(json.dumps({"fps_step": "routes above 16,384 points",
+                          "us_per_step": fps_step_routes(rows), "card": card}), flush=True)
         print(card)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {
@@ -4168,7 +4267,13 @@ def main() -> None:
          512, 0),
         ("64 distinct points repeated, N=8192 B=16",
          torch.from_numpy(np.concatenate([repeated] * 4)).to(dev), 512, 7),
+        ("NaN and inf coordinates, N=8192 B=4", fps_case(4, 8192, 34), 512, 0),
     ]
+    # a NaN point wins the step after it is reached, then every distance is
+    # NaN and the lowest index wins; next to an inf point every distance is
+    # inf and the point itself NaN, as torch.minimum and torch.argmax take them
+    fps_cases[-1][1][0, 4000] = float("nan")
+    fps_cases[-1][1][2, 77, 1] = float("inf")
     fps_checked = []
     with torch.inference_mode():
         for label, xyz, npoint, start in fps_cases:
@@ -4502,7 +4607,8 @@ def main() -> None:
                       "fps_bad_start_on_card": child.stdout.strip()}), flush=True)
     print(json.dumps({"fps_step": "SA1 B=16", "plan": cuda_fps.fps_launch_plan(
         B, cfg.num_points), "npoint": list(npoints), "ms": slope_ms,
-        "us_per_step": slope * 1e3, "intercept_ms": intercept, "card": card}), flush=True)
+        "us_per_step": slope * 1e3, "intercept_ms": intercept,
+        "routes_us_per_step": fps_step_routes(large_rows_), "card": card}), flush=True)
 
     # ---- 3. the slice through the session ----------------------------------
     counters = kernel_counters()
@@ -4511,7 +4617,8 @@ def main() -> None:
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                    "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
-                   "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
+                   "fps_ring_step": 0, "fps_cluster": 0, "fps_grid": 0,
+                   "ball_query_stream": 0}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "fullwidth.p2ct")
         export_artifact(path, state_dict, k=K, backbone_config=cfg,
@@ -4629,7 +4736,8 @@ def main() -> None:
     per_step = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                 "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                 "sa_grouped_backward": 1, "three_nn": 2, "three_nn_backward": 2,
-                "fps_ring_step": 0, "fps_grid": 0, "ball_query_stream": 0}
+                "fps_ring_step": 0, "fps_cluster": 0, "fps_grid": 0,
+                "ball_query_stream": 0}
     gen = epoch_generator(tcfg.seed, 1, dev)
     for fn in counters.values():
         fn.launches = 0

@@ -45,6 +45,21 @@ cluster the card cannot hold) is listed with its error. The plan that
 2 and 4 threads searching for a point, each held against the plain
 version; the count ``three_nn_lanes`` picks is marked.
 
+``--fps-large`` times only the FPS above 16,384 points (the cluster
+route, ``csrc/fps_cluster.cu``, and the grid route, ``csrc/fps_grid.cu``)
+and the ring FPS step (``csrc/fps_ring.cu``), and ``csrc/fps.cu`` at SA1
+and SA2 (B=16) beside them: at N=32,768 (B=4), 131,072 (B=1 and 4) and
+2^20 (B=1), card starts, the wrapper's plan, every cluster-route plan of
+16, 8 and 4 CTAs (threads to hold the cloud at 8 points a thread) and the
+grid route's plans of 1,024 and 512 threads a CTA with the CTAs that hold
+the cloud (where the card holds them at once), indices checked equal to
+the plain version's and the time a step (ms / (npoint - 1)) beside each;
+then one ring step at P=1 from step 1's state at B=4, Nl=8,192, B=1 and 4
+at Nl=131,072 and B=1 at Nl=524,288, the wrapper's plan and every plan of
+(cluster in {4, 8, 16}) x (threads in {128, 256, 512, 1024}), offers and
+distances bit-equal to the plain step's. With ``--default-only`` only the
+wrappers' own plans.
+
 Times are the median of 25 CUDA-event timings (``chip_smoke.time_ms``).
 Each line is one JSON object; the card's name and power limit come first.
 
@@ -512,6 +527,97 @@ def sweep_ball_query(dev: torch.device, rng: np.random.Generator, default_only: 
                             sa2_kernel, want2, sa2, p)
 
 
+def sweep_fps_large(dev: torch.device, rng: np.random.Generator, default_only: bool) -> None:
+    """``--fps-large``: the FPS above 16,384 points and the ring step (see
+    the module's docstring). A plan the kernel refuses is listed with its
+    error."""
+    from point2cyl_torch.ops import cuda_fps
+    from point2cyl_torch.ops.sampling import fps_ring_offers, fps_ring_step_plain
+
+    npoint = 512
+    ppt = cuda_fps.GRID_PPT
+
+    def timed(row, fn, equal, steps=0):
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            row["refused"] = str(err).splitlines()[0]
+            print(json.dumps(row), flush=True)
+            return
+        row["equal"] = equal(got)
+        if not row["equal"]:
+            print(json.dumps(row), flush=True)
+            sys.exit(f"kernel_sweep: {row} differs from plain")
+        row["ms"] = time_ms(fn)
+        if steps:
+            row["us_per_step"] = row["ms"] * 1e3 / steps
+        print(json.dumps(row), flush=True)
+
+    with torch.inference_mode():
+        # fps.cu at the serving shapes (B=16: SA1 8192 -> 512, SA2 512 -> 128)
+        sa1 = torch.from_numpy(clouds(26, 16, 8192)).to(dev)
+        sa2 = sa1[:, :512].contiguous()
+        for label, xyz, m in (("sa1 B=16", sa1, 512), ("sa2 B=16", sa2, 128)):
+            want = cuda_fps.farthest_point_sample_plain(xyz, m, 0)
+            timed({"fps": label, "plan": "default"},
+                  lambda: cuda_fps.farthest_point_sample_kernel(xyz, m, 0),
+                  lambda got: bool(torch.equal(got, want)))
+        for b, n in ((4, 32768), (1, 131072), (4, 131072), (1, 2**20)):
+            xyz = torch.from_numpy(clouds(1700 + n % 1000 + b, b, n)).to(dev)
+            start = torch.from_numpy(rng.integers(0, n, size=b)).to(dev)
+            want = cuda_fps.farthest_point_sample_plain(xyz, npoint, start)
+            chosen = cuda_fps.fps_grid_plan(b, n)
+            plans = [None]
+            if not default_only:
+                for ctas in (16, 8, 4):
+                    threads = 256
+                    while ctas * threads * ppt < n and threads < 1024:
+                        threads *= 2
+                    if ctas * threads * ppt >= n:
+                        plans.append(cuda_fps.FpsGridPlan("cluster", ctas, threads, 0))
+                for threads in (1024, 512):
+                    ctas = -(-n // (threads * ppt))
+                    if b * ctas <= cuda_fps.H100_SMS * cuda_fps.grid_blocks_per_sm(threads):
+                        plans.append(cuda_fps.FpsGridPlan("grid", ctas, threads, 0))
+            for plan in plans:
+                route = (plan or chosen).route
+                kernel = getattr(cuda_fps, f"farthest_point_sample_{route}_kernel")
+                row = {"fps_large": f"N={n} B={b}",
+                       "plan": (plan or chosen)._asdict() | {"default": plan is None},
+                       "chosen": plan is None or plan == chosen}
+
+                def call(k=kernel, pl=plan):
+                    return k(xyz, npoint, start, pl)
+
+                timed(row, call, lambda got: bool(torch.equal(got, want)), npoint - 1)
+            del xyz
+
+        # one ring step at P=1 from step 1's state
+        for b, nl in ((4, 8192), (1, 131072), (1, 524288), (4, 131072)):
+            xyz = torch.from_numpy(clouds(1600 + b, b, nl)).to(dev)
+            every = fps_ring_offers(torch.zeros(b, dtype=torch.int64, device=dev), xyz[:, 0])[None]
+            distance = torch.full((b, nl), 1e10, device=dev)
+            centroids = torch.empty((b, npoint), dtype=torch.int64, device=dev)
+            every = fps_ring_step_plain(xyz, every, distance, centroids, 0, 0)[None]
+            want_dist = distance.clone()
+            want = fps_ring_step_plain(xyz, every, want_dist, centroids.clone(), 1, 0)
+            plans = [None]
+            if not default_only:
+                plans += [cuda_fps.FpsRingPlan(c, t) for c, t in itertools.product(
+                    (4, 8, 16), (128, 256, 512, 1024))]
+            for plan in plans:
+                state = [distance.clone(), centroids.clone()]
+
+                def step(st=state, pl=plan):
+                    return cuda_fps.fps_ring_step_kernel(xyz, every, st[0], st[1], 1, 0, pl)
+
+                timed({"ring_step": f"B={b} Nl={nl}", "plan": plan or "default",
+                       "chosen": plan is None or plan == cuda_fps.fps_ring_plan(b, nl)},
+                      step, lambda got, st=state: bool(torch.equal(got, want)
+                                                       and torch.equal(st[0], want_dist)))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--default-only", action="store_true",
@@ -521,6 +627,8 @@ def main() -> None:
                         "ball queries' selection beside the whole kernels, and stop")
     parser.add_argument("--ball-query", action="store_true",
                         help="time only the grouped ball queries")
+    parser.add_argument("--fps-large", action="store_true",
+                        help="time only the FPS above 16,384 points and the ring FPS step")
     parser.add_argument("--scatter", action="store_true",
                         help="time only the 3-NN backward and the SA2 gather "
                         "backward (items 8 and 6)")
@@ -533,6 +641,9 @@ def main() -> None:
     print(json.dumps({"card": card, "device": torch.cuda.get_device_name(0)}), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
+    if args.fps_large:
+        sweep_fps_large(dev, np.random.default_rng(17), args.default_only)
+        return
     if args.split:
         split_scatter(dev, np.random.default_rng(5))
         if not args.scatter:

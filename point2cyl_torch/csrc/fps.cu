@@ -10,7 +10,10 @@
 // and farthest_point_sample_plain bit for bit: the distance is
 // ((dx*dx + dy*dy) + dz*dz) with explicit round-to-nearest intrinsics, so
 // nvcc cannot contract it into FMAs, and every argmax keeps the lowest
-// index among equal maxima, within a thread, a warp and the cluster.
+// index among equal maxima, within a thread, a warp and the cluster. The
+// running minimum is min.NaN and the maxima are taken on the distances'
+// bits, so a NaN distance stays NaN and wins, as torch.minimum and
+// torch.argmax (and JAX's) take it.
 //
 // What bounds it on this card: not bytes (a cloud is read once, 96 KB at
 // N=8192) and not operations (about 10 N a step) but the chain of npoint
@@ -71,6 +74,14 @@ constexpr int kMaxPPT = 8;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxSmem = 232448;  // 227 KB a block may opt into on sm_90
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// min with NaN propagation, as torch.minimum: a canonical NaN (0x7fffffff,
+// above inf's bits) if either is.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile(
@@ -206,8 +217,8 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start, int n,
     const float cy = sy[far];
     const float cz = sz[far];
 
-    // update the running distances, then a tree argmax over the slots;
-    // the later slot wins only when strictly larger
+    // update the running distances, then a tree argmax over the slots'
+    // bits; the later slot wins only when strictly larger
     float m[PPT];
     int mk[PPT];
 #pragma unroll
@@ -217,7 +228,7 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start, int n,
       const float dz = __fsub_rn(pz[k], cz);
       const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                                 __fmul_rn(dz, dz));
-      dist[k] = fminf(dist[k], d);
+      dist[k] = min_nan(dist[k], d);
       m[k] = dist[k];
       mk[k] = k;
     }
@@ -225,7 +236,7 @@ fps_kernel(const float* __restrict__ xyz, const int* __restrict__ start, int n,
     for (int step = 1; step < PPT; step <<= 1) {
 #pragma unroll
       for (int k = 0; k + step < PPT; k += 2 * step) {
-        if (m[k + step] > m[k]) {
+        if (__float_as_uint(m[k + step]) > __float_as_uint(m[k])) {
           m[k] = m[k + step];
           mk[k] = mk[k + step];
         }

@@ -1,5 +1,6 @@
-// Farthest point sampling over clouds beyond a cluster's shared memory
-// (N > 16,384), for Hopper (sm_90a).
+// Farthest point sampling over clouds beyond one cluster's registers
+// (N > kClusterCapacity, 131,072; fps_cluster.cu takes 16,385 to it), for
+// Hopper (sm_90a).
 //
 // Replaces: point2cyl_tpu/ops/pallas_fps.py:_fps_kernel (the pallas_call
 // at pallas_fps.py:94) above the sizes fps.cu takes. The TPU kernel tiles
@@ -12,8 +13,11 @@
 // distance to the current centre, take the argmax (ties to the lowest
 // index) as the next centre", from start[b] with every distance at 1e10.
 // The distance is ((dx*dx + dy*dy) + dz*dz) with explicit round-to-nearest
-// intrinsics, so nvcc cannot contract it into FMAs; the indices equal
-// farthest_point_sample_plain and the JAX versions.
+// intrinsics, so nvcc cannot contract it into FMAs, and the running minimum
+// is min.NaN: a NaN distance stays NaN and wins (its bits, canonical
+// 0x7fffffff, lie above inf's), the lowest index first, as torch.minimum
+// and torch.argmax do. The indices equal farthest_point_sample_plain and
+// the JAX versions.
 //
 // What bounds it on this card: the chain of npoint dependent steps, each
 // an argmax over the whole cloud. The operations (about 10 N a step) and
@@ -43,11 +47,10 @@
 //     and its coordinates, and the next step starts.
 // The meeting places are a (B, kGridMeetWords) int64 buffer the caller
 // passes in, zero at the launch (the wrapper allocates it a call: one
-// memset node in a graph), as fps_ring.cu's work buffer: two launches in
-// flight at once never share one. The key slots are double-buffered by
-// step parity: the last CTA to arrive at step s resets the slot of step
-// s - 1 (which every CTA has read before arriving) and the arrival count
-// before it releases step s.
+// memset node in a graph), so two launches in flight at once never share
+// one. The key slots are double-buffered by step parity: the last CTA to
+// arrive at step s resets the slot of step s - 1 (which every CTA has read
+// before arriving) and the arrival count before it releases step s.
 //
 // Every CTA of the launch must be resident at once, or the barrier
 // deadlocks: the plan keeps B x ctas within the CTAs the card holds
@@ -55,8 +58,16 @@
 // and a cooperative launch (cudaLaunchAttributeCooperative, which stream
 // capture records) makes the runtime refuse a grid it cannot co-schedule
 // instead of hanging.
+//
+// Tried on the H100 and not kept (PERF.md): clusters of 16 CTAs meeting
+// first in distributed shared memory, then in step-tagged slots in global
+// memory that carried the winner's coordinates (no atomics, one L2 round
+// trip after the last write). Only 7 such clusters are resident, so at
+// 2^20 points the last 131,072 lived in shared memory, and a step took
+// 3.2-3.5 us against this design's 3.2 in the same runs.
 
 #undef NDEBUG  // the start-index check below must stay in every build
+#include <atomic>
 #include <cassert>
 #include <cstdint>
 
@@ -67,6 +78,7 @@
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxDevices = 16;
 
 // A cloud's meeting place: the best key of each parity's step and the
 // arrivals, on one line; the steps completed, polled, on another.
@@ -103,6 +115,13 @@ __device__ __forceinline__ unsigned long long meet_step(Meet* m, unsigned long l
   }
   __threadfence();
   return atomicOr(&m->best[par], 0ull);
+}
+
+// min with NaN propagation, as torch.minimum: a canonical NaN if either is.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ float sq_dist(float px, float py, float pz, float cx, float cy,
@@ -170,12 +189,12 @@ fps_grid_kernel(const float* __restrict__ xyz, const int* __restrict__ start, in
     const float cx = centre[0];
     const float cy = centre[1];
     const float cz = centre[2];
-    dist[0] = fminf(dist[0], sq_dist(px[0], py[0], pz[0], cx, cy, cz));
-    unsigned bits = __float_as_uint(dist[0]);  // non-negative: ordered as its bits
+    dist[0] = min_nan(dist[0], sq_dist(px[0], py[0], pz[0], cx, cy, cz));
+    unsigned bits = __float_as_uint(dist[0]);  // non-negative or NaN: ordered as its bits
     unsigned low = ~static_cast<unsigned>(first);
 #pragma unroll
     for (int k = 1; k < kGridPPT; ++k) {
-      dist[k] = fminf(dist[k], sq_dist(px[k], py[k], pz[k], cx, cy, cz));
+      dist[k] = min_nan(dist[k], sq_dist(px[k], py[k], pz[k], cx, cy, cz));
       const unsigned kb = __float_as_uint(dist[k]);
       if (kb > bits) {
         bits = kb;
@@ -183,7 +202,8 @@ fps_grid_kernel(const float* __restrict__ xyz, const int* __restrict__ start, in
       }
     }
     for (int j = own; j < n; j += stride) {
-      const float d = fminf(sdist[j], sq_dist(p[3 * j], p[3 * j + 1], p[3 * j + 2], cx, cy, cz));
+      const float d =
+          min_nan(sdist[j], sq_dist(p[3 * j], p[3 * j + 1], p[3 * j + 2], cx, cy, cz));
       sdist[j] = d;
       if (__float_as_uint(d) > bits) {
         bits = __float_as_uint(d);
@@ -212,8 +232,9 @@ fps_grid_kernel(const float* __restrict__ xyz, const int* __restrict__ start, in
   }
 }
 
-// CTAs a card holds at once for each warp count (0: not asked yet).
-int g_resident[kGridMaxThreads / 32 + 1];
+// CTAs each card holds at once for each warp count (0: not asked yet);
+// writers that race store the same answer.
+std::atomic<int> g_resident[kMaxDevices][kGridMaxThreads / 32 + 1];
 
 }  // namespace
 
@@ -238,18 +259,21 @@ extern "C" int p2c_fps_grid(const float* xyz, const int* start, int* out, float*
       reinterpret_cast<uintptr_t>(meet) % alignof(Meet) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int& resident = g_resident[threads / 32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  int resident = g_resident[dev][threads / 32].load(std::memory_order_relaxed);
   if (resident == 0) {
-    int dev = 0;
     int sms = 0;
     int per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fps_grid_kernel, threads, 0);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     resident = per_sm * sms;
+    g_resident[dev][threads / 32].store(resident, std::memory_order_relaxed);
   }
   if (static_cast<long long>(b) * ctas > resident) {
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -264,8 +288,8 @@ extern "C" int p2c_fps_grid(const float* xyz, const int* start, int* out, float*
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, fps_grid_kernel, xyz, start, n, npoint,
-                                             ctas, out, scratch, reinterpret_cast<Meet*>(meet));
+  err = cudaLaunchKernelEx(&cfg, fps_grid_kernel, xyz, start, n, npoint, ctas, out, scratch,
+                           reinterpret_cast<Meet*>(meet));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,30 +74,34 @@ def farthest_point_sample_plain(
 LOW32 = 0xFFFFFFFF  # an offer key's low half: the complement of the global index
 
 
+NAN_BITS = 0x7FFFFFFF  # a NaN distance's bits in a key: above inf's, as the kernels' min.NaN
+
+
 def fps_ring_offers(index: torch.Tensor, coords: torch.Tensor,
                     dist: torch.Tensor | None = None) -> torch.Tensor:
     """(B, 4) int64 offers of the (B,) global indices ``index`` at
     float32 ``coords`` (B, 3): the key ``dist``'s float32 bits (0 where
-    None) shifted left 32 over ``LOW32 - index`` (non-negative floats order
-    as their bits, so the largest key is the largest distance at the
-    lowest index), then the coordinates' bits, sign-extended."""
-    bits = 0 if dist is None else dist.view(torch.int32).long() << 32
+    None; a NaN's as ``NAN_BITS``, whatever its payload) shifted left 32
+    over ``LOW32 - index`` (non-negative floats order as their bits, so the
+    largest key is the largest distance at the lowest index, a NaN above
+    all, as argmax takes it), then the coordinates' bits, sign-extended."""
+    bits = 0 if dist is None else torch.where(
+        dist.isnan(), NAN_BITS, dist.view(torch.int32)).long() << 32
     key = bits | (LOW32 - index)
     return torch.cat([key[:, None], coords.view(torch.int32).long()], dim=-1)
 
 
 def fps_ring_step_plain(xyz: torch.Tensor, every: torch.Tensor, distance: torch.Tensor,
-                        centroids: torch.Tensor, step: int, off: int,
-                        work: torch.Tensor | None = None) -> torch.Tensor:
+                        centroids: torch.Tensor, step: int, off: int) -> torch.Tensor:
     """One step of FPS over this rank's shard ``xyz`` (B, Nl, 3) float32
     of a cloud whose global indices start at ``off``: take the previous
     step's winner, the largest key of the ranks' gathered offers ``every``
     (P, B, 4) (the start's at step 0), write its global index into
     ``centroids[:, step]``, fold its squared distances into the running
     minimum ``distance`` (B, Nl) in place, and return this rank's (B, 4)
-    offer of its farthest point (:func:`fps_ring_offers`). ``work`` is the
-    kernel's and unused here. The kernel (``csrc/fps_ring.cu``) computes
-    the same bit for bit."""
+    offer of its farthest point (:func:`fps_ring_offers`). The kernel
+    (``csrc/fps_ring.cu``) computes the same bit for bit (a NaN distance
+    is a NaN, its payload aside)."""
     win = torch.gather(every, 0, every[..., :1].argmax(dim=0)[None].expand(1, -1, 4))[0]
     centroids[:, step] = LOW32 - (win[:, 0] & LOW32)
     c = win[:, 1:].to(torch.int32).view(torch.float32)

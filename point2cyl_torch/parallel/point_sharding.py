@@ -200,9 +200,8 @@ def _fps_ring(xyz: torch.Tensor, npoint: int, start_idx: int | torch.Tensor,
     every = fps_ring_offers(farthest, c)[None]  # the start, as a winning offer
     distance = torch.full((b, nl), 1e10, dtype=xyz.dtype, device=xyz.device)
     centroids = torch.empty((b, npoint), dtype=torch.int64, device=xyz.device)
-    work = torch.zeros((b, 2), dtype=torch.int64, device=xyz.device)
     for i in range(npoint):
-        offer = step(xyz, every, distance, centroids, i, off, work)
+        offer = step(xyz, every, distance, centroids, i, off)
         every = collectives.all_gather(offer[None], mesh, dim=0)  # (P, B, 4)
     return centroids.to(torch.int32)
 

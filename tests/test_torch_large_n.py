@@ -1,5 +1,6 @@
-"""Clouds beyond 16,384 points: the launch plans of the grid-wide FPS
-kernel (``csrc/fps_grid.cu``) and of the streamed SA1 ball query
+"""Clouds beyond 16,384 points: the launch plans of the FPS kernels above
+16,384 points (the cluster route, ``csrc/fps_cluster.cu``, and the grid
+route, ``csrc/fps_grid.cu``), of the ring FPS step (``csrc/fps_ring.cu``) and of the streamed SA1 ball query
 (``csrc/ballquery.cu``), their layout headers, the world-1 point-sharded
 ops against the ring at two ranks (gloo), and the port's backbone at
 N = 20,480 against the JAX package, all on the CPU. The kernels
@@ -42,37 +43,75 @@ BATCHES = (1, 2, 3, 4, 8, 16, 33, 64)
 
 @pytest.mark.parametrize("b", BATCHES)
 def test_fps_grid_plan_covers_large_n(b):
-    """Every (B, N) gets a plan whose CTAs are all resident at once (B x
-    ctas within the SMs' blocks), whose registers (8 points a thread) and
-    streamed points cover the cloud, with a power of two of threads;
-    streaming only where the card's share of a cloud cannot hold it."""
+    """Every (B, N) gets one route. The cluster route, up to the
+    cluster's capacity: one cluster of 2-16 CTAs a cloud whose registers
+    (8 points a thread) hold the cloud, with no more CTAs than it needs.
+    The grid route, only beyond: CTAs all resident at once (B x ctas
+    within the SMs' blocks), whose registers and streamed points cover the
+    cloud, with no more CTAs than it needs, streaming only where the
+    card's share of a cloud cannot hold it."""
     for n in LARGE_N:
         plan = cuda_fps.fps_grid_plan(b, n)
-        blocks = cuda_fps.grid_blocks_per_sm(plan.threads)
-        assert b * plan.ctas <= SMS * blocks, (b, n, plan)
         assert plan.threads in (32, 64, 128, 256, 512, 1024)
         held = plan.ctas * plan.threads * cuda_fps.GRID_PPT
-        assert held + plan.streamed >= n and plan.streamed == max(0, n - held)
-        if plan.streamed:
-            assert b * (plan.ctas + 1) > SMS * blocks, (b, n, plan)
+        assert plan.streamed == max(0, n - held) and held + plan.streamed >= n
+        if n <= cuda_fps.CLUSTER_CAPACITY:
+            assert plan.route == "cluster" and 2 <= plan.ctas <= cuda_fps.CLUSTER_MAX_CTAS
+            assert plan.streamed == 0 and held // 2 < n  # half the cluster would not hold it
         else:
-            assert held - plan.threads * cuda_fps.GRID_PPT < n  # no more CTAs than needed
+            assert plan.route == "grid", (b, n, plan)
+            blocks = cuda_fps.grid_blocks_per_sm(plan.threads)
+            assert b * plan.ctas <= SMS * blocks, (b, n, plan)
+            if plan.streamed:
+                assert b * (plan.ctas + 1) > SMS * blocks, (b, n, plan)
+            else:
+                assert held - plan.threads * cuda_fps.GRID_PPT < n  # no more CTAs than needed
 
 
 def test_fps_grid_plan_main_shapes_and_limits():
-    """The slice's shapes fit in registers; a batch that cannot be
-    resident at once, or an empty one, raises ValueError."""
-    assert cuda_fps.fps_grid_plan(1, 2**20) == (128, 1024, 0)
-    assert cuda_fps.fps_grid_plan(4, 131072) == (16, 1024, 0)
-    assert cuda_fps.fps_grid_plan(4, 32768) == (4, 1024, 0)
-    assert cuda_fps.fps_grid_plan(16, 32768) == (4, 1024, 0)
+    """The slice's shapes: one cluster of 16 CTAs a cloud up to 131,072
+    points, 128 CTAs of 1,024 threads at 2^20, all in registers; a batch
+    that cannot be resident at once, an empty one, or a cloud beyond one
+    cluster forced onto the cluster route raises ValueError."""
+    assert cuda_fps.fps_grid_plan(1, 2**20) == ("grid", 128, 1024, 0)
+    assert cuda_fps.fps_grid_plan(4, 131072) == ("cluster", 16, 1024, 0)
+    assert cuda_fps.fps_grid_plan(4, 32768) == ("cluster", 16, 256, 0)
+    assert cuda_fps.fps_grid_plan(16, 32768) == ("cluster", 16, 256, 0)
+    assert cuda_fps.fps_grid_plan(1, 16385) == ("cluster", 16, 256, 0)
+    cap = cuda_fps.CLUSTER_CAPACITY
+    assert cuda_fps.fps_grid_plan(2, cap + 1).route == "grid"
+    # the grid wrapper's own plan below the capacity
+    assert cuda_fps.fps_grid_plan(4, 32768, route="grid") == ("grid", 4, 1024, 0)
     # small CTAs where the batch outnumbers the SMs
-    assert cuda_fps.fps_grid_plan(200, 20000).threads == 512
+    assert cuda_fps.fps_grid_plan(64, cap + 1)[:3] == ("grid", 2, 1024)
+    assert cuda_fps.fps_grid_plan(200, cap + 1)[:3] == ("grid", 1, 512)
     most = SMS * cuda_fps.grid_blocks_per_sm(32)
-    assert cuda_fps.fps_grid_plan(most, 20000).ctas == 1
-    for b, n in ((most + 1, 20000), (0, 20000), (1, 0)):
+    assert cuda_fps.fps_grid_plan(most, cap + 1).ctas == 1
+    for b, n, route in ((most + 1, cap + 1, None), (0, 20000, None), (1, 0, None),
+                        (1, cap + 1, "cluster"), (1, 20000, "ring")):
         with pytest.raises(ValueError):
-            cuda_fps.fps_grid_plan(b, n)
+            cuda_fps.fps_grid_plan(b, n, route=route)
+
+
+@pytest.mark.parametrize("b", BATCHES)
+def test_fps_ring_plan_covers_shards(b):
+    """Every (B, Nl) of a ring step gets one cluster a cloud: at most 16
+    CTAs of 256 or 512 threads, the fewest CTAs, then threads, that give a
+    thread about 4 points of the shard (the most there are beyond 16 x
+    512 x 4); B=0 and Nl=0 raise."""
+    per = cuda_fps.RING_POINTS_PER_THREAD
+    for nl in (1, 4096, 8192, 65536, 65537, 131072, 524288):
+        plan = cuda_fps.fps_ring_plan(b, nl)
+        assert plan.threads in (256, 512) and 1 <= plan.cluster <= cuda_fps.RING_MAX_CLUSTER
+        if plan.cluster * plan.threads * per < nl:
+            assert plan == (cuda_fps.RING_MAX_CLUSTER, cuda_fps.RING_MAX_THREADS), (nl, plan)
+        elif plan.cluster > 1:
+            assert (plan.cluster // 2) * cuda_fps.RING_THREADS * per < nl, (nl, plan)
+    assert cuda_fps.fps_ring_plan(4, 8192) == (8, 256)
+    assert cuda_fps.fps_ring_plan(1, 131072) == (16, 512)
+    for b, nl in ((0, 8192), (4, 0)):
+        with pytest.raises(ValueError):
+            cuda_fps.fps_ring_plan(b, nl)
 
 
 @pytest.mark.parametrize("b", BATCHES)
@@ -113,12 +152,14 @@ def test_stream_plan_forced_and_limits():
 def test_large_n_layouts_match_headers(tmp_path):
     """The plans' constants and sizes are the kernels' own: the headers
     (csrc/fps_grid_layout.cuh, csrc/ballquery_layout.cuh) compiled on the
-    host give the same grid FPS limits, blocks a SM and streamed points,
-    and the same streamed query's tile and shared memory."""
+    host give the same FPS limits, meeting size, cluster capacity, blocks
+    a SM and streamed points, and the same streamed query's tile and
+    shared memory."""
     cf, cb = cuda_fps, cuda_ballquery
     exprs = {"kGridMaxThreads": cf.GRID_MAX_THREADS, "kGridPPT": cf.GRID_PPT,
-             "kGridMeetWords": cf.GRID_MEET_WORDS, "kGridRegs": cf.GRID_REGS,
-             "kSmRegs": cf.SM_REGS, "kStreamTile": cb.STREAM_TILE}
+             "kGridRegs": cf.GRID_REGS, "kSmRegs": cf.SM_REGS,
+             "kGridMeetWords": cf.GRID_MEET_WORDS, "kClusterMaxCtas": cf.CLUSTER_MAX_CTAS,
+             "kClusterCapacity": cf.CLUSTER_CAPACITY, "kStreamTile": cb.STREAM_TILE}
     for threads in (32, 64, 128, 256, 512, 1024):
         exprs[f"grid_blocks_per_sm({threads})"] = cf.grid_blocks_per_sm(threads)
     for b in (1, 4, 64):
@@ -147,19 +188,25 @@ def test_new_kernels_refuse_cpu_tensors():
     way): ``impl="kernel"`` raises on the CPU at any N."""
     xyz = torch.from_numpy(np.random.default_rng(0).normal(size=(1, 16400, 3))
                            .astype(np.float32))
-    with pytest.raises(ValueError, match="CUDA"):
-        cuda_fps.farthest_point_sample_grid_kernel(xyz, 8)
+    big = xyz.repeat(1, 8, 1)  # 131,200 points: the grid route's size
+    for kernel, pts in ((cuda_fps.farthest_point_sample_cluster_kernel, xyz),
+                        (cuda_fps.farthest_point_sample_grid_kernel, xyz),
+                        (cuda_fps.farthest_point_sample_grid_kernel, big)):
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel(pts, 8)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_ballquery.ball_query_stream_kernel(0.2, 8, xyz, xyz[:, :4].contiguous())
-    before = (cuda_fps.farthest_point_sample_grid_kernel.launches,
-              cuda_ballquery.ball_query_stream_kernel.launches)
-    torch.testing.assert_close(cuda_fps.farthest_point_sample(xyz, 8),
-                               farthest_point_sample_plain(xyz, 8), rtol=0, atol=0)
+    counters = (cuda_fps.farthest_point_sample_cluster_kernel,
+                cuda_fps.farthest_point_sample_grid_kernel,
+                cuda_ballquery.ball_query_stream_kernel)
+    before = [c.launches for c in counters]
+    for pts in (xyz, big):
+        torch.testing.assert_close(cuda_fps.farthest_point_sample(pts, 8),
+                                   farthest_point_sample_plain(pts, 8), rtol=0, atol=0)
     centres = xyz[:, :4].contiguous()
     torch.testing.assert_close(cuda_ballquery.ball_query_grouped(0.2, 8, xyz, centres)[0],
                                ball_query_plain(0.2, 8, xyz, centres), rtol=0, atol=0)
-    assert (cuda_fps.farthest_point_sample_grid_kernel.launches,
-            cuda_ballquery.ball_query_stream_kernel.launches) == before
+    assert [c.launches for c in counters] == before
     cfg = dataclasses.replace(_torch_config(), fps_impl="kernel")
     model = build_backbone(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="CUDA"):

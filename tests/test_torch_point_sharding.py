@@ -29,14 +29,15 @@ from point2cyl_torch.ops.grouping import (ball_query_plain, index_points,
                                           sample_and_group, three_nn_interpolate_plain,
                                           three_nn_weights_plain)
 from point2cyl_torch.ops import cuda_fps
-from point2cyl_torch.ops.sampling import (farthest_point_sample_plain, fps_ring_offers,
-                                          fps_ring_step_plain)
+from point2cyl_torch.ops.sampling import (NAN_BITS, farthest_point_sample_plain,
+                                          fps_ring_offers, fps_ring_step_plain)
 from point2cyl_torch.parallel import point_sharding as torch_ps
 from point2cyl_torch.parallel.mesh import make_mesh as torch_make_mesh
 from point2cyl_torch.parallel.sharded_backbone import (ShardedForward,
                                                        backbone_apply_point_sharded)
 from point2cyl_tpu.core.config import BackboneConfig
 from point2cyl_tpu.models.backbone import Backbone
+from point2cyl_tpu.ops.sampling import farthest_point_sample as jax_fps
 from point2cyl_tpu.parallel import point_sharding as ps
 from point2cyl_tpu.parallel.mesh import make_mesh
 from point2cyl_tpu.parallel.sharded_backbone import backbone_apply_point_sharded as jax_apply
@@ -271,6 +272,26 @@ def test_point_sharded_backbone_on_one_rank_is_the_forward(sharded):
     model.eval()
 
 
+def _loop_ring_step_plain(xyz: torch.Tensor, steps: int) -> torch.Tensor:
+    """The plain ring step looped at P = 1 from ``FPS_START``'s offer, each
+    step's offer taken as the next step's gathered offers; each offer
+    checked to be the farthest point's key and coordinates, a NaN
+    distance's key bits ``NAN_BITS``. Returns the centroids."""
+    b, n, _ = xyz.shape
+    start = torch.full((b,), FPS_START, dtype=torch.int64)
+    every = fps_ring_offers(start, xyz[:, FPS_START])[None]
+    distance = torch.full((b, n), 1e10)
+    centroids = torch.empty((b, steps), dtype=torch.int64)
+    for i in range(steps):
+        offer = fps_ring_step_plain(xyz, every, distance, centroids, i, 0)
+        far = distance.argmax(dim=-1)
+        assert torch.equal(offer[:, 0] & 0xFFFFFFFF, 0xFFFFFFFF - far)
+        assert torch.equal(offer[:, 1:].int(), xyz[torch.arange(b), far].view(torch.int32))
+        assert torch.equal(offer[:, 0] >> 32 == NAN_BITS, distance.isnan().any(dim=-1))
+        every = offer[None]
+    return centroids
+
+
 def test_ring_step_plain_looped_on_one_rank(sharded):
     """P = 1: the plain ring step looped from the start's offer, each
     step's offer taken as the next step's gathered offers, gives the
@@ -278,21 +299,28 @@ def test_ring_step_plain_looped_on_one_rank(sharded):
     mesh; each offer is the farthest point's key and coordinates."""
     _, inp, jax_refs, _, _ = sharded
     xyz = inp["fps_xyz"]
-    b = xyz.shape[0]
-    start = torch.full((b,), FPS_START, dtype=torch.int64)
-    every = fps_ring_offers(start, xyz[:, FPS_START])[None]
-    distance = torch.full((b, 512), 1e10)
-    centroids = torch.empty((b, 64), dtype=torch.int64)
-    for i in range(64):
-        offer = fps_ring_step_plain(xyz, every, distance, centroids, i, 0)
-        far = distance.argmax(dim=-1)
-        assert torch.equal(offer[:, 0] & 0xFFFFFFFF, 0xFFFFFFFF - far)
-        assert torch.equal(offer[:, 1:].int().view(torch.float32),
-                           xyz[torch.arange(b), far])
-        every = offer[None]
+    centroids = _loop_ring_step_plain(xyz, 64)
     want = farthest_point_sample_plain(xyz, 64, FPS_START)
     torch.testing.assert_close(centroids.int(), want, rtol=0, atol=0)
     np.testing.assert_array_equal(want.numpy(), jax_refs[1]["fps"])
+
+
+def test_ring_step_plain_with_nan_and_inf_on_one_rank(sharded):
+    """The same loop over clouds with a NaN and an inf coordinate: the NaN
+    point wins the step after the start (as torch's and JAX's argmax take
+    a NaN), then every distance is NaN and the lowest index wins; next to
+    the inf point every distance is inf and the point itself NaN. The
+    indices equal the single-device FPS's and JAX's FPS's."""
+    _, inp, _, _, _ = sharded
+    xyz = inp["fps_xyz"].clone()
+    xyz[0, 100] = float("nan")
+    xyz[1, 7, 2] = float("inf")
+    centroids = _loop_ring_step_plain(xyz, 64)
+    want = farthest_point_sample_plain(xyz, 64, FPS_START)
+    torch.testing.assert_close(centroids.int(), want, rtol=0, atol=0)
+    assert int(centroids[0, 1]) == 100
+    np.testing.assert_array_equal(want.numpy(), np.asarray(
+        jax_fps(jax.numpy.asarray(xyz.numpy()), 64, start_idx=FPS_START)))
 
 
 @pytest.mark.parametrize("p", (1, *SIZES))
@@ -352,8 +380,7 @@ def test_ring_fps_kernel_choice_raises_on_the_cpu(sharded):
     every = fps_ring_offers(torch.zeros(3, dtype=torch.int64), xyz[:, 0])[None]
     with pytest.raises(ValueError, match="CUDA"):
         cuda_fps.fps_ring_step_kernel(xyz, every, torch.full((3, 512), 1e10),
-                                      torch.empty((3, 8), dtype=torch.int64), 0, 0,
-                                      torch.zeros((3, 2), dtype=torch.int64))
+                                      torch.empty((3, 8), dtype=torch.int64), 0, 0)
     kernel_cfg = dataclasses.replace(model.cfg, fps_impl="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         backbone_apply_point_sharded(mesh, model, kernel_cfg, inp["pts"])
