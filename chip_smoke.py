@@ -49,9 +49,10 @@ set-up); any failure raises, exits non-zero and prints no result:
    lattice at spacing r with points on cell edges, an outlier at 1e4,
    NaN and inf coordinates and centres, nsample 63, and at SA2 C=67 and
    misaligned feats; SA1 with its plan, every query on the grid and
-   every query scanning, SA2 with each store; indices and values
-   bit-equal), each against the plain version; of the idx-only ball query
-   (N=33, 1000, 1024 and 1025, the last the index-order scan, N=510 with
+   every query scanning, at 16384 its streamed route, SA2 with each
+   store; indices and values bit-equal), each against the plain version;
+   of the idx-only ball query (N=33, 1000, 1024, 1025 and 1535, the
+   index-order scan, and 1536, the streamed query, N=510 with
    4-byte loads, nsample 63, S not a multiple of a CTA's warps, NaN and
    inf coordinates, a cloud all within the radius), indices equal to the
    plain version; and of the ordered sums (3-NN at S=3, with duplicated
@@ -309,10 +310,12 @@ set-up); any failure raises, exits non-zero and prints no result:
 17. Clouds beyond 16,384 points (the FPS's cluster route,
    ``csrc/fps_cluster.cu``, up to 131,072 points and its grid route,
    ``csrc/fps_grid.cu``, above, the streamed query of
-   ``csrc/ballquery.cu``). a. The FPS and the streamed SA1 ball query
-   against their plain versions, index for index and value for value:
-   B=1 and 4 at N=16,385 (the query forced onto the stream; the planned
-   staged scan beside it), B=4 and 16 at 32,768, B=1 and 4 at 131,072,
+   ``csrc/ballquery.cu``, SA1's route above 11,944 points). a. The FPS
+   and the streamed SA1 ball query against their plain versions, index
+   for index and value for value: B=1 and 4 at N=11,945 (the first N the
+   plan streams; 11,944 keeps the grid, the idx-only query streams) and
+   16,384 (the band the staged scan held) through the planned routes,
+   16,385, B=4 and 16 at 32,768, B=1 and 4 at 131,072,
    B=1 at 2^20, FPS at B=2 and N=131,072 and 131,073 (both routes at their
    border), B=64 at 20,000 (clusters in several waves), B=2 at 2^20 and
    B=64 and 200 at 131,073 (the grid route's points beyond its registers
@@ -320,12 +323,15 @@ set-up); any failure raises, exits non-zero and prints no result:
    the card, each FPS twice in a row; clouds of 4,096 points repeated 8
    times and to 2^20 (ties across the CTAs of either route); N=32,767
    with a dense cluster, NaN and inf points, a far, a sparse-region and a
-   NaN query, nsample 63 and the idx-only route; a row that is not
-   16-byte aligned; the cluster route and the query inside one captured
-   graph and the grid route inside another, replayed on new clouds. b.
-   Each new kernel timed (25 CUDA-event runs) beside its plain version and
-   bound at N=32,768 (B=4), 131,072 (B=4 and 1) and 2^20 (B=1), the FPS
-   with its plan and µs a step; the SA1 gather backward and the 3-NN
+   NaN query, nsample 63 and the idx-only route (the sparse and far
+   queries walk the whole row: its ms printed), a far query at 2^20 (the
+   whole row, its ms); a row that is not 16-byte aligned; the cluster
+   route and the query inside one captured graph and the grid route
+   inside another, replayed on new clouds. b. Each new kernel timed (25
+   CUDA-event runs) beside its plain version and bound at N=32,768 (B=4),
+   131,072 (B=4 and 1) and 2^20 (B=1), the streamed query also at 16,384
+   (B=1 and 4) and with its plan, the FPS with its plan and µs a step;
+   the SA1 gather backward and the 3-NN
    backward at 32,768 (bit-equal to the host's ordered sum and a second
    run, beside ``index_add_``), the 3-NN forward at FP1 at 131,072 and
    2^20. c. Serving at N=131,072 (buckets 1 and 4): requests of 1 and 4
@@ -3427,11 +3433,14 @@ def large_kernel_checks(dev, rng) -> dict:
     clusters in several waves (B=64), the grid route with points streamed
     beyond its registers, clouds of repeated points (ties across CTAs, also
     the grid route's at 2^20), start tensors on the card, two calls in a
-    row, N not a multiple of 4 or of the tile, NaN and inf coordinates, a
+    row, N not a multiple of 4 or of a block, NaN and inf coordinates, a
     far and a sparse-region query, a dense cluster, nsample 63, a row that
-    is not 16-byte aligned, the idx-only route; then the cluster route and
-    the streamed query inside one captured graph, and the grid route in
-    another, replayed on new clouds. Returns the inputs the timings use."""
+    is not 16-byte aligned, the idx-only route; the planned routes from
+    the first N past SA1's grid (11,945) and at 16,384; a far query at 2^20
+    (the whole row); then the cluster route and the streamed query inside
+    one captured graph, and the grid route in another, replayed on new
+    clouds. Returns the inputs the timings use and the ms of the queries
+    that walk the whole row."""
     from point2cyl_torch.ops import cuda_ballquery, cuda_fps
     from point2cyl_torch.ops.grouping import ball_query_plain, index_points
 
@@ -3478,12 +3487,34 @@ def large_kernel_checks(dev, rng) -> dict:
             centres = index_points(xyz, idx)
             bq_case(f"B={b} N={n}", xyz, centres)
             if n <= 131072:
-                # the routes the planner picks (the staged scan at 16,385)
+                # the routes the planner picks
                 got = cuda_ballquery.ball_query_grouped(r1, ns1, xyz, centres)
                 want = cuda_ballquery.ball_query_grouped_plain(r1, ns1, xyz, centres)
                 check(torch.equal(got[0], want[0]) and same_bits(got[1], want[1]),
                       f"17a ball query B={b} N={n}: the planned route differs")
             kept[(b, n)] = (xyz, start, centres)
+        # the first N past SA1's grid and the band the staged scan held
+        # until the streamed query beat it: both queries' planned routes
+        # (N=11,944 keeps SA1's grid; the idx-only query streams there)
+        for b, n in ((1, 11944), (1, 11945), (4, 11945), (1, 16384), (4, 16384)):
+            xyz = torch.from_numpy(clouds(1810 + n % 1000 + b, b, n)).to(dev)
+            centres = index_points(xyz, cuda_fps.farthest_point_sample(xyz, np1))
+            want = cuda_ballquery.ball_query_grouped_plain(r1, ns1, xyz, centres)
+            selects = []
+            for gather in (True, False):
+                plan = cuda_ballquery.ball_query_plan(b, n, np1, ns1, gather=gather)
+                selects.append(plan.select)
+                check(plan.select == ("grid" if gather and n == 11944 else "stream"),
+                      f"17a: the plan at B={b} N={n}: {plan}")
+                if gather:
+                    got = cuda_ballquery.ball_query_grouped(r1, ns1, xyz, centres)
+                    ok = torch.equal(got[0], want[0]) and same_bits(got[1], want[1])
+                else:
+                    ok = torch.equal(cuda_ballquery.ball_query(r1, ns1, xyz, centres), want[0])
+                check(ok, f"17a ball query B={b} N={n} gather={gather}: the planned "
+                      f"{plan.select} route differs from the plain version")
+            cases.append(f"ball query B={b} N={n}, planned ({selects[0]}; idx only {selects[1]})")
+            kept[(b, n)] = (xyz, None, centres)
         # both routes at their border: the cluster route's capacity and
         # one point more (the grid route)
         cap = cuda_fps.CLUSTER_CAPACITY
@@ -3539,15 +3570,23 @@ def large_kernel_checks(dev, rng) -> dict:
         q[:, 1] = odd[:, 5000] * 1.19  # off the sphere: fewer than nsample in its ball
         q[1, 2] = float("nan")
         bq_case("N=32767, NaN/inf, far and sparse queries, a cluster", odd, q.contiguous())
+        walks = {"n32767_sparse_far_ms": time_ms(lambda: bq_k(r1, ns1, odd, q.contiguous()))}
         bq_case("N=32767, nsample 63", odd, q.contiguous(), nsample=63)
         bq_case("N=32767, idx only", odd, q.contiguous(), gather=False)
-        # a row that is not 16-byte aligned: 4-byte copies into the tiles
+        # a row that is not 16-byte aligned: blocks copied from the 16-byte
+        # boundary below, tested with 4-byte loads
         flat = torch.empty(2 * 32768 * 3 + 1, device=dev)
         shifted = flat[1:].view(2, 32768, 3)
         shifted.copy_(kept[(4, 32768)][0][:2])
         bq_case("misaligned row", shifted, kept[(4, 32768)][2][:2].contiguous())
         bq_case("B=4 N=32768, idx only", kept[(4, 32768)][0], kept[(4, 32768)][2],
                 gather=False)
+        # a far query at 2^20: its CTA walks the whole row
+        huge, far = kept[(1, 2**20)][0], kept[(1, 2**20)][2].clone()
+        far[0, 0] = 1e4
+        bq_case("N=2^20, a far query (the whole row)", huge, far)
+        walks["n1048576_far_ms"] = time_ms(lambda: bq_k(r1, ns1, huge, far))
+        del far
         # both kernels through ball_query_grouped's and FPS's dispatch inside
         # one captured graph, replayed on new clouds and starts
         xyz, start, _ = kept[(4, 32768)]
@@ -3588,7 +3627,7 @@ def large_kernel_checks(dev, rng) -> dict:
         cases.append("captured graph (grid route), 2 replays")
         del graph, g_idx, sx
     torch.cuda.synchronize()
-    return {"cases": cases, "kept": kept}
+    return {"cases": cases, "kept": kept, "walks": walks}
 
 
 def large_rows(dev, kept: dict, card: str) -> list:
@@ -3619,6 +3658,14 @@ def large_rows(dev, kept: dict, card: str) -> list:
         with torch.inference_mode():
             idx = cuda_ballquery.ball_query_stream_kernel(r1, ns1, xyz, centres)[0]
         cases.append((f"ball_query_stream@{tag}", cuda_ballquery.ball_query_stream_kernel,
+                      cuda_ballquery.ball_query_grouped_plain, (r1, ns1, xyz, centres),
+                      group_work(xyz, centres, idx, 3), None))
+    # the band the staged scan held (SA1 only: the FPS there is fps.cu's)
+    for b in (1, 4):
+        xyz, _, centres = kept[(b, 16384)]
+        with torch.inference_mode():
+            idx = cuda_ballquery.ball_query_stream_kernel(r1, ns1, xyz, centres)[0]
+        cases.append((f"ball_query_stream@n16384_b{b}", cuda_ballquery.ball_query_stream_kernel,
                       cuda_ballquery.ball_query_grouped_plain, (r1, ns1, xyz, centres),
                       group_work(xyz, centres, idx, 3), None))
     xyz4, _, c4 = kept[(4, 32768)]
@@ -3680,6 +3727,9 @@ def large_rows(dev, kept: dict, card: str) -> list:
             if kind in ("fps_cluster", "fps_grid"):
                 extra = {"plan": cuda_fps.fps_grid_plan(*inputs[0].shape[:2])._asdict(),
                          "us_per_step": k_ms * 1e3 / (np1 - 1)}
+            elif kind == "ball_query_stream":
+                extra = {"plan": cuda_ballquery.ball_query_plan(
+                    *inputs[2].shape[:2], inputs[3].shape[1], ns1, select="stream")._asdict()}
             print(json.dumps({"phase": "17b", "kernel": name, "kernel_ms": k_ms,
                               "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                               "library_ms": l_ms, "max_abs_err": err, **extra, "card": card}),
@@ -3885,7 +3935,8 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
         row["launches"] = paths[main_path[kernel]][kernel]
         row["large_launches"] = {key: val[kernel] for key, val in paths.items()}
     check(all(row["launches"] > 0 for row in rows), "17: a kernel of the paths did not launch")
-    print(json.dumps({"phase": "17", "checked": checked["cases"], "checks_s": t_checks,
+    print(json.dumps({"phase": "17", "checked": checked["cases"], "whole_row": checked["walks"],
+                      "checks_s": t_checks,
                       "timings_s": t_rows, "phase17_s": time.perf_counter() - t_phase}),
           flush=True)
     return rows, paths
@@ -4364,7 +4415,7 @@ def main() -> None:
     geometry = [  # label, xyz, centres, radius
         ("N=5000 B=3", on_card(clouds(54, 3, 5000)), None, r1),
         ("N=4999 B=3 (not a multiple of 4)", on_card(clouds(55, 3, 4999)), None, r1),
-        ("N=16384 B=2 (SA1's scan route)", on_card(clouds(56, 2, 16384)), None, r1),
+        ("N=16384 B=2 (SA1's streamed route)", on_card(clouds(56, 2, 16384)), None, r1),
         ("dense cluster: 4096 points within r of one another", on_card(dense), None, r1),
         ("64 distinct points repeated", on_card(repeated), None, r1),
         ("lattice at spacing r and points on cell edges, r=0.25", on_card(exact),
@@ -4402,6 +4453,8 @@ def main() -> None:
                 if kernel is cuda_ballquery.ball_query_grouped_kernel:
                     plans = [cuda_ballquery.ball_query_plan(b, n, s, ns, cap=cap)
                              for cap in (cuda_ballquery.GRID_CAP, 1 << 30, 0)]
+                    if plans[0].select == "stream":  # no cap where the grid does not fit
+                        plans = plans[:1]
                 else:
                     c = inputs[3].shape[2]
                     # the wrapper's own plan first; the bulk copy's buffers
@@ -4419,12 +4472,13 @@ def main() -> None:
                           f"{kernel.__name__} {label} {plan}: values differ from plain")
                     bq_checked += 1
                 bq_routes[f"{kernel.__name__} {label}"] = plans[0].select
-    check(bq_routes["ball_query_grouped_kernel N=16384 B=2 (SA1's scan route)"] == "scan"
+    check(bq_routes["ball_query_grouped_kernel N=16384 B=2 (SA1's streamed route)"] == "stream"
           and bq_routes["ball_query_grouped_kernel main shape B=16"] == "grid",
           f"SA1 routes {bq_routes}")
 
     # the idx-only ball query (item 2): indices equal to the plain version,
-    # its ballots up to N=1024, the index-order scan above
+    # its ballots up to N=1024, the index-order scan above, the streamed
+    # query from N=1536
     def idx_case(seed, b, n, s, radius, ns=ns1):
         xyz = on_card(clouds(seed, b, n))
         return radius, ns, xyz, some_centres(xyz, s)
@@ -4441,6 +4495,8 @@ def main() -> None:
         ("N=1000 B=4 (a ragged last block), S=500", idx_case(64, 4, 1000, 500, r1)),
         ("N=1024 B=4 (8 blocks), S=512", idx_case(65, 4, 1024, 512, r1)),
         ("N=1025 B=4 (the index-order scan)", idx_case(66, 4, 1025, 512, r1)),
+        ("N=1535 B=16 (the index-order scan's last N)", idx_case(67, 16, 1535, 512, r1)),
+        ("N=1536 B=16 (the streamed query's first N)", idx_case(68, 16, 1536, 512, r1)),
         ("nsample 63 (4-byte stores), N=512 B=8", (r1, 63, p512, c512)),
         ("S=300, not a multiple of a CTA's warps", (r1, ns1, p512, c512[:, :300].contiguous())),
         ("NaN and inf coordinates, centres among them", (r1, ns1, nan_xyz, nan_centres)),
@@ -4458,6 +4514,8 @@ def main() -> None:
             idx_routes[label] = cuda_ballquery.ball_query_plan(
                 b, n, inputs[3].shape[1], inputs[1], gather=False).select
     check(idx_routes["N=1025 B=4 (the index-order scan)"] == "scan"
+          and idx_routes["N=1535 B=16 (the index-order scan's last N)"] == "scan"
+          and idx_routes["N=1536 B=16 (the streamed query's first N)"] == "stream"
           and idx_routes["N=1024 B=4 (8 blocks), S=512"] == "ballot",
           f"idx-only routes {idx_routes}")
     del l1_xyz, l1_f, l2_xyz, geometry, sa1_cases, sa2_cases, bad_xyz, bad_centres

@@ -45,6 +45,20 @@ cluster the card cannot hold) is listed with its error. The plan that
 2 and 4 threads searching for a point, each held against the plain
 version; the count ``three_nn_lanes`` picks is marked.
 
+``--stream-split`` times only the streamed SA1 ball query (above 11,944
+points, ``p2c_ball_query_stream``) at N=32,768 (B=4), 131,072 (B=4 and
+1) and 2^20 (B=1): the wrapper's plan whole, its indices alone and over
+the row's first 2,048 points (one block of the earlier design), beside a
+fill of its outputs and where each query's 64th hit lies; then one
+launch with each CTA's clock stamps (``p2c_ball_query_stream_probe``):
+set-up, and per block the wait, the tests to the barrier, the placing and
+the next copy's issue, in µs. ``--stream`` times SA1 and its indices
+alone there and at N=16,384 (B=1 and 4): the wrappers' plans and every
+streamed plan (warps a query, warps a CTA); then the idx-only query past
+its ballots (N=1,025 to 11,944 at B=1, 4 and 16): the wrapper's plan,
+the staged scan and the streamed plan; each equal to the plain version,
+with the bound.
+
 ``--fps-large`` times only the FPS above 16,384 points (the cluster
 route, ``csrc/fps_cluster.cu``, and the grid route, ``csrc/fps_grid.cu``)
 and the ring FPS step (``csrc/fps_ring.cu``), and ``csrc/fps.cu`` at SA1
@@ -118,8 +132,7 @@ def grid_select(radius: float, ns: int, xyz: torch.Tensor,
     idx = torch.empty((b, s, ns), dtype=torch.int32, device=xyz.device)
     fn = _build.function("p2c_ball_query_grouped", cuda_ballquery._ARGS_GROUPED)
     status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), None, b, n, s, ns,
-                radius_squared(radius), int(plan.select == "grid"), plan.ctas,
-                plan.warps, plan.cap, torch.cuda.current_stream(xyz.device).cuda_stream)
+                radius_squared(radius), plan.ctas, plan.warps, plan.cap, torch.cuda.current_stream(xyz.device).cuda_stream)
     _build.check("p2c_ball_query_grouped (selection alone)", status)
     return idx
 
@@ -176,6 +189,234 @@ def split_ball_query(dev: torch.device, rng: np.random.Generator) -> None:
         row.update(whole_ms=time_ms(lambda: cuda_ballquery.ball_query_kernel(
             radius, ns, xyz, new_xyz)), fill_output_ms=time_ms(lambda: idx.fill_(0)))
         print(json.dumps(row), flush=True)
+
+
+# phase 17b's shapes of the streamed SA1 query: (B, N)
+STREAM_SHAPES = ((4, 32768), (4, 131072), (1, 131072), (1, 2**20))
+# the idx-only query's shapes past its ballots: (B, N)
+IDX_BAND = tuple((b, n) for n in (1025, 1280, 1536, 1792, 2048, 4096, 8192, 11944)
+                 for b in (1, 4, 16))
+# points of the row the split's "one block" runs keep (a tile of the
+# streamed query's earlier design)
+ONE_BLOCK = 2048
+
+
+def stream_inputs(b: int, n: int, dev: torch.device, rng: np.random.Generator) -> tuple:
+    """SA1 at N points (r=0.2, nsample 64): phase 17a's clouds and 512 FPS
+    centres from a random start, as ``chip_smoke.large_kernel_checks``
+    makes them."""
+    from point2cyl_torch.ops import cuda_fps
+    from point2cyl_torch.ops.grouping import index_points
+
+    xyz = torch.from_numpy(clouds(1700 + n % 1000 + b, b, n)).to(dev)
+    start = torch.from_numpy(rng.integers(0, n, size=b)).to(dev)
+    with torch.inference_mode():
+        centres = index_points(xyz, cuda_fps.farthest_point_sample(xyz, 512, start))
+    return 0.2, 64, xyz, centres.contiguous()
+
+
+def hit_positions(idx: torch.Tensor, n: int, per_cta: int) -> dict:
+    """Where each query's nsample-th in-radius point lies in its row (N
+    where the row is short), from the plain version's indices: the median
+    over the queries, and over the CTAs of ``per_cta`` queries the median
+    and the largest of each CTA's farthest."""
+    full = idx[..., -1] != idx[..., 0]
+    pos = torch.where(full, idx[..., -1].long() + 1, n).cpu()
+    b, s = pos.shape
+    pad = -(-s // per_cta) * per_cta - s
+    cta = torch.cat([pos, pos.new_zeros(b, pad)], dim=1).reshape(b, -1, per_cta).amax(-1)
+    return {"query_median": int(pos.median()), "cta_max_median": int(cta.median()),
+            "cta_max": int(cta.max()), "short_rows": int((~full).sum())}
+
+
+def split_stream(dev: torch.device, rng: np.random.Generator) -> None:
+    """``--stream-split``: the streamed SA1 query at phase 17b's shapes,
+    each output checked equal to the plain version's: the whole kernel at
+    the wrapper's plan, its indices alone (no gather), and the same plan
+    over the row's first ``ONE_BLOCK`` points (one block a query: a tile
+    of the earlier design), beside a fill of the outputs (the launch
+    floor) and the distribution of each query's nsample-th hit; then one
+    launch's phases from its clock stamps (:func:`stream_phases`)."""
+    from point2cyl_torch.ops import cuda_ballquery
+    from point2cyl_torch.ops.grouping import ball_query_plain
+
+    kernel = cuda_ballquery.ball_query_stream_kernel
+    with torch.inference_mode():
+        for b, n in STREAM_SHAPES:
+            radius, ns, xyz, centres = stream_inputs(b, n, dev, rng)
+            s = centres.shape[1]
+            plan = cuda_ballquery.ball_query_plan(b, n, s, ns, select="stream")
+            want = cuda_ballquery.ball_query_grouped_plain(radius, ns, xyz, centres)
+            idx, grouped = kernel(radius, ns, xyz, centres)
+            alone = kernel(radius, ns, xyz, centres, gather=False)
+            tile = xyz[:, :ONE_BLOCK].contiguous()
+            want_tile = ball_query_plain(radius, ns, tile, centres)
+            if not (torch.equal(idx, want[0]) and torch.equal(grouped, want[1])
+                    and torch.equal(alone, want[0])
+                    and torch.equal(kernel(radius, ns, tile, centres, plan)[0], want_tile)):
+                sys.exit(f"kernel_sweep: streamed query B={b} N={n} differs from plain")
+            print(json.dumps({
+                "stream_split": f"N={n} B={b}", "plan": plan._asdict(),
+                "whole_ms": time_ms(lambda: kernel(radius, ns, xyz, centres)),
+                "idx_only_ms": time_ms(lambda: kernel(radius, ns, xyz, centres, gather=False)),
+                "one_block_ms": time_ms(lambda: kernel(radius, ns, tile, centres, plan)),
+                "fill_outputs_ms": time_ms(lambda: (idx.fill_(0), grouped.fill_(0.0))),
+                "nsample_th_hit": hit_positions(want[0], n, plan.warps // plan.group)}),
+                flush=True)
+            # the phases of one launch at the wrapper's plan
+            print(json.dumps({"stream_phases": f"N={n} B={b}", "plan": plan._asdict(),
+                              **stream_phases((radius, ns, xyz, centres), plan)}), flush=True)
+            del xyz, tile
+
+
+# xyz, new_xyz, idx, grouped; b, n, s, ns; r2; ctas, warps, group; stamps;
+# stream
+_ARGS_STREAM_PROBE = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                      + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+
+
+def stream_phases(inputs: tuple, plan) -> dict:
+    """One launch of the streamed query at ``plan`` with each CTA's clock
+    stamps (``p2c_ball_query_stream_probe``): the medians over the CTAs, in
+    µs, of the set-up, each block's wait, tests to the barrier, placing and
+    next copy's issue (the first 12 blocks), the drain and the end; the CTAs'
+    spread of start times, their median span and the launch's span (first
+    start to last end, global timer), and the blocks tested (median and
+    most); cycles become µs at each CTA's clock over its global-timer
+    span."""
+    from point2cyl_torch.ops import _build, cuda_ballquery
+    from point2cyl_torch.ops.grouping import radius_squared
+
+    radius, ns, xyz, centres = inputs
+    b, n, _ = xyz.shape
+    s = centres.shape[1]
+    idx = torch.empty((b, s, ns), dtype=torch.int32, device=xyz.device)
+    grouped = torch.empty((b, s, ns, 3), device=xyz.device)
+    stamps = torch.zeros((b * plan.ctas, 64), dtype=torch.int64, device=xyz.device)
+    fn = _build.function("p2c_ball_query_stream_probe", _ARGS_STREAM_PROBE)
+    status = fn(xyz.data_ptr(), centres.data_ptr(), idx.data_ptr(), grouped.data_ptr(), b, n,
+                s, ns, radius_squared(radius), plan.ctas, plan.warps, plan.group,
+                stamps.data_ptr(),
+                torch.cuda.current_stream(xyz.device).cuda_stream)
+    _build.check("p2c_ball_query_stream_probe", status)
+    want = cuda_ballquery.ball_query_grouped_plain(radius, ns, xyz, centres)
+    if not (torch.equal(idx, want[0]) and torch.equal(grouped, want[1])):
+        sys.exit(f"kernel_sweep: the probed streamed query {plan} differs from plain")
+    st = stamps.cpu().double()
+    per_us = (st[:, 51] - st[:, 0]) / ((st[:, 53] - st[:, 52]) / 1e3)  # cycles a µs
+
+    def med(a, c):
+        return round(float(((st[:, c] - st[:, a]) / per_us).median()), 3)
+
+    blocks = int(st[:, 54].median())
+    row = {"setup_us": med(0, 1), "blocks": blocks + 1, "most_blocks": int(st[:, 54].max()) + 1,
+           "start_spread_us": round(float(st[:, 52].max() - st[:, 52].min()) / 1e3, 3),
+           "span_us": round(float((st[:, 53] - st[:, 52]).median()) / 1e3, 3),
+           "launch_span_us": round(float(st[:, 53].max() - st[:, 52].min()) / 1e3, 3),
+           "mhz": round(float(per_us.median()), 1)}
+    prev = 1
+    for k in range(min(blocks + 1, 12)):
+        row[f"block{k}"] = [med(prev, 2 + 4 * k), med(2 + 4 * k, 3 + 4 * k),
+                            med(3 + 4 * k, 4 + 4 * k)]
+        if k < blocks:  # the median CTA's last block copies nothing after it
+            row[f"block{k}"].append(med(4 + 4 * k, 5 + 4 * k))
+        prev = 5 + 4 * k
+    if blocks < 12:
+        row["drain_us"] = med(4 + 4 * blocks, 50)
+    row["end_us"] = med(50, 51)
+    return row
+
+
+def stream_plans(b: int, n: int, s: int, ns: int, default) -> list:
+    """Every plan of the streamed query worth timing at (B, N): warps a
+    query in {1, 2, 4, 8, 16} x warps a CTA in {4, 8, 16, 32}, where they
+    fit; the wrapper's own first."""
+    from point2cyl_torch.ops import cuda_ballquery
+
+    plans = [default]
+    for group, warps in itertools.product((1, 2, 4, 8, 16), (4, 8, 16, 32)):
+        plan = cuda_ballquery.ball_query_plan(b, n, s, ns, select="stream", group=group,
+                                              warps=warps)
+        if plan is not None and plan not in plans:
+            plans.append(plan)
+    return plans
+
+
+def sweep_stream(dev: torch.device, rng: np.random.Generator, default_only: bool) -> None:
+    """``--stream``: SA1 (and its indices alone) at phase 17b's shapes and
+    at N=16,384 (B=1 and 4), each output checked equal to the plain
+    version's, with the bound of ``chip_smoke.group_work``: the wrappers'
+    own plans and, unless ``default_only``, every plan of
+    :func:`stream_plans`; then the idx-only query at ``IDX_BAND`` (bound
+    of ``chip_smoke.query_work``). The plan the wrapper picks is
+    marked."""
+    from chip_smoke import bound, group_work, query_work
+    from point2cyl_torch.ops import cuda_ballquery
+    from point2cyl_torch.ops.grouping import ball_query_plain
+
+    with torch.inference_mode():
+        for b, n in (*STREAM_SHAPES, (1, 16384), (4, 16384)):
+            radius, ns, xyz, centres = stream_inputs(b, n, dev, rng)
+            s = centres.shape[1]
+            want = cuda_ballquery.ball_query_grouped_plain(radius, ns, xyz, centres)
+            bound_ms, bound_by = bound(*group_work(xyz, centres, want[0], 3))
+            label = f"N={n} B={b}"
+            for gather in (True, False):
+                chosen = cuda_ballquery.ball_query_plan(b, n, s, ns, gather=gather)
+                if gather:
+                    def call(plan=None):
+                        extra = {} if plan is None else {"plan": plan}
+                        return cuda_ballquery.ball_query_grouped_kernel(
+                            radius, ns, xyz, centres, **extra)
+                else:
+                    def call(plan=None):
+                        extra = {} if plan is None else {"plan": plan}
+                        return (cuda_ballquery.ball_query_kernel(radius, ns, xyz, centres,
+                                                                  **extra), None)
+                plans = [None]
+                if gather and not default_only:
+                    plans += stream_plans(b, n, s, ns, cuda_ballquery.ball_query_plan(
+                        b, n, s, ns, select="stream"))
+                for plan in plans:
+                    got = call(plan)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0])
+                            and (got[1] is None or torch.equal(got[1], want[1]))):
+                        sys.exit(f"kernel_sweep: {label} plan {plan} differs from plain")
+                    print(json.dumps({
+                        "stream": label, "gather": gather,
+                        "plan": "default" if plan is None else plan._asdict(),
+                        "chosen": plan is None or plan == chosen,
+                        "default_plan": chosen._asdict(), "ms": time_ms(lambda: call(plan)),
+                        "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
+            del xyz
+        # the idx-only query past its ballots (N > 1024): the wrapper's plan
+        # and, unless default_only, the staged scan and the streamed plan
+        for b, n in IDX_BAND:
+            radius, ns, xyz, centres = stream_inputs(b, n, dev, rng)
+            s = centres.shape[1]
+            want = ball_query_plain(radius, ns, xyz, centres)
+            bound_ms, bound_by = bound(*query_work(xyz, centres, want))
+            chosen = cuda_ballquery.ball_query_plan(b, n, s, ns, gather=False)
+            plans = [None]
+            for select in () if default_only else ("scan", "stream"):
+                other = cuda_ballquery.ball_query_plan(b, n, s, ns, gather=False,
+                                                       select=select)
+                if other is not None and other != chosen:
+                    plans.append(other)
+            for plan in plans:
+                extra = {} if plan is None else {"plan": plan}
+                got = cuda_ballquery.ball_query_kernel(radius, ns, xyz, centres, **extra)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    sys.exit(f"kernel_sweep: idx-only N={n} B={b} plan {plan} differs")
+                print(json.dumps({
+                    "idx_band": f"N={n} B={b}",
+                    "plan": "default" if plan is None else plan._asdict(),
+                    "default_plan": chosen._asdict(), "ms": time_ms(
+                        lambda: cuda_ballquery.ball_query_kernel(radius, ns, xyz, centres,
+                                                                 **extra)),
+                    "bound_ms": bound_ms, "bound_by": bound_by}), flush=True)
 
 
 def n512_inputs(dev: torch.device) -> tuple:
@@ -632,6 +873,13 @@ def main() -> None:
     parser.add_argument("--scatter", action="store_true",
                         help="time only the 3-NN backward and the SA2 gather "
                         "backward (items 8 and 6)")
+    parser.add_argument("--stream-split", action="store_true",
+                        help="time only the streamed SA1 query whole, without its "
+                        "gather and over one block, with its hits' positions")
+    parser.add_argument("--stream", action="store_true",
+                        help="time only SA1 and its indices alone above the grid's "
+                        "sizes: the wrappers' plans and every streamed plan; and "
+                        "the idx-only query's routes from 1,025 points")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("kernel_sweep: no CUDA device (torch.cuda.is_available() is False)")
@@ -643,6 +891,12 @@ def main() -> None:
     rng = np.random.default_rng(3)
     if args.fps_large:
         sweep_fps_large(dev, np.random.default_rng(17), args.default_only)
+        return
+    if args.stream_split:
+        split_stream(dev, np.random.default_rng(1700))
+        return
+    if args.stream:
+        sweep_stream(dev, np.random.default_rng(1700), args.default_only)
         return
     if args.split:
         split_scatter(dev, np.random.default_rng(5))

@@ -9,7 +9,7 @@
 //   - _ballquery_grouped_kernel (pallas_call at :637, reached through
 //     ball_query_grouped_pallas / ball_query_grouped): ball query, then
 //     grouped = xyz[idx] - centre. SA1 of the backbone (N=8192, no
-//     features). Entry point p2c_ball_query_grouped; above ~19 K points
+//     features). Entry point p2c_ball_query_grouped; above 11,944 points
 //     p2c_ball_query_stream.
 //   - _sa_grouped_exact_kernel (pallas_call at :474, reached through
 //     sa_grouped_exact_pallas / sa_grouped_exact): exact ball query, then
@@ -59,26 +59,41 @@
 //     kernel; so does every query of a row whose box is not finite or
 //     whose radius gives no usable edge. The plan (CTAs a row, warps a
 //     CTA, cap) comes from the caller (ops/cuda_ballquery.py:
-//     ball_query_plan), which takes the index-order scan
-//     (ball_query_scan_kernel) for rows whose grid does not fit shared
-//     memory (N above ~11.9 K at nsample 64), and the streamed query
-//     below where the staged row does not fit either. Permuting the planes
-//     into cell order, so that a candidate's coordinates sit beside its
-//     neighbours', cost more in the build than it saved in the tests
-//     (PERF.md).
-//   - SA1 above ~19 K points (p2c_ball_query_stream, also idx only): the
-//     grid and the scan both stage the whole row in shared memory, which
-//     caps them; the TPU kernel walks the cloud in blocks and takes any N.
-//     By the roofline its bytes (the row read once, idx and grouped
-//     written); in practice the index-order selection, which stops at
-//     the nsample-th in-radius point (a few thousand points into the row
-//     for a ball holding ~1% of the cloud). ball_query_stream_kernel
-//     streams the row through shared memory in index-order tiles of
-//     kStreamTile points, double-buffered with cp.async, a warp a query,
-//     ballots as in the scan, and stops fetching once all its warps have
-//     nsample; the gather reads the selected points from global memory.
-//     Warps a CTA: as many as fill the card with one query a warp (4 at
-//     B=1 and S=512: 128 CTAs), at most 32.
+//     ball_query_plan), which takes the streamed query below for rows
+//     whose grid does not fit shared memory (N above 11,944 at nsample
+//     64), where the index-order scan of the staged row lost to it
+//     (PERF.md). Permuting the planes into cell order, so that a
+//     candidate's coordinates sit beside its neighbours', cost more in
+//     the build than it saved in the tests (PERF.md).
+//   - SA1 where the grid does not fit (N above 11,944 at nsample 64;
+//     p2c_ball_query_stream, also idx only from 1,536 points): the grid
+//     and the scan both stage the whole row in shared memory, which caps
+//     them; the TPU kernel walks the cloud in blocks and takes any N. A
+//     query needs the row up to its nsample-th in-radius point: on the
+//     unit sphere at r = 0.2 a ball holds 1% of the cloud, so about 6,400
+//     points (at most ~9,300 over 512 centres) at every N. The earlier
+//     design (a warp a query, tiles of 2,048 points by cp.async) spent ~6
+//     us a tile on its chain of 64 dependent ballots and a tile's waits:
+//     34-37 us a call, 12.5 over one tile (PERF.md). Now `group` warps
+//     serve a query and test each staged block at once, so a query's
+//     chain is a few blocks long; by clock stamps (the kernel's kProbe
+//     instantiation) a block's tests are then issue-bound (about
+//     11 instructions a test: 3 sub, 3 mul, 2 add, a compare and a select
+//     of the exact distance, and a quarter of three 16-byte loads for 4
+//     points), placing the hits costs about as much again, and the copies
+//     are bound by L2 handing every SM the same prefix of the row.
+//     ball_query_stream_kernel (below) copies the row in blocks of 1,024
+//     x group points with one bulk copy each (cp.async.bulk, completion
+//     on an mbarrier, 3 in flight), ranks a warp's hits with one packed
+//     prefix over its lanes, and meets once a block (__syncthreads). The
+//     plan (ops/cuda_ballquery.py: ball_query_plan) gives 4 queries of 4
+//     warps a CTA at B=1 and S=512 and 16 of 2 at B=4. Measured and not
+//     kept (PERF.md): clusters of 2-8 CTAs fed by one multicast bulk copy
+//     (meeting across the cluster cost 0.85-1.1 us a block against 0.19
+//     for a CTA alone, and clusters of 4 at B=1 started in two waves); a
+//     meeting of each query's warps alone on its own barrier, without the
+//     CTA's, and placing a block's hits during the next block's tests (no
+//     faster).
 //   - Coverage of the grid. Let t = fl(fl(p - lo) * inv) be a coordinate's
 //     cell position, inv = fl(1 / e). A pair passes the float test only if
 //     fl(d_a^2) <= r2 on every axis a (the partial sums are monotone and
@@ -130,8 +145,10 @@
 //     lane places its hits below nsample into the warp's slots, and the
 //     lanes write the padded row, 16 bytes a lane where it is aligned. 32
 //     warps a CTA: S / 32 CTAs a row, 128 at B=8, one wave. Above that,
-//     the index-order scan of the staged row (ball_query_scan_kernel), a
-//     warp a query, with its stop.
+//     below 1,536 points, the index-order scan of the staged row
+//     (ball_query_scan_kernel), a warp a query, with its stop; from 1,536
+//     points SA1's streamed query without its gather, which beat the scan
+//     there at B=1, 4 and 16 and lost to it at 1,025 points (PERF.md).
 
 #include <cstdint>
 
@@ -367,13 +384,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // Grid (ctas, b); a warp takes query q = blockIdx.x * warps + warp, then
-// every (ctas * warps)-th, and selects in index order. kGather: also write
-// the centred coordinates (kVec: 16 bytes a lane).
-template <bool kGather, bool kVec>
+// every (ctas * warps)-th, and selects in index order (idx only).
 __global__ void __launch_bounds__(kMaxThreads)
 ball_query_scan_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
                        int n, int s, int ns, float r2, bool stage_vec,
-                       int* __restrict__ idx_out, float* __restrict__ grouped) {
+                       int* __restrict__ idx_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n4 = round_up(n, 4);
   float* sx = reinterpret_cast<float*>(smem);
@@ -392,11 +407,6 @@ ball_query_scan_kernel(const float* __restrict__ xyz, const float* __restrict__ 
     const float cz = new_xyz[row * 3 + 2];
     const int count = scan_select<1>(sx, n4, n, cx, cy, cz, r2, ns, sel, lane);
     finish_slots(sel, count, ns, n, idx_out + row * ns, lane);
-    if constexpr (kGather) {
-      write_coords<kVec ? 4 : 1>(grouped + row * ns * 3,
-                                 [=](int j, int ch) { return sx[ch * n4 + j]; }, sel, ns,
-                                 cx, cy, cz, lane);
-    }
     __syncwarp();  // sel is rewritten by the next query
   }
 }
@@ -888,141 +898,282 @@ ball_query_grid_kernel(const float* __restrict__ xyz, const float* __restrict__ 
   }
 }
 
-// Copies from global to shared memory that complete asynchronously
-// (cp.async): 4 bytes (any alignment) or 16 (both 16-byte aligned), then
-// a commit of this thread's copies as one group, and a wait until at most
-// N of its groups are pending.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_addr(dst)), "l"(src)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_addr(bar)), "r"(count)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(shared_addr(dst)), "l"(src)
-               : "memory");
+// The barrier's one arrival of a phase, which also expects `bytes` of
+// copied data before the phase can complete (the data may land first).
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_addr(bar)),
+               "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t"
+      ".reg .pred P1;\n\t"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n\t"
+      "DONE:\n\t"
+      "}" ::"r"(shared_addr(bar)), "r"(parity) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+// One thread copies `bytes` (a multiple of 16) of global memory at src to
+// shared memory at dst (both 16-byte aligned), completing on `bar`.
+__device__ __forceinline__ void bulk_fetch(void* dst, const void* src, uint32_t bytes,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(shared_addr(dst)), "l"(src), "r"(bytes), "r"(shared_addr(bar)) : "memory");
 }
 
-// scan_select over one tile of the row: `len` points (x y z each, in
-// index order) whose first has index t0, after `count` in-radius indices
-// already found. Returns the count up to the stop.
-template <int kUnroll>
-__device__ __forceinline__ int tile_select(const float* tile, int len, int t0, float cx,
-                                           float cy, float cz, float r2, int ns, int* sel,
-                                           int lane, int count) {
-  for (int base = 0; base < len && count < ns; base += 32 * kUnroll) {
-    unsigned hits[kUnroll];
+// The 12 coordinates (x y z each) of points j .. j + 3 of a stage: three
+// 16-byte loads where `vec` (the stage's points start 16-byte aligned;
+// j % 4 == 0), else 12 of 4 bytes.
+__device__ __forceinline__ void load4(const float* pts, int j, bool vec, float* c) {
+  if (vec) {
+    const float4* p4 = reinterpret_cast<const float4*>(pts + 3 * j);
+    const float4 u = p4[0], v = p4[1], w = p4[2];
+    c[0] = u.x, c[1] = u.y, c[2] = u.z, c[3] = u.w, c[4] = v.x, c[5] = v.y;
+    c[6] = v.z, c[7] = v.w, c[8] = w.x, c[9] = w.y, c[10] = w.z, c[11] = w.w;
+  } else {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + 32 * u + lane;
-      hits[u] = __ballot_sync(
-          kFullMask,
-          j < len && sq_dist(cx, cy, cz, tile[3 * j], tile[3 * j + 1], tile[3 * j + 2]) <= r2);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if ((hits[u] >> lane) & 1u) {
-        const int pos = count + __popc(hits[u] & ((1u << lane) - 1u));
-        if (pos < ns) sel[pos] = t0 + base + 32 * u + lane;
-      }
-      count += __popc(hits[u]);
-    }
+    for (int t = 0; t < 12; ++t) c[t] = pts[3 * j + t];
   }
-  return count;
 }
 
-// Grid (ctas, b); the CTA serves queries q = blockIdx.x * warps + warp in
-// rounds of one a warp (every ctas * warps-th on). A round streams the row
-// through shared memory in tiles of kStreamTile points, index order, two
-// buffers: the next tile's cp.async copies are in flight while the warps
-// select from this one. A warp takes the first ns in-radius indices of
-// its query with ballots (tile_select) and stops at ns; the CTA fetches no
-// further tile once all its warps have stopped (a query in a sparse region
-// runs to the end of the row). kGather: each warp then writes its
-// query's centred coordinates (kVec: 16 bytes a lane), reading the
-// selected points from the row in global memory (L2). tile_vec: the row
-// is 16-byte aligned and n % 4 == 0, so a tile moves in 16-byte copies.
-template <bool kGather, bool kVec>
+// The sum of the bytes of v below byte m (m <= 8): one dp4a a word.
+__device__ __forceinline__ int bytes_below(unsigned long long v, int m) {
+  const unsigned lo = m >= 4 ? 0x01010101u : (1u << (8 * m)) - 1u & 0x01010101u;
+  const unsigned hi = m >= 8 ? 0x01010101u : m <= 4 ? 0u : (1u << (8 * (m - 4))) - 1u & 0x01010101u;
+  return static_cast<int>(
+      __dp4a(static_cast<unsigned>(v), lo, __dp4a(static_cast<unsigned>(v >> 32), hi, 0u)));
+}
+
+// Grid (ctas, b); `group` warps serve each query, warps / group queries a
+// CTA: query q = blockIdx.x * (warps / group) + warp / group. The row
+// streams through kStreamStages stages of shared memory in blocks of block
+// = 128 * kStreamChunks * group points, index order, each block one bulk
+// copy (cp.async.bulk) issued by thread 0 and counted on the stage's
+// barrier. Warp g of a query tests kStreamChunks chunks of 128 points of
+// each block (its sub-block, points g * 128 * kStreamChunks on): lane l the 4 adjacent points
+// 4 l .. 4 l + 3 of a chunk (three 16-byte loads from the stage), every
+// test independent, a bit each. One prefix over the lanes of their counts
+// (a byte a chunk, packed) ranks the warp's hits in index order, and the
+// warp writes its count. After one __syncthreads every warp knows every
+// query's count (lane l sums query l's), so the CTA stops at once when
+// none is short of ns; each lane places its hits below ns (ranked after
+// its query's earlier warps' counts) into the query's slots with their
+// centred coordinates (kGather), read from the stage. A query stops
+// testing after the block where its count reaches ns. Thread 0 then
+// copies the block kStreamStages - 1 ahead into the stage of the block
+// before, which every warp has placed by then. A short row walks the whole row;
+// one with no hit is padded with point n - 1 (in the last block). Then each
+// query's warps write its padded row of indices and points.
+// kProbe (measurement only; `stamps` is read only then): thread 0 records
+// the SM's clock at 0 the start, 1 after the first copies, 2 + 4 k after
+// the wait, the barrier, the placing and the next copy's issue of block k
+// < 12, 50 after the drain and 51 at the end; the global timer at the
+// start and end (52, 53) and the last block tested (54); 64 slots a CTA.
+template <bool kGather, bool kProbe>
 __global__ void __launch_bounds__(kMaxThreads)
 ball_query_stream_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-                         int n, int s, int ns, float r2, bool tile_vec,
-                         int* __restrict__ idx_out, float* __restrict__ grouped) {
+                         int n, int s, int ns, float r2, int group, int* __restrict__ idx_out,
+                         float* __restrict__ grouped, long long* __restrict__ stamps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* tiles = reinterpret_cast<float*>(smem);  // [2][3 * kStreamTile]
+  long long* stamp_at =
+      kProbe ? stamps + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 64
+             : nullptr;
+  const auto stamp = [&](int at) {
+    if constexpr (kProbe) {
+      if (threadIdx.x == 0) {
+        stamp_at[at] = clock64();
+        if (at == 0 || at == 51) {
+          long long t;
+          asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+          stamp_at[52 + at / 51] = t;
+        }
+      }
+    }
+  };
+  const auto stamp_block = [&](int k, int phase) {
+    if constexpr (kProbe) {
+      if (k < 12) stamp(2 + 4 * k + phase);
+    }
+  };
+  stamp(0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // a barrier a stage
+  const int block = stream_block(group);
+  const size_t stage_bytes = stream_stage_bytes(block);
+  unsigned char* stage0 = smem + kStreamHeader;
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int queries = warps / group;
+  const int qg = warp / group;      // the CTA's query this warp serves
+  const int g = warp - qg * group;  // its part of the query's warps
+  int* counts = reinterpret_cast<int*>(stage0 + kStreamStages * stage_bytes);  // [2][warps]
+  int* sel = counts + 2 * warps + qg * ns;
+  float* crd = reinterpret_cast<float*>(counts + 2 * warps + queries * ns) + 3 * qg * ns;
   const int b = blockIdx.y;
-  int* sel = reinterpret_cast<int*>(tiles + 6 * kStreamTile) + warp * ns;
-  const float* p = xyz + static_cast<size_t>(b) * n * 3;
-  const int ntiles = (n + kStreamTile - 1) / kStreamTile;
-
-  const auto fetch = [&](int t) {
-    float* dst = tiles + (t & 1) * 3 * kStreamTile;
-    const int t0 = t * kStreamTile;
-    const int floats = 3 * min(kStreamTile, n - t0);
-    const float* src = p + static_cast<size_t>(t0) * 3;
-    if (tile_vec) {
-      for (int k = 4 * threadIdx.x; k < floats; k += 4 * blockDim.x) {
-        cp_async16(dst + k, src + k);
-      }
-    } else {
-      for (int k = threadIdx.x; k < floats; k += blockDim.x) cp_async4(dst + k, src + k);
-    }
-    cp_async_commit();
+  const int q = blockIdx.x * queries + qg;
+  const size_t row = static_cast<size_t>(b) * s + q;
+  // a block's copy starts at the 16-byte boundary at or below its first
+  // point: `off` floats ahead of it in the stage (block * 12 bytes is a
+  // multiple of 16, so the same for every block of the row)
+  const uintptr_t p = reinterpret_cast<uintptr_t>(xyz + static_cast<size_t>(b) * n * 3);
+  const int off = static_cast<int>(p & 15u) >> 2;
+  const bool vec = off == 0;
+  const char* from = reinterpret_cast<const char*>(p - (p & 15u));
+  const int nblocks = (n - 1) / block + 1;
+  const auto fetch = [&](int k) {  // thread 0
+    const int len = min(block, n - k * block);
+    const uint32_t bytes = static_cast<uint32_t>(round16(4 * off + 12 * static_cast<size_t>(len)));
+    const int st = k % kStreamStages;
+    mbar_arrive_expect(full + st, bytes);
+    bulk_fetch(stage0 + st * stage_bytes, from + static_cast<size_t>(k) * block * 12, bytes,
+               full + st);
   };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStreamStages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int k = 0; k < min(kStreamStages, nblocks); ++k) fetch(k);
+  }
+  float cx = 0.0f, cy = 0.0f, cz = 0.0f;  // while the first blocks come
+  if (q < s) {
+    cx = __ldg(new_xyz + row * 3);
+    cy = __ldg(new_xyz + row * 3 + 1);
+    cz = __ldg(new_xyz + row * 3 + 2);
+  }
+  __syncthreads();  // the barriers are set before any thread waits on them
+  stamp(1);
 
-  for (int q0 = blockIdx.x * warps; q0 < s; q0 += gridDim.x * warps) {
-    const int q = q0 + warp;
-    const size_t row = static_cast<size_t>(b) * s + q;
-    float cx = 0.0f, cy = 0.0f, cz = 0.0f;
-    if (q < s) {
-      cx = new_xyz[row * 3];
-      cy = new_xyz[row * 3 + 1];
-      cz = new_xyz[row * 3 + 2];
-    }
-    int count = 0;  // warp-uniform
-    bool done = q >= s;
-    fetch(0);
-    for (int t = 0; t < ntiles; ++t) {
-      if (t + 1 < ntiles) {
-        fetch(t + 1);
-        cp_async_wait<1>();
+  // count: the in-radius indices of this warp's query so far; lane l <
+  // queries keeps query l's in `all` (a missing query is full)
+  int count = q < s ? 0 : ns;
+  int all = lane < queries && blockIdx.x * queries + lane < s ? 0 : ns;
+  const int first = g * 128 * kStreamChunks + 4 * lane;  // the lane's first point of each block
+  int k = 0;
+  for (; k < nblocks; ++k) {
+    const int st = k % kStreamStages;
+    mbar_wait(full + st, static_cast<uint32_t>(k / kStreamStages) & 1u);
+    stamp_block(k, 0);
+    const float* pts = reinterpret_cast<const float*>(stage0 + st * stage_bytes) + off;
+    const int len = min(block, n - k * block);
+    int* cnt = counts + (k & 1) * warps;
+    unsigned bits = 0u;  // bit 4 m + t: point first + 128 m + t in radius
+    const auto test = [&](bool whole) {
+#pragma unroll
+      for (int m = 0; m < kStreamChunks; ++m) {
+        const int j = first + 128 * m;
+        float c[12];
+        load4(pts, j, vec, c);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if ((whole || j + t < len) &&
+              sq_dist(cx, cy, cz, c[3 * t], c[3 * t + 1], c[3 * t + 2]) <= r2) {
+            bits |= 1u << (4 * m + t);
+          }
+        }
+      }
+    };
+    if (count < ns) {
+      if (len == block) {  // every block but the row's last
+        test(true);
       } else {
-        cp_async_wait<0>();
+        test(false);
       }
-      __syncthreads();  // tile t has landed, from every thread's copies
-      if (!done) {
-        const int t0 = t * kStreamTile;
-        count = tile_select<4>(tiles + (t & 1) * 3 * kStreamTile, min(kStreamTile, n - t0),
-                               t0, cx, cy, cz, r2, ns, sel, lane, count);
-        done = count >= ns;
-      }
-      // every warp is done with tile t before its buffer takes tile t + 2
-      if (__syncthreads_and(done)) break;
     }
-    cp_async_wait<0>();  // a tile fetched ahead of the stop
-    __syncthreads();     // ... has landed before the next round fetches again
-    if (q < s) {
-      finish_slots(sel, count, ns, n, idx_out + row * ns, lane);
-      if constexpr (kGather) {
-        write_coords<kVec ? 4 : 1>(grouped + row * ns * 3,
-                                   [=](int j, int ch) { return __ldg(p + 3 * j + ch); }, sel,
-                                   ns, cx, cy, cz, lane);
+    // the lane's count in each chunk, a byte each (at most 128 a chunk),
+    // and their inclusive prefix over the lanes
+    unsigned long long mine = 0ull;
+#pragma unroll
+    for (int m = 0; m < kStreamChunks; ++m) {
+      mine |= static_cast<unsigned long long>(__popc(bits >> (4 * m) & 0xfu)) << (8 * m);
+    }
+    unsigned long long incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned long long t = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += t;
+    }
+    const unsigned long long totals = __shfl_sync(kFullMask, incl, 31);
+    const int c = bytes_below(totals, kStreamChunks);
+    if (lane == 0) cnt[warp] = c;
+    // every warp's count of this block; every warp has placed the block
+    // before, so its stage is free
+    __syncthreads();
+    stamp_block(k, 1);
+    if (lane < queries) {
+      for (int i = 0; i < group; ++i) all += cnt[lane * group + i];
+    }
+    const bool go = __any_sync(kFullMask, lane < queries && all < ns);
+    if (c > 0 && count < ns) {
+      const int v = lane < g ? cnt[qg * group + lane] : 0;
+      const int at = count + static_cast<int>(__reduce_add_sync(kFullMask, v));
+      const unsigned long long before = incl - mine;
+      // the lane's hits in index order, each ranked after the warp's
+      // earlier chunks, the earlier lanes' hits in its chunk and its own
+      for (unsigned h = bits; h != 0u; h &= h - 1u) {
+        const int bit = __ffs(static_cast<int>(h)) - 1;
+        const int m = bit >> 2;
+        const int pos = at + bytes_below(totals, m) +
+                        static_cast<int>(before >> (8 * m) & 0xffull) +
+                        __popc(bits & ((1u << bit) - 1u) & (0xfu << (4 * m)));
+        if (pos >= ns) break;
+        const int j = first + 128 * m + (bit & 3);
+        sel[pos] = k * block + j;
+        if constexpr (kGather) {
+          crd[3 * pos] = __fsub_rn(pts[3 * j], cx);
+          crd[3 * pos + 1] = __fsub_rn(pts[3 * j + 1], cy);
+          crd[3 * pos + 2] = __fsub_rn(pts[3 * j + 2], cz);
+        }
       }
-      __syncwarp();  // sel is rewritten by the next round
+    }
+    count = __shfl_sync(kFullMask, all, qg);
+    if constexpr (kGather) {
+      // no point in radius: the row is padded with point n - 1
+      if (count == 0 && k == nblocks - 1 && g == 0 && lane < 3) {
+        crd[lane] = __fsub_rn(pts[3 * (len - 1) + lane], lane == 0 ? cx : (lane == 1 ? cy : cz));
+      }
+    }
+    stamp_block(k, 2);
+    if (!go) break;
+    // the block kStreamStages - 1 ahead goes into the stage of the block
+    // before, which every warp had placed by the barrier
+    if (threadIdx.x == 0 && k >= 1 && k - 1 + kStreamStages < nblocks) {
+      fetch(k - 1 + kStreamStages);
+    }
+    stamp_block(k, 3);
+  }
+  // the blocks copied ahead of the stop land before the CTA leaves
+  const int issued = k == 0 ? kStreamStages - 1 : k + kStreamStages - 2;  // the last copied
+  for (int j = k + 1; j <= min(nblocks - 1, issued); ++j) {
+    mbar_wait(full + j % kStreamStages, static_cast<uint32_t>(j / kStreamStages) & 1u);
+  }
+  stamp(50);
+  if constexpr (kProbe) {
+    if (threadIdx.x == 0) stamp_at[54] = k;
+  }
+  __syncthreads();  // every warp's slots of the last block
+  if (q < s) {
+    const int found = min(count, ns);
+    const int pad = found > 0 ? sel[0] : n - 1;
+    int* out = idx_out + row * ns;
+    for (int t = g * 32 + lane; t < ns; t += group * 32) out[t] = t < found ? sel[t] : pad;
+    if constexpr (kGather) {
+      float* dst = grouped + row * ns * 3;
+      for (int t = g * 32 + lane; t < 3 * ns; t += group * 32) {
+        dst[t] = crd[t < 3 * found ? t : t % 3];
+      }
     }
   }
+  stamp(51);
 }
-
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
@@ -1051,18 +1202,6 @@ int launch(void (*kernel)(Params...), bool ok, int b, int ctas, int warps, size_
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_scan(bool gather, bool vec, const float* xyz, const float* new_xyz, int* idx,
-                float* grouped, int b, int n, int s, int ns, float r2, int ctas,
-                int warps, void* stream) {
-  const size_t smem = scan_smem(n, ns, warps);
-  const auto kernel = !gather ? ball_query_scan_kernel<false, false>
-                      : vec   ? ball_query_scan_kernel<true, true>
-                              : ball_query_scan_kernel<true, false>;
-  const bool stage_vec = n % 4 == 0 && aligned16(xyz);
-  return launch(kernel, plan_ok(b, n, s, ns, ctas, warps, smem), b, ctas, warps, smem,
-                stream, xyz, new_xyz, n, s, ns, r2, stage_vec, idx, grouped);
-}
-
 }  // namespace
 
 // xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32, `ctas` CTAs
@@ -1072,8 +1211,10 @@ extern "C" int p2c_ball_query(const float* xyz, const float* new_xyz, int* idx,
                               int b, int n, int s, int ns, float r2, int ballot, int ctas,
                               int warps, void* stream) {
   if (!ballot) {
-    return launch_scan(false, false, xyz, new_xyz, idx, nullptr, b, n, s, ns, r2, ctas,
-                       warps, stream);
+    const size_t smem = scan_smem(n, ns, warps);
+    return launch(ball_query_scan_kernel, plan_ok(b, n, s, ns, ctas, warps, smem), b, ctas,
+                  warps, smem, stream, xyz, new_xyz, n, s, ns, r2,
+                  n % 4 == 0 && aligned16(xyz), idx);
   }
   const size_t smem = ballot_smem(ns, warps);
   return launch(ball_query_ballot_kernel<0>,
@@ -1098,19 +1239,14 @@ extern "C" int p2c_ball_query_probe(int stop, const float* xyz, const float* new
 
 // xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32 and, unless
 // `grouped` is null (the selection alone, for timing it), grouped (b, s,
-// ns, 3) f32. grid != 0: the cell grid with `cap` (needs n <= 65535);
-// else the index-order scan. 16-byte stores where ns * 3 % 4 == 0 and
-// `grouped` is 16-byte aligned.
+// ns, 3) f32: the cell grid with `cap` (needs n <= 65535). 16-byte stores
+// where ns * 3 % 4 == 0 and `grouped` is 16-byte aligned.
 extern "C" int p2c_ball_query_grouped(const float* xyz, const float* new_xyz,
                                       int* idx, float* grouped, int b, int n,
-                                      int s, int ns, float r2, int grid, int ctas,
+                                      int s, int ns, float r2, int ctas,
                                       int warps, int cap, void* stream) {
   const bool gather = grouped != nullptr;
   const bool vec = ns * 3 % 4 == 0 && aligned16(grouped);
-  if (!grid) {
-    return launch_scan(gather, vec, xyz, new_xyz, idx, grouped, b, n, s, ns, r2, ctas,
-                       warps, stream);
-  }
   const size_t smem = grid_smem(n, ns, warps);
   const auto kernel = !gather ? ball_query_grid_kernel<false, false>
                       : vec   ? ball_query_grid_kernel<true, true>
@@ -1121,23 +1257,47 @@ extern "C" int p2c_ball_query_grouped(const float* xyz, const float* new_xyz,
                 idx, grouped);
 }
 
+namespace {
+
+int launch_stream(const float* xyz, const float* new_xyz, int* idx, float* grouped, int b,
+                  int n, int s, int ns, float r2, int ctas, int warps, int group,
+                  long long* stamps, void* stream) {
+  if (group < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool gather = grouped != nullptr;
+  const size_t smem = stream_smem(ns, warps, group, gather);
+  const auto kernel = stamps != nullptr ? (gather ? ball_query_stream_kernel<true, true>
+                                                  : ball_query_stream_kernel<false, true>)
+                                         : (gather ? ball_query_stream_kernel<true, false>
+                                                  : ball_query_stream_kernel<false, false>);
+  return launch(kernel,
+                plan_ok(b, n, s, ns, ctas, warps, smem) && n <= 0x7fffffff / 3 &&
+                    warps % group == 0,
+                b, ctas, warps, smem, stream, xyz, new_xyz, n, s, ns, r2, group, idx, grouped,
+                stamps);
+}
+
+}  // namespace
+
 // xyz (b, n, 3), new_xyz (b, s, 3) f32 -> idx (b, s, ns) i32 and, unless
 // `grouped` is null (idx only), grouped (b, s, ns, 3) f32: the row
-// streamed through shared memory in tiles, any n with 3 n < 2^31, `ctas`
-// CTAs of `warps` warps a row. 16-byte stores where ns * 3 % 4 == 0 and
-// `grouped` is 16-byte aligned.
+// streamed through shared memory in blocks of stream_block(group) points,
+// any n with 3 n < 2^31; `ctas` CTAs of `warps` warps a row, `group`
+// warps a query.
 extern "C" int p2c_ball_query_stream(const float* xyz, const float* new_xyz, int* idx,
                                      float* grouped, int b, int n, int s, int ns, float r2,
-                                     int ctas, int warps, void* stream) {
-  const bool gather = grouped != nullptr;
-  const bool vec = ns * 3 % 4 == 0 && aligned16(grouped);
-  const size_t smem = stream_smem(ns, warps);
-  const auto kernel = !gather ? ball_query_stream_kernel<false, false>
-                      : vec   ? ball_query_stream_kernel<true, true>
-                              : ball_query_stream_kernel<true, false>;
-  const bool tile_vec = n % 4 == 0 && aligned16(xyz);
-  return launch(kernel, plan_ok(b, n, s, ns, ctas, warps, smem) && n <= 0x7fffffff / 3, b,
-                ctas, warps, smem, stream, xyz, new_xyz, n, s, ns, r2, tile_vec, idx, grouped);
+                                     int ctas, int warps, int group, void* stream) {
+  return launch_stream(xyz, new_xyz, idx, grouped, b, n, s, ns, r2, ctas, warps, group,
+                       nullptr, stream);
+}
+
+// For measurement only (kernel_sweep.py --stream-split): p2c_ball_query_stream
+// with each CTA's clock stamps in `stamps` (64 int64 a CTA, b * ctas CTAs).
+extern "C" int p2c_ball_query_stream_probe(const float* xyz, const float* new_xyz, int* idx,
+                                           float* grouped, int b, int n, int s, int ns,
+                                           float r2, int ctas, int warps, int group,
+                                           long long* stamps, void* stream) {
+  return launch_stream(xyz, new_xyz, idx, grouped, b, n, s, ns, r2, ctas, warps, group,
+                       stamps, stream);
 }
 
 // xyz (b, n, 3), feats (b, n, c), new_xyz (b, s, 3) f32 -> idx (b, s, ns)

@@ -18,7 +18,9 @@
 constexpr int kMaxCells = 4096;    // cells of a row's grid, at most
 constexpr int kGridHeader = 1024;  // bytes ahead of the grid kernel's planes
 constexpr int kBallotMaxN = 1024;  // most points a row of the idx-only ballots: 32 steps
-constexpr int kStreamTile = 2048;  // points a tile of the streamed query (a multiple of 4)
+constexpr int kStreamStages = 3;   // row blocks a streamed CTA holds in flight
+constexpr int kStreamChunks = 8;   // chunks of 128 points a streamed warp tests a block
+constexpr int kStreamHeader = 64;  // bytes ahead of the streamed query's stages
 
 // How the SA2 kernel writes a query's grouped block: 4 bytes a lane
 // straight into `grouped`, or composed in shared memory and sent with one
@@ -35,10 +37,24 @@ P2C_HD constexpr size_t scan_smem(int n, int ns, int warps) {
   return 12 * static_cast<size_t>(round_up(n, 4)) + 4 * static_cast<size_t>(warps) * ns;
 }
 
-// Shared memory of the streamed query: two tiles of kStreamTile points
-// (x y z each, in index order), then ns int slots a warp.
-P2C_HD constexpr size_t stream_smem(int ns, int warps) {
-  return 2 * 12 * static_cast<size_t>(kStreamTile) + 4 * static_cast<size_t>(warps) * ns;
+// Points of a block of the streamed query with `group` warps a query.
+P2C_HD constexpr int stream_block(int group) { return 128 * kStreamChunks * group; }
+
+// A stage of the streamed query: a block of `block` points (x y z each, in
+// index order) copied from the 16-byte boundary at or below its first
+// point, so up to 12 bytes ahead of it and a round-up to 16 bytes after.
+P2C_HD constexpr size_t stream_stage_bytes(int block) {
+  return 12 * static_cast<size_t>(block) + 16;
+}
+
+// Shared memory of the streamed query: a kStreamHeader-byte header (a
+// barrier a stage), kStreamStages stages, an int count a warp for each of
+// two blocks, then for each of the CTA's warps / group queries ns int
+// slots and, where it gathers, ns centred points (3 floats each).
+P2C_HD constexpr size_t stream_smem(int ns, int warps, int group, int gather) {
+  return kStreamHeader + kStreamStages * stream_stage_bytes(stream_block(group)) +
+         8 * static_cast<size_t>(warps) +
+         static_cast<size_t>(warps / group) * ns * (gather ? 16 : 4);
 }
 
 // Shared memory of the idx-only ballot kernel: ns int slots a warp.

@@ -17,9 +17,11 @@ per-target sums of ``ops/cuda_scatter.py``) and sends
 ``-sum_slots dg[..., :3]`` to the centres; the indices carry no gradient.
 Under ``inference_mode`` nothing is saved and no backward launches.
 
-Where the row does not fit shared memory (SA1 and the idx-only query
-above ~19 K points), both launch the streamed query
-(:func:`ball_query_stream_kernel`), which takes any N.
+SA1 where a row's cell grid does not fit shared memory (N above 11,944
+at nsample 64), and the idx-only query from STREAM_MIN_N points, launch
+the streamed query (:func:`ball_query_stream_kernel`), which takes any
+N: several warps a query test blocks of the row that a bulk copy stages
+in shared memory.
 
 All select exactly at every N (the first ``nsample`` in-radius indices in
 ascending order, padded with the first). A CPU tensor takes the plain
@@ -48,17 +50,21 @@ GRID_MIN_WARPS = 4  # fewer warps than this build a grid too slowly
 SA2_WARPS = 16  # warps of an SA2 CTA
 BALLOT_MAX_N = 1024  # most points a row the idx-only ballots take (kBallotMaxN)
 BALLOT_WARPS = 32  # warps of an idx-only ballot CTA
-STREAM_TILE = 2048  # points a tile of the streamed query (kStreamTile)
-STREAM_MIN_WARPS = 4  # warps a streamed CTA, at least (while slots fit)
+STREAM_MIN_N = 1536  # fewest points from which the idx-only query streams (PERF.md)
+STREAM_HEADER = 64  # bytes ahead of the streamed query's stages (kStreamHeader)
+STREAM_STAGES = 3  # row blocks a streamed CTA holds in flight (kStreamStages)
+STREAM_CHUNKS = 8  # chunks of 128 points a streamed warp tests a block (kStreamChunks)
+STREAM_GROUP = 4  # warps a streamed query, at most (as B x S allows)
 
-# xyz, new_xyz, idx; b, n, s, ns; r2; select, ctas, warps; stream
+# xyz, new_xyz, idx; b, n, s, ns; r2; ballot, ctas, warps; stream
 _ARGS_IDX = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
              + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# xyz, new_xyz, idx, grouped; b, n, s, ns; r2; ctas, warps, cap; stream
 _ARGS_GROUPED = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# xyz, new_xyz, idx, grouped; b, n, s, ns; r2; ctas, warps; stream
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# xyz, new_xyz, idx, grouped; b, n, s, ns; r2; ctas, warps, group; stream
 _ARGS_STREAM = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _ARGS_FEATURES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -101,10 +107,18 @@ def _scan_smem(n: int, nsample: int, warps: int) -> int:
     return 12 * _cdiv(n, 4) * 4 + 4 * warps * nsample
 
 
-def _stream_smem(nsample: int, warps: int) -> int:
-    """Shared memory of the streamed query (``stream_smem``): two tiles
-    and a warp's slots."""
-    return 2 * 12 * STREAM_TILE + 4 * warps * nsample
+def _stream_block(group: int) -> int:
+    """Points a block of the streamed query (``stream_block``)."""
+    return 128 * STREAM_CHUNKS * group
+
+
+def _stream_smem(nsample: int, warps: int, group: int, gather: bool) -> int:
+    """Shared memory of the streamed query (``stream_smem``): header,
+    STREAM_STAGES blocks (12 bytes a point, 16 more for the copy's
+    alignment), a count a warp for each of two blocks, and a query's
+    slots and, where it gathers, its centred points."""
+    return (STREAM_HEADER + STREAM_STAGES * (12 * _stream_block(group) + 16) + 8 * warps
+            + (warps // group) * nsample * (16 if gather else 4))
 
 
 def _ballot_smem(nsample: int, warps: int) -> int:
@@ -131,9 +145,10 @@ _STORES = ("scalar", "bulk")
 class BallQueryPlan(NamedTuple):
     """How a ball-query kernel is launched over a batch row."""
 
-    # "grid": a cell grid of the row in shared memory; "scan": index order,
-    # the row staged in shared memory; "stream": index order, the row
-    # streamed through shared memory in tiles (SA1 and idx only, any N);
+    # "grid": a cell grid of the row in shared memory (SA1); "scan": index
+    # order, the row staged in shared memory (SA2 and idx only); "stream":
+    # index order, the row streamed through shared memory in blocks (SA1
+    # and idx only, any N);
     # "ballot": idx only at N <= 1024, a warp's independent ballots over
     # the row read through L1
     select: str
@@ -142,64 +157,100 @@ class BallQueryPlan(NamedTuple):
     warps: int   # warps a CTA
     cap: int     # grid: most candidates a query tests before it scans instead
     smem: int    # bytes of dynamic shared memory a CTA
+    group: int = 1  # stream only: warps a query
 
 
-def _scan_plan(s: int, n: int, nsample: int, store: str) -> BallQueryPlan | None:
-    # a warp a query, 32 warps a CTA above N=1024 (8 below), fewer where
-    # the slots would not fit beside the planes
+def _scan_plan(s: int, n: int, nsample: int) -> BallQueryPlan | None:
+    # idx only: a warp a query, 32 warps a CTA above N=1024 (8 below),
+    # fewer where the slots would not fit beside the planes
     warps = 32 if n > 1024 else 8
     while warps > 1 and _scan_smem(n, nsample, warps) > SMEM_LIMIT:
         warps //= 2
     smem = _scan_smem(n, nsample, warps)
     if smem > SMEM_LIMIT:
         return None
-    return BallQueryPlan("scan", store, _cdiv(s, warps), warps, 0, smem)
+    return BallQueryPlan("scan", "none", _cdiv(s, warps), warps, 0, smem)
 
 
 def _stream_plan(b: int, s: int, nsample: int, store: str, num_sms: int,
-                 ctas: int | None = None, warps: int | None = None) -> BallQueryPlan | None:
-    # a warp a query and S / warps CTAs a row, as the scan; 32 warps a CTA,
-    # halved (down to STREAM_MIN_WARPS) while the batch's CTAs would not
-    # fill the card, and further while the slots would not fit
+                 ctas: int | None = None, warps: int | None = None,
+                 group: int | None = None) -> BallQueryPlan | None:
+    # queries a CTA: B x S over the SMs, rounded up to a power of two (4 at
+    # B=1 and S=512, 16 at B=4), at most 32; `group` warps a query, up to
+    # STREAM_GROUP within 32 warps a CTA (kernel_sweep.py --stream,
+    # PERF.md); where the slots would not fit, fewer queries a CTA, then
+    # fewer warps a query (smaller blocks)
+    per_cta = min(32, 1 << max(0, _cdiv(b * s, num_sms) - 1).bit_length())
+    fixed_group = group is not None
+    group = group or min(STREAM_GROUP, 32 // per_cta)
+    gather = store == "coords"
     fixed = warps is not None
-    if not fixed:
-        warps = 32
-        while warps > STREAM_MIN_WARPS and b * _cdiv(s, warps) < num_sms:
+    warps = warps or group * max(1, min(per_cta, 32 // group))
+    while not fixed and _stream_smem(nsample, warps, group, gather) > SMEM_LIMIT:
+        if warps > group:
             warps //= 2
-        while warps > 1 and _stream_smem(nsample, warps) > SMEM_LIMIT:
-            warps //= 2
-    smem = _stream_smem(nsample, warps)
-    if smem > SMEM_LIMIT or not 1 <= warps <= 32:
+        elif not fixed_group and group > 1:
+            group //= 2
+            warps = group
+        else:
+            break
+    if not 1 <= group <= warps <= 32 or warps % group:
         return None
-    return BallQueryPlan("stream", store, ctas or _cdiv(s, warps), warps, 0, smem)
+    smem = _stream_smem(nsample, warps, group, gather)
+    ctas = ctas or _cdiv(s, warps // group)
+    if smem > SMEM_LIMIT or ctas * (warps // group) < s:
+        return None
+    return BallQueryPlan("stream", store, ctas, warps, 0, smem, group)
+
+
+def _grid_plan(b: int, n: int, s: int, nsample: int, num_sms: int, ctas: int | None = None,
+               warps: int | None = None, cap: int = GRID_CAP) -> BallQueryPlan | None:
+    # at most num_sms / 4 CTAs a row: each CTA builds the whole row's grid,
+    # and below B=4 more CTAs repeat that build for fewer queries (PERF.md:
+    # 33 CTAs beat 132 at B=1); None where the grid does not fit
+    ctas = ctas or max(1, min(num_sms // max(b, 4), s))
+    fixed = warps is not None
+    warps = warps or min(32, _cdiv(s, ctas))
+    while (not fixed and warps > GRID_MIN_WARPS
+           and _grid_smem(n, nsample, warps) > SMEM_LIMIT):
+        warps = max(GRID_MIN_WARPS, warps // 2)
+    smem = _grid_smem(n, nsample, warps)
+    if n <= 65535 and smem <= SMEM_LIMIT:
+        return BallQueryPlan("grid", "coords", ctas, warps, cap, smem)
+    return None
 
 
 def ball_query_plan(
     b: int, n: int, s: int, nsample: int, c: int | None = None, *,
     gather: bool = True, num_sms: int = H100_SMS, ctas: int | None = None,
     warps: int | None = None, cap: int = GRID_CAP, store: str | None = None,
-    select: str | None = None,
+    select: str | None = None, group: int | None = None,
 ) -> BallQueryPlan | None:
     """The launch of a ball query over B rows of N points, S queries and
     ``nsample`` slots; None where no route fits shared memory.
 
-    - ``gather=False``: the idx-only kernel, a warp a query. Up to
-      BALLOT_MAX_N points ("ballot"): BALLOT_WARPS warps a CTA and S /
-      warps CTAs a row (128 CTAs at the N=512 protocol's B=8), no staging
-      of the row; above, the index-order scan of the staged row with its
-      early stop ("scan"), and where the row does not fit shared memory
-      (N above ~19 K at nsample 64) the streamed row ("stream", below).
+    - ``gather=False``: the idx-only kernel. Up to BALLOT_MAX_N points
+      ("ballot"), a warp a query: BALLOT_WARPS warps a CTA and S / warps
+      CTAs a row (128 CTAs at the N=512 protocol's B=8), no staging of the
+      row; above, below STREAM_MIN_N points, the index-order scan of the
+      staged row with its early stop ("scan"), a warp a query; from
+      STREAM_MIN_N, SA1's streamed plan below without its gather
+      ("stream"). The streamed query beat the scan at every B of 1, 4 and
+      16 from 1,536 points, the scan it at 1,025 (B=4 and 16) and at
+      1,280 (B=16) (PERF.md).
     - ``c is None`` (SA1's gather, coordinates only): the cell grid where
-      the row's grid fits, with about num_sms / B CTAs a row so that the
-      card fills in one wave (8 at B=16, 33 at B=4), but no more than at
-      B=4 (33 at B=1 too), and as many warps a CTA as it has queries, at
-      most 32; fewer warps where the grid would not fit, down to
-      GRID_MIN_WARPS; the index-order scan (a warp a query) above that;
-      and where the staged row does not fit either, the streamed query
-      ("stream"): the row through shared memory in tiles of STREAM_TILE
-      points, a warp a query, 32 warps a CTA, fewer (down to
-      STREAM_MIN_WARPS) while B x S / warps CTAs would not fill the card,
-      and S / warps CTAs a row. It takes any N.
+      the row's grid fits (N up to 11,944 at nsample 64), with about
+      num_sms / B CTAs a row so that the card fills in one wave (8 at
+      B=16, 33 at B=4), but no more than at B=4 (33 at B=1 too), and as
+      many warps a CTA as it has queries, at most 32; fewer warps where
+      the grid would not fit, down to GRID_MIN_WARPS. Above, the streamed
+      query ("stream"), which takes any N: B x S / num_sms queries a CTA,
+      rounded up to a power of two (4 at B=1, 16 at B=4), at most 32;
+      ``group`` warps a query, up to STREAM_GROUP within 32 warps a CTA (4
+      at B=1, 2 at B=4); blocks of 1,024 x group points (STREAM_CHUNKS
+      chunks of 128 a warp), STREAM_STAGES in flight. It beat the staged
+      scan at N=16,384, which SA1 took there before, and the previous
+      streamed design above it at B=1 and 4 (PERF.md).
     - ``c`` features (SA2): the index-order scan, each CTA taking its
       queries in rounds of one a warp (each warp selects one, then all
       write the round's rows): each query's block composed in shared
@@ -210,19 +261,19 @@ def ball_query_plan(
       the shared memory would not fit) and 2 x num_sms / B CTAs a row (16
       at B=16, 66 at B=4), at most S.
 
-    ``ctas``, ``warps``, ``cap``, ``store`` and ``select`` (idx only, and
-    "stream" for SA1) override the choice (``kernel_sweep.py``); an
-    override that does not fit gives None.
+    ``ctas``, ``warps``, ``cap``, ``store``, ``select`` (idx only, and
+    "stream" for SA1 too) and, for the streamed query, ``group`` override
+    the choice (``kernel_sweep.py``); an override that does not fit gives
+    None.
     """
-    if select == "stream" and c is None:
-        return _stream_plan(b, s, nsample, "coords" if gather else "none", num_sms, ctas,
-                            warps)
+    stream = {"ctas": ctas, "warps": warps, "group": group}
+    if c is None and select == "stream":
+        return _stream_plan(b, s, nsample, "coords" if gather else "none", num_sms, **stream)
     if not gather:
+        if select is None and n >= STREAM_MIN_N:
+            return _stream_plan(b, s, nsample, "none", num_sms, **stream)
         if select == "scan" or (select is None and n > BALLOT_MAX_N):
-            plan = _scan_plan(s, n, nsample, "none")
-            if plan is None and select is None:
-                plan = _stream_plan(b, s, nsample, "none", num_sms, ctas, warps)
-            return plan
+            return _scan_plan(s, n, nsample)
         warps = warps or BALLOT_WARPS
         smem = _ballot_smem(nsample, warps)
         if select not in (None, "ballot") or n > BALLOT_MAX_N or not 1 <= warps <= 32 \
@@ -230,24 +281,12 @@ def ball_query_plan(
             return None
         return BallQueryPlan("ballot", "none", ctas or _cdiv(s, warps), warps, 0, smem)
     if c is None:
-        if store not in (None, "coords"):
+        if store not in (None, "coords") or select is not None:
             return None
-        # at most num_sms / 4 CTAs a row: each CTA builds the whole row's
-        # grid, and below B=4 more CTAs repeat that build for fewer queries
-        # (PERF.md: 33 CTAs beat 132 at B=1)
-        ctas = ctas or max(1, min(num_sms // max(b, 4), s))
-        fixed = warps is not None
-        warps = warps or min(32, _cdiv(s, ctas))
-        while (not fixed and warps > GRID_MIN_WARPS
-               and _grid_smem(n, nsample, warps) > SMEM_LIMIT):
-            warps = max(GRID_MIN_WARPS, warps // 2)
-        smem = _grid_smem(n, nsample, warps)
-        if n <= 65535 and smem <= SMEM_LIMIT:
-            return BallQueryPlan("grid", "coords", ctas, warps, cap, smem)
-        if fixed:
-            return None
-        return (_scan_plan(s, n, nsample, "coords")
-                or _stream_plan(b, s, nsample, "coords", num_sms))
+        plan = _grid_plan(b, n, s, nsample, num_sms, ctas, warps, cap)
+        if plan is not None or warps is not None:
+            return plan
+        return _stream_plan(b, s, nsample, "coords", num_sms)
     if store is None:
         store = "bulk" if _sa_smem(n, nsample, c, 1, "bulk") <= SMEM_LIMIT else "scalar"
     fixed = warps is not None
@@ -359,6 +398,8 @@ def ball_query_grouped_kernel(
                          plan)
     if plan.select == "stream":
         return ball_query_stream_kernel(radius, nsample, xyz, new_xyz, plan)
+    if plan.select != "grid":
+        raise ValueError(f"ball_query_grouped: a grid or stream plan, got {plan.select!r}")
     b, n, _ = xyz.shape
     s = new_xyz.shape[1]
     idx = torch.empty((b, s, nsample), dtype=torch.int32, device=xyz.device)
@@ -368,8 +409,7 @@ def ball_query_grouped_kernel(
     with torch.cuda.device(xyz.device):  # the runtime launches on the current device
         status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
                     grouped.data_ptr(), b, n, s, nsample,
-                    radius_squared(radius), int(plan.select == "grid"), plan.ctas,
-                    plan.warps, plan.cap, stream)
+                    radius_squared(radius), plan.ctas, plan.warps, plan.cap, stream)
     ball_query_grouped_kernel.launches += 1
     _build.check(f"p2c_ball_query_grouped ({plan.select})", status)
     return idx, grouped
@@ -403,10 +443,10 @@ def ball_query_stream_kernel(
     with torch.cuda.device(xyz.device):  # the runtime launches on the current device
         status = fn(xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(),
                     None if grouped is None else grouped.data_ptr(), b, n, s, nsample,
-                    radius_squared(radius), plan.ctas, plan.warps, stream)
+                    radius_squared(radius), plan.ctas, plan.warps, plan.group, stream)
     ball_query_stream_kernel.launches += 1
-    _build.check(f"p2c_ball_query_stream ({plan.ctas} CTAs x {plan.warps} warps a row)",
-                 status)
+    _build.check(f"p2c_ball_query_stream ({plan.ctas} CTAs x {plan.warps} warps a row, "
+                 f"{plan.group} a query)", status)
     return (idx, grouped) if gather else idx
 
 

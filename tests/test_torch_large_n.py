@@ -1,6 +1,7 @@
 """Clouds beyond 16,384 points: the launch plans of the FPS kernels above
 16,384 points (the cluster route, ``csrc/fps_cluster.cu``, and the grid
-route, ``csrc/fps_grid.cu``), of the ring FPS step (``csrc/fps_ring.cu``) and of the streamed SA1 ball query
+route, ``csrc/fps_grid.cu``), of the ring FPS step (``csrc/fps_ring.cu``)
+and of the streamed SA1 ball query above 11,944 points
 (``csrc/ballquery.cu``), their layout headers, the world-1 point-sharded
 ops against the ring at two ranks (gloo), and the port's backbone at
 N = 20,480 against the JAX package, all on the CPU. The kernels
@@ -114,38 +115,90 @@ def test_fps_ring_plan_covers_shards(b):
             cuda_fps.fps_ring_plan(b, nl)
 
 
+# the idx-only query's last staged scan and first streamed N, the grid's
+# last N at nsample 64, the streamed query's first, the band the staged
+# scan took until the streamed query beat it there, and beyond
+STREAM_N = (1535, 1536, 11944, 11945, 16384, *LARGE_N)
+
+
 @pytest.mark.parametrize("b", BATCHES)
 def test_stream_plan_covers_large_n(b):
-    """SA1 and the idx-only query get a plan at every N: the grid or the
-    staged scan where they fit shared memory, else the streamed query,
-    whose warps serve every query, fill the card where the batch allows,
-    and whose shared memory is the header's and within the limit."""
-    for n in LARGE_N:
+    """SA1 and the idx-only query get a plan at every N: SA1 the grid
+    where it fits (N up to 11,944 at nsample 64), else the streamed query
+    (N=16,384 too: it beat the staged scan there); the idx-only query the
+    staged scan below STREAM_MIN_N points, the streamed query from there
+    (where it beat the scan). The streamed plan serves every query with
+    whole queries a CTA (its warps a query dividing the CTA's), fits the
+    launch's limits and fills at least half the card's SMs with CTAs,
+    and its shared memory is the header's and within the limit."""
+    cb = cuda_ballquery
+    for n in STREAM_N:
         for gather in (True, False):
-            plan = cuda_ballquery.ball_query_plan(b, n, 512, 64, gather=gather)
-            assert plan is not None and plan.smem <= cuda_ballquery.SMEM_LIMIT, (b, n)
-            staged = cuda_ballquery._scan_smem(n, 64, 1) <= cuda_ballquery.SMEM_LIMIT
-            assert (plan.select == "stream") == (not staged), (b, n, plan)
-            if plan.select == "stream":
-                assert plan.smem == cuda_ballquery._stream_smem(64, plan.warps)
-                assert plan.ctas * plan.warps >= 512 and plan.ctas == -(-512 // plan.warps)
-                assert b * plan.ctas >= SMS or plan.warps == cuda_ballquery.STREAM_MIN_WARPS
-                assert plan.store == ("coords" if gather else "none")
+            plan = cb.ball_query_plan(b, n, 512, 64, gather=gather)
+            assert plan is not None and plan.smem <= cb.SMEM_LIMIT, (b, n)
+            grid = cb._grid_plan(b, n, 512, 64, SMS) is not None
+            assert grid == (n <= 11944), (b, n)
+            streams = n > 11944 if gather else n >= cb.STREAM_MIN_N
+            assert (plan.select == "stream") == streams, (b, n, plan)
+            if plan.select != "stream":
+                assert plan.select == ("grid" if gather else "scan"), (b, n, plan)
+                continue
+            per_cta = plan.warps // plan.group
+            assert plan.warps % plan.group == 0 and 1 <= plan.warps <= 32
+            assert plan.ctas * per_cta >= 512 and plan.ctas == -(-512 // per_cta)
+            assert 2 * b * plan.ctas >= SMS, (b, n, plan)
+            assert plan.smem == cb._stream_smem(64, plan.warps, plan.group, gather)
+            assert plan.store == ("coords" if gather else "none")
+
+
+@pytest.mark.parametrize("b, n, want", [
+    # phase 17b's shapes and Trainer A's: 16 queries of 2 warps a CTA at
+    # B=4, 4 of 4 at B=1
+    (4, 32768, ("stream", "coords", 32, 32, 2)),
+    (4, 131072, ("stream", "coords", 32, 32, 2)),
+    (1, 131072, ("stream", "coords", 128, 16, 4)),
+    (1, 2**20, ("stream", "coords", 128, 16, 4)),
+    # the band the staged scan held, and clouds in several waves
+    (1, 16384, ("stream", "coords", 128, 16, 4)),
+    (4, 16384, ("stream", "coords", 32, 32, 2)),
+    (16, 32768, ("stream", "coords", 16, 32, 1)),
+])
+def test_stream_plan_main_shapes(b, n, want):
+    """The streamed plans of the shapes the card measured (PERF.md); a
+    block is 1,024 points a warp of a query."""
+    plan = cuda_ballquery.ball_query_plan(b, n, 512, 64)
+    assert (*plan[:4], plan.group) == want
+    assert cuda_ballquery._stream_block(plan.group) == 1024 * plan.group
 
 
 def test_stream_plan_forced_and_limits():
-    """``select="stream"`` takes the streamed query at any N (the card's
-    checks at N = 16,385); a nsample whose slots exceed shared memory has
-    no plan, and the wrappers' check raises there."""
-    plan = cuda_ballquery.ball_query_plan(4, 16385, 512, 64, select="stream")
-    assert plan[:4] == ("stream", "coords", 64, 8)
-    assert cuda_ballquery.ball_query_plan(1, 2**20, 512, 64)[:4] == ("stream", "coords", 128, 4)
-    assert cuda_ballquery.ball_query_plan(16, 32768, 512, 64)[:4] == ("stream", "coords", 16, 32)
-    assert cuda_ballquery.ball_query_plan(1, 2**20, 512, 60000) is None
+    """``select="stream"`` takes the streamed query at any N, and SA1 has
+    no other route to select (its staged scan went); the idx-only query's
+    ``select="scan"`` stages the row where it fits; overrides that do not
+    fit give None; a nsample whose slots exceed shared memory even at one
+    warp a query has no plan, and the wrappers' check raises there."""
+    cb = cuda_ballquery
+    plan = cb.ball_query_plan(4, 8192, 512, 64, select="stream")
+    assert (*plan[:4], plan.group) == ("stream", "coords", 32, 32, 2)
+    for select in ("scan", "ballot", "grid"):
+        assert cb.ball_query_plan(4, 16384, 512, 64, select=select) is None, select
+    assert cb.ball_query_plan(4, 16384, 512, 64, gather=False,
+                              select="scan")[:4] == ("scan", "none", 16, 32)
+    # the idx-only row does not fit
+    assert cb.ball_query_plan(4, 32768, 512, 64, gather=False, select="scan") is None
+    for over in ({"group": 16, "warps": 24}, {"group": 64}, {"group": 32},
+                 {"warps": 33}):
+        assert cb.ball_query_plan(1, 2**20, 512, 64, select="stream", **over) is None, over
+    # the slots' limits: a query's slots and centred points in shared
+    # memory with the gather, its slots alone without
+    for gather, most in ((True, 12216), (False, 48866)):
+        assert cb.ball_query_plan(1, 2**20, 512, most, gather=gather).group == 1
+        assert cb.ball_query_plan(1, 2**20, 512, most + 1, gather=gather) is None
+    assert cb.ball_query_plan(1, 2**20, 512, 60000) is None
     with pytest.raises(ValueError, match="exceed shared memory"):
-        cuda_ballquery.plan_or_raise("sa1", 1, 2**20, 512, 60000)
+        cb.plan_or_raise("sa1", 1, 2**20, 512, 60000)
     # SA2 keeps its staged row: no stream route with features
-    assert cuda_ballquery.ball_query_plan(4, 32768, 128, 64, 128) is None
+    assert cb.ball_query_plan(4, 32768, 128, 64, 128) is None
 
 
 @pytest.mark.skipif(shutil.which("c++") is None, reason="needs a host C++ compiler")
@@ -153,22 +206,30 @@ def test_large_n_layouts_match_headers(tmp_path):
     """The plans' constants and sizes are the kernels' own: the headers
     (csrc/fps_grid_layout.cuh, csrc/ballquery_layout.cuh) compiled on the
     host give the same FPS limits, meeting size, cluster capacity, blocks
-    a SM and streamed points, and the same streamed query's tile and
-    shared memory."""
+    a SM and streamed points, and the same streamed query's header,
+    blocks in flight, chunks a warp, block and stage and shared memory
+    over nsample, warps a CTA and a query, and gather."""
     cf, cb = cuda_fps, cuda_ballquery
     exprs = {"kGridMaxThreads": cf.GRID_MAX_THREADS, "kGridPPT": cf.GRID_PPT,
              "kGridRegs": cf.GRID_REGS, "kSmRegs": cf.SM_REGS,
              "kGridMeetWords": cf.GRID_MEET_WORDS, "kClusterMaxCtas": cf.CLUSTER_MAX_CTAS,
-             "kClusterCapacity": cf.CLUSTER_CAPACITY, "kStreamTile": cb.STREAM_TILE}
+             "kClusterCapacity": cf.CLUSTER_CAPACITY, "kStreamHeader": cb.STREAM_HEADER,
+             "kStreamStages": cb.STREAM_STAGES, "kStreamChunks": cb.STREAM_CHUNKS}
     for threads in (32, 64, 128, 256, 512, 1024):
         exprs[f"grid_blocks_per_sm({threads})"] = cf.grid_blocks_per_sm(threads)
     for b in (1, 4, 64):
         for n in LARGE_N:
             plan = cf.fps_grid_plan(b, n)
             exprs[f"grid_streamed({n}, {plan.ctas}, {plan.threads})"] = plan.streamed
+    for group in (1, 2, 4, 8, 16):
+        exprs[f"stream_block({group})"] = cb._stream_block(group)
+        exprs[f"stream_stage_bytes({cb._stream_block(group)})"] = (
+            12 * cb._stream_block(group) + 16)
     for ns in (1, 63, 64, 128, 1024):
-        for warps in (1, 4, 8, 16, 32):
-            exprs[f"stream_smem({ns}, {warps})"] = cb._stream_smem(ns, warps)
+        for warps, group in ((1, 1), (4, 4), (8, 8), (16, 4), (32, 2), (32, 1), (16, 16)):
+            for gather in (0, 1):
+                exprs[f"stream_smem({ns}, {warps}, {group}, {gather})"] = cb._stream_smem(
+                    ns, warps, group, bool(gather))
     src = tmp_path / "layout.cpp"
     src.write_text('#include <cstdio>\n#include "fps_grid_layout.cuh"\n'
                    '#include "ballquery_layout.cuh"\nint main() {\n'

@@ -141,7 +141,9 @@ def test_ball_query_plan_covers_every_n(nsample):
     """Every (N, nsample) the wrappers took before gets a plan within the
     card's shared memory, for each kernel at B=16 and B=4; SA1 takes the
     grid exactly where the grid fits with GRID_MIN_WARPS warps, else the
-    index-order scan."""
+    streamed query (which beat the staged scan at N=16,384), and the
+    idx-only query above N=1024 the staged scan below STREAM_MIN_N
+    points, the streamed query from there."""
     limit = cuda_ballquery.SMEM_LIMIT
     for n in range(nsample, 18001):
         before = _taken_before(n, nsample)
@@ -155,10 +157,14 @@ def test_ball_query_plan_covers_every_n(nsample):
                     continue
                 assert plan.smem <= limit and 1 <= plan.warps <= 32 and plan.ctas >= 1
                 if kind == "sa1":
-                    assert plan.select == ("grid" if grid_fits else "scan"), (b, n, nsample)
-                    want = (cuda_ballquery._grid_smem if grid_fits
-                            else cuda_ballquery._scan_smem)(n, nsample, plan.warps)
+                    assert plan.select == ("grid" if grid_fits else "stream"), (b, n, nsample)
+                    want = (cuda_ballquery._grid_smem(n, nsample, plan.warps) if grid_fits
+                            else cuda_ballquery._stream_smem(nsample, plan.warps, plan.group,
+                                                             True))
                     assert plan.smem == want
+                elif kind == "idx" and n > cuda_ballquery.BALLOT_MAX_N:
+                    streams = n >= cuda_ballquery.STREAM_MIN_N
+                    assert plan.select == ("stream" if streams else "scan"), (b, n, nsample)
 
 
 @pytest.mark.parametrize("kind", list(_PLAN_KINDS))
@@ -184,19 +190,24 @@ def test_ball_query_plan_main_shapes():
     about 132 / B CTAs a row (8 of 32 warps at B=16, 33 of 16 at B=4 and,
     where more CTAs would repeat the build, at B=1); at
     SA2 the bulk copy, 16 warps a CTA and 2 x 132 / B CTAs a row. A grid
-    that does not fit (N=16384) takes the index-order scan."""
+    that does not fit (N=16384) takes the streamed query, and so does the
+    idx-only query from N=1536."""
     plan = cuda_ballquery.ball_query_plan
     assert plan(16, 8192, 512, 64)[:4] == ("grid", "coords", 8, 32)
     assert plan(4, 8192, 512, 64)[:4] == ("grid", "coords", 33, 16)
     assert plan(1, 8192, 512, 64)[:4] == ("grid", "coords", 33, 16)
-    assert plan(16, 16384, 512, 64).select == "scan"
+    assert plan(16, 16384, 512, 64).select == "stream"
+    assert plan(16, 16384, 512, 64, gather=False).select == "stream"
     assert plan(16, 512, 128, 64, 128)[:4] == ("scan", "bulk", 16, 16)
     assert plan(4, 512, 128, 64, 128)[:4] == ("scan", "bulk", 66, 16)
     # idx only: the ballots, 32 warps a CTA and S / 32 CTAs a row (128 CTAs
-    # at the N=512 protocol's B=8); above N=1024 the index-order scan
+    # at the N=512 protocol's B=8); above N=1024 the index-order scan, from
+    # N=1536 the streamed query
     assert plan(8, 512, 512, 64, gather=False)[:4] == ("ballot", "none", 16, 32)
     assert plan(8, 1024, 512, 64, gather=False).select == "ballot"
     assert plan(8, 1025, 512, 64, gather=False).select == "scan"
+    assert plan(16, 1535, 512, 64, gather=False).select == "scan"
+    assert plan(16, 1536, 512, 64, gather=False).select == "stream"
     assert plan(8, 512, 512, 64, gather=False, select="scan")[:3] == ("scan", "none", 64)
 
 
