@@ -1,0 +1,6 @@
+"""The neighbour operations' share of their roofline in the traced training steps (%)."""
+from p2cbench.readers import neighbour_roofline_percent
+
+
+def read(run):
+    return neighbour_roofline_percent(run, "train")
