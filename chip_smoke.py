@@ -74,7 +74,7 @@ set-up); any failure raises, exits non-zero and prints no result:
    over those requests are checked; the raw heads are held against the
    same request with every ``*_impl="plain"`` on the card and against the
    port on the CPU.
-4. Rate: decompositions per second at bucket 16.
+4. (No rate: the benchmark, ``p2cbench``, measures the session.)
 5. Training at full width: Trainer A built by the CLI's own
    ``build_trainer`` on ``--synthetic 16`` (seed 0), N=8192, K=8, B=4.
    Launches per step are checked, every parameter gets a non-zero
@@ -110,8 +110,7 @@ set-up); any failure raises, exits non-zero and prints no result:
    equal to the artifact without the encoder, the launches per request
    unchanged, the kernel path against every ``*_impl="plain"`` (heads
    1e-4, labels on 0.999 of points, latents 1e-3 where a cloud's labels
-   agree), and decompositions per second at bucket 16 with latents
-   beside the rate without them. Evaluation: ``cli_main`` with the
+   agree), and the encoder's ms on a bucket's sketches. Evaluation: ``cli_main`` with the
    implicit stack in the default mode and with ``--use_whole_pc
    --use_extrusion_axis_feat`` (the restore line, a finite block with
    non-zero fitting lines, 2 FPS, 1 SA1, 1 SA2 and 2 3-NN launches a
@@ -173,9 +172,9 @@ set-up); any failure raises, exits non-zero and prints no result:
    A's CLI from the K=8 pack (N=8192, B=4, 2 epochs: finite losses, the
    checkpoint, phase 5's launches a step), the pretrainer
    (``--pretrain_im``, 1 epoch) on its sketches and the evaluator
-   (``--no_implicit``) on its test split. ``StepTimer``'s steps/s beside
-   the CUDA-event median of the same steps, and ``trace()`` around two
-   steps (the trace names the hand kernels). At K=10 (heads [3, 20]): one
+   (``--no_implicit``) on its test split. The CUDA-event median of steps
+   from the pack, and ``trace()`` around two steps (the trace names the
+   hand kernels and the step's phase markers). At K=10 (heads [3, 20]): one
    step on a batch with the 9- and 10-instance models held against the
    all-plain step (phase 5's rule), ``hungarian_matching`` on the card
    equal to the CPU's and at scipy's optimum, with no host sync under
@@ -225,7 +224,7 @@ set-up); any failure raises, exits non-zero and prints no result:
    with the replay's device time, busy share and host launches from a
    trace; one world-1 all-gather and all-reduce; one cloud of 131,072
    points at P=1 captured beside eager and the all-plain single-device
-   forward (ms, peak GiB, the graph pool's GiB, heads within 1e-3); one
+   forward (ms, peak GiB, heads within 1e-3); one
    cloud of 2^20 points at P=1 captured (the seconds of each call, peak
    GiB, heads within 1e-3 of the all-plain forward, its seconds). e. Each
    kernel's launches a data-parallel step per rank, a sharded forward and
@@ -247,9 +246,8 @@ set-up); any failure raises, exits non-zero and prints no result:
    ``--compute_dtype bfloat16`` for 2 epochs, then a resume. c. A bf16
    artifact (buckets 1, 4, 16) served for requests of 1, 5 and 16 clouds:
    the launches, the raw heads against the all-plain bf16 path on the
-   card and the bf16 port on the CPU (1e-3; labels on 0.999 of points),
-   decompositions per second at bucket 16 beside a float32 artifact's of
-   the same weights, in turns. d. One NCCL rank: the world-1
+   card and the bf16 port on the CPU (1e-3; labels on 0.999 of points).
+   d. One NCCL rank: the world-1
    data-parallel bf16 step bit-equal to the one-process bf16 step under
    deterministic algorithms, and the P=1 sharded bf16 forward bit-equal
    to ``Backbone.forward``. e. One joint step with a bf16 backbone against
@@ -276,9 +274,8 @@ set-up); any failure raises, exits non-zero and prints no result:
    (each 14a configuration), the device's busy share and the host's
    kernel and graph launches a step (a trace), decompositions a second at
    buckets 1, 4 and 16 with and without latents, ms an eval step and
-   clouds a second of ``evaluate`` over 16 batches, each graph pool's
-   GiB and capture ms (the train step's part after b, the buckets' after
-   c). g. ``SetAbstractionMsg`` (npoint 512, radii 0.1/0.2/0.4, nsamples
+   clouds a second of ``evaluate`` over 16 batches, and capture ms (the
+   train step's part after b, the buckets' after c). g. ``SetAbstractionMsg`` (npoint 512, radii 0.1/0.2/0.4, nsamples
    16/32/64, N=1024, B=4): FPS and three idx-only ball queries, eval and
    train mode against the plain versions, and its ms beside theirs.
 15. Captured steps II: the joint and pretrain steps, the world-1 NCCL
@@ -304,8 +301,7 @@ set-up); any failure raises, exits non-zero and prints no result:
    a step of each owner, and for the float32 joint step with
    ``--is_pc_train``, the pretrain step at B=4, the data-parallel steps
    and the fine-tune step the device's busy share and the host's kernel
-   and graph launches a step (a trace), each graph pool's GiB and the
-   capture call's ms.
+   and graph launches a step (a trace), and the capture call's ms.
 
 17. Clouds beyond 16,384 points (the FPS's cluster route,
    ``csrc/fps_cluster.cu``, up to 131,072 points and its grid route,
@@ -343,7 +339,7 @@ set-up); any failure raises, exits non-zero and prints no result:
    deterministic algorithms, ms a step, and a saliency backward through
    the streamed query's gather backward. e. One NCCL rank: the P=1
    ``ShardedForward`` at 2^20 points (eager, capture, replay) bit-equal to
-   ``Backbone.forward`` at 2^20, with the seconds, peak and pool GiB.
+   ``Backbone.forward`` at 2^20, with the seconds and peak GiB.
 
 The line before the last is the kernel table as JSON (each row also
 with its launches in the evaluations, ``eval_launches``, in the requests
@@ -843,7 +839,7 @@ def preprocessing_phase(card: str, dev: torch.device, counters: dict, per_step: 
     from scipy.optimize import linear_sum_assignment
 
     from point2cyl_torch.core.config import TrainConfig
-    from point2cyl_torch.core.profiling import StepTimer, trace
+    from point2cyl_torch.core.profiling import MARK_PREFIX, trace
     from point2cyl_torch.data import preprocess
     from point2cyl_torch.data.h5_io import load_h5
     from point2cyl_torch.eval import evaluator
@@ -959,29 +955,25 @@ def preprocessing_phase(card: str, dev: torch.device, counters: dict, per_step: 
           flush=True)
     print(json.dumps({"eval": "K=8 pack, test split", **means}), flush=True)
 
-    # 3. the profiling utilities around steps from the K=8 pack: StepTimer's
-    # steps/s beside the CUDA-event median, and a trace of two steps
+    # 3. steps from the K=8 pack: their CUDA-event median, and a trace of
+    # two steps
     tcfg = TrainConfig(batch_size=TB, pred_seg=True, pred_normal=True, pred_bb=True,
                        pred_extrusion=True, pred_center=True, seed=0)
     trainer8 = train_pc.build_trainer(tcfg, num_point, 8, dev)
     pipe8 = train_pc.build_pipeline(tcfg, num_point, 8, dev,
                                     h5_path=os.path.join(packs[8], "train.h5"))
-    timer, rates, k8_ms = StepTimer(fence_every=2), [], []
+    k8_ms = []
     for epoch in range(1, 6):
         gen = train_pc.epoch_generator(0, epoch, dev)
         for batch in pipe8.epochs(TB, gen):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            aux = trainer8.train_step(batch, gen)
+            trainer8.train_step(batch, gen)
             end.record()
             end.synchronize()
             k8_ms.append(start.elapsed_time(end))
-            rates.append(timer.step(aux))
     k8_ms = k8_ms[2:]
-    fenced = [r for r in rates if r is not None]
-    check(rates[1] is None and len(fenced) == 4 and all(r > 0 for r in fenced),
-          f"StepTimer rates {rates}")
     trace_dir = os.path.join(work, "trace")
     gen = train_pc.epoch_generator(0, 9, dev)
     batches = pipe8.epochs(TB, gen)
@@ -993,10 +985,11 @@ def preprocessing_phase(card: str, dev: torch.device, counters: dict, per_step: 
     with open(os.path.join(trace_dir, files[0])) as f:
         text = f.read()
     names = ("fps_kernel", "ball_query_grid_kernel", "sa_group_kernel", "knn3_kernel",
-             "target_sum_kernel")
+             "target_sum_kernel") + tuple(MARK_PREFIX + phase for phase in (
+                 "train_forward", "train_loss", "train_backward", "train_update", "end"))
     check(all(name in text for name in names),
           f"the trace lacks {[n for n in names if n not in text]}")
-    print(json.dumps({"profiling": "K=8 pack steps", "steptimer_steps_per_s": fenced,
+    print(json.dumps({"profiling": "K=8 pack steps",
                       "cuda_event_steps_per_s": 1e3 / statistics.median(k8_ms),
                       "trace_mb": len(text) / 1e6, "trace_kernels": list(names),
                       "card": card}), flush=True)
@@ -1831,7 +1824,6 @@ def huge_cloud_run(mesh, state: dict, dev) -> dict:
     check(g.eager_calls == 1 and g.captures == 1 and g.replays == 4,
           f"2^20 points: {g.eager_calls} eager, {g.captures} captures, {g.replays} replays")
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["captured_pool_gib"] = g.captured_bytes / 2**30
     out["replay_s"] = statistics.median(out["calls_s"][2:])
     del owner
     torch.cuda.empty_cache()
@@ -2071,7 +2063,6 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
                                    mesh, big, big_cfg, big_pts),
                                "plain": lambda: plain(big_pts)}, rounds=3)
         check(big_err <= 1e-3, f"12d: N=131072 sharded vs plain heads differ by {big_err}")
-        big_pool = big_owner.graphs.captured_bytes / 2**30
         del big, plain, big_pts, big_owner, eager_big, captured_big
         huge = huge_cloud_run(mesh, inp["serve_state"], dev)
         print(json.dumps({"phase": "12d", "card": card,
@@ -2093,7 +2084,6 @@ def parallel_phase(card: str, dev, root: str) -> tuple[dict, list]:
                           "n131072_sharded_p1_eager_ms": big_ms["eager"],
                           "n131072_plain_forward_ms": big_ms["plain"],
                           "n131072_sharded_peak_gib": peaks["sharded"],
-                          "n131072_captured_pool_gib": big_pool,
                           "n131072_plain_peak_gib": peaks["plain"],
                           "n131072_heads_max_abs_err": big_err, "batch": TB}), flush=True)
         print(json.dumps({"phase": "12d", "cloud": "2^20 points, B=1, P=1", **huge,
@@ -2419,19 +2409,16 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
 
     # c. serving in bf16: buckets (1, 4, 16), requests of 1, 5 and 16
     # clouds; the raw heads against the all-plain bf16 backbone on the card
-    # and the port's bf16 backbone on the CPU; decompositions per second at
-    # bucket 16 beside the float32 artifact's, in turns
+    # and the port's bf16 backbone on the CPU
     per_forward = {"fps": 2, "ball_query": 0, "ball_query_grouped": 1,
                    "ball_query_grouped_backward": 0, "sa_grouped_exact": 1,
                    "sa_grouped_backward": 0, "three_nn": 2, "three_nn_backward": 0,
                    "fps_ring_step": 0, "fps_cluster": 0, "fps_grid": 0,
                    "ball_query_stream": 0}
-    paths = {}
-    for name, c in (("bf16", cfg16), ("fp32", cfg)):
-        paths[name] = os.path.join(root, f"{name}.p2ct")
-        export_artifact(paths[name], state, k=K, backbone_config=c, buckets=(1, 4, 16),
-                        num_sk_points=SK)
-    sess = InferenceSession(paths["bf16"])
+    path = os.path.join(root, "bf16.p2ct")
+    export_artifact(path, state, k=K, backbone_config=cfg16, buckets=(1, 4, 16),
+                    num_sk_points=SK)
+    sess = InferenceSession(path)
     requests = {n: clouds(200 + n, n, cfg.num_points) for n in (1, 5, 16)}
     for fn in counters.values():
         fn.launches = 0
@@ -2470,16 +2457,10 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     check(agree >= 0.999 and agree_cpu >= 0.999,
           f"bf16 labels agree on {agree} (plain), {agree_cpu} (CPU) of points")
     check(min(e["vs_fp32"] for e in errs.values()) > 0, "bf16 heads equal float32 heads")
-    sess32 = InferenceSession(paths["fp32"])
-    rates = {"fp32": [], "bf16": []}
-    for name, s in (("fp32", sess32), ("bf16", sess), ("bf16", sess), ("fp32", sess32)):
-        rates[name].append(s.benchmark(batch=B, iters=20)["decompositions_per_sec"])
     print(json.dumps({"phase": "13c", "launches": serve_launches, "gemms": 3 * 19,
-                      "bf16_decompositions_per_sec": rates["bf16"],
-                      "fp32_decompositions_per_sec": rates["fp32"], "batch": B,
-                      "card": card}), flush=True)
+                      "batch": B, "card": card}), flush=True)
     out["serve_requests"] = serve_launches
-    del sess, sess32, plain_model, f32_model, cpu_model
+    del sess, plain_model, f32_model, cpu_model
 
     # d. parallel in bf16, one NCCL rank: the data-parallel step bit-equal
     # to the one-process step under deterministic algorithms, the P=1
@@ -2783,13 +2764,12 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
 
     # f (the train step's part). In turns, captured against eager: ms a
     # step of each configuration, the device's busy share and the host's
-    # kernel and graph launches a step (a trace), the graph pool's GiB
+    # kernel and graph launches a step (a trace)
     for (k, dtype), (g_tr, e_tr) in pairs.items():
         batch, gen = batches[k][2], torch.Generator(dev).manual_seed(4000)
         ms = in_turns({"graph": lambda: g_tr.train_step(batch, gen),
                        "eager": lambda: e_tr.train_step(batch, gen)}, 5)
-        row = {"graph_ms": ms["graph"], "eager_ms": ms["eager"],
-               "pool_gib": g_tr.graphs.captured_bytes / 2**30}
+        row = {"graph_ms": ms["graph"], "eager_ms": ms["eager"]}
         if dtype == "float32":
             for name, tr in (("graph", g_tr), ("eager", e_tr)):
                 tr_calls = traced_calls(lambda: tr.train_step(batch, gen))
@@ -2843,7 +2823,7 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
     # f (the buckets' part). In turns, captured against eager:
     # decompositions a second at buckets 1, 4 and 16 with and without
     # latents, the device's busy share and the host's launches at bucket
-    # 16 (a trace), each session's graph pool GiB and the capture's ms
+    # 16 (a trace) and the capture's ms
     sess16 = InferenceSession(arts["geometry"])  # bucket 16 only: its replays are bucket 16's
     sess16.decompose(requests[16])
     before = counts_now()
@@ -2868,8 +2848,6 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
                     row[name] = {**s_calls, "busy_share": s_calls["device_ms"] / ms[name]}
             print(json.dumps({"phase": "14f", "rate": "decompose", "artifact": kind,
                               "bucket": b, **row, "card": card}), flush=True)
-        print(json.dumps({"phase": "14f", "artifact": kind, "pool_gib":
-                          sess._graphs[0].captured_bytes / 2**30}), flush=True)
     graph_launches["serve_bucket16"] = {name: count * sess16._graphs[0].replays
                                         for name, count in serve_captured.items()}
     del sessions, sess, eager, sess16, graph_sess, s
@@ -2926,7 +2904,7 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
     # f (the eval step's part; the train step's and the buckets' follow b
     # and c). In turns, captured against eager: ms an eval step, the
     # device's busy share and the host's launches a step (a trace),
-    # clouds a second of evaluate() over 16 batches, the graph pool's GiB
+    # clouds a second of evaluate() over 16 batches
     eval_rows = {}
     for mode, stack in (("no_implicit", {}), ("implicit",
                                               {"implicit": implicit, "encoder": encoder})):
@@ -2951,7 +2929,6 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
         row = {"graph_step_ms": ms["graph"], "eager_step_ms": ms["eager"],
                "graph_clouds_per_s": 16 * TB * 1e3 / sweep["graph"],
                "eager_clouds_per_s": 16 * TB * 1e3 / sweep["eager"],
-               "pool_gib": step_g.graphs.captured_bytes / 2**30,
                "capture_call_ms": eval_capture_ms}
         for name, step in (("graph", step_g), ("eager", step_e)):
             s_calls = traced_calls(lambda: step(eval_batches[0], gen))
@@ -3100,16 +3077,16 @@ def bit_equal_runs(makers, batches, steps_: int, state_of) -> list[bool]:
             torch.use_deterministic_algorithms(False)
 
 
-def timed_owner(label: str, graph_fn, eager_fn, pool_bytes: int, capture_ms: float,
+def timed_owner(label: str, graph_fn, eager_fn, capture_ms: float,
                 card: str, rounds: int = 3, per: int = 1, trace=None) -> dict:
     """In turns, captured against eager: ms a step (``per`` steps a call),
-    beside the graph pool's GiB and the capture call's ms; with ``trace``
+    beside the capture call's ms; with ``trace``
     (the captured and the eager call to trace, and the steps in each) the
     device's busy share and the host's kernel and graph launches a step,
     from a trace of two calls. Printed as a 15f line."""
     ms = in_turns({"graph": graph_fn, "eager": eager_fn}, rounds)
     row = {"graph_ms": ms["graph"] / per, "eager_ms": ms["eager"] / per,
-           "pool_gib": pool_bytes / 2**30, "capture_call_ms": capture_ms}
+           "capture_call_ms": capture_ms}
     if trace is not None:
         *fns, steps_ = trace
         for name, fn in zip(("graph", "eager"), fns):
@@ -3222,7 +3199,7 @@ def graphs2_phase(args, card: str, dev, root: str) -> dict:
             eager_fn = lambda: eager_tr.train_step(batch, g)  # noqa: E731
             first = (is_pc_train, dtype) == (True, "float32")
             timed_owner(f"joint pc_train={is_pc_train} {dtype}", graph_fn, eager_fn,
-                        graph_tr.graphs.captured_bytes, capture_ms, card,
+                        capture_ms, card,
                         rounds=3 if first else 1,
                         trace=(graph_fn, eager_fn, 1) if first else None)
             del graph_tr, eager_tr
@@ -3260,8 +3237,7 @@ def graphs2_phase(args, card: str, dev, root: str) -> dict:
         batch, g = bs[2], torch.Generator(dev).manual_seed(4200)
         graph_fn = lambda: graph_tr.train_step(batch, g)  # noqa: E731
         eager_fn = lambda: eager_tr.train_step(batch, g)  # noqa: E731
-        timed_owner(f"pretrain B={b}", graph_fn, eager_fn, graph_tr.graphs.captured_bytes,
-                    capture_ms, card, rounds=3 if b == TB else 1,
+        timed_owner(f"pretrain B={b}", graph_fn, eager_fn, capture_ms, card, rounds=3 if b == TB else 1,
                     trace=(graph_fn, eager_fn, 1) if b == TB else None)
         del graph_tr, eager_tr
 
@@ -3311,7 +3287,7 @@ def graphs2_phase(args, card: str, dev, root: str) -> dict:
             graph_fn = lambda: dp_g.train_step(batch, g)  # noqa: E731
             eager_fn = lambda: dp_e.train_step(batch, g)  # noqa: E731
             timed_owner(f"{name} data parallel, world 1", graph_fn, eager_fn,
-                        dp_g.graphs.captured_bytes, capture_ms, card,
+                        capture_ms, card,
                         trace=(graph_fn, eager_fn, 1))
             del dp_g, dp_e, one_g
             # captured, eager, and the one-process captured step
@@ -3379,7 +3355,7 @@ def graphs2_phase(args, card: str, dev, root: str) -> dict:
     torch.cuda.synchronize()
     ft_capture_ms = (time.perf_counter() - t0) * 1e3
     timed_owner("fine-tune, one instance, S=2048", lambda: tune("graph"),
-                lambda: tune("eager"), tuners["graph"].graphs.captured_bytes, ft_capture_ms,
+                lambda: tune("eager"), ft_capture_ms,
                 card, rounds=2, per=10,
                 trace=(lambda: tune("graph", 5), lambda: tune("eager", 5), 5))
     del tuners
@@ -3810,7 +3786,6 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
     print(json.dumps({"phase": "17c", "num_points": n, "buckets": [1, 4],
                       "replays_bit_equal_eager": True, "plain_max_abs_err": serve_err,
                       "request4_ms": serve_ms,
-                      "pool_gib": sess._graphs[0].captured_bytes / 2**30,
                       "launches_per_request": paths["serve_n131072_request"], "card": card}),
           flush=True)
     del sess, eager, plain, got, want, pts4
@@ -3874,7 +3849,7 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
     paths["saliency_n32768"] = launched
     print(json.dumps({"phase": "17d", "num_points": n, "batch": TB, "K": K, "cli_steps": 4,
                       "captured_bit_equal_eager": bit_equal, "losses": losses,
-                      "step_ms": step_ms, "pool_gib": det_g.graphs.captured_bytes / 2**30,
+                      "step_ms": step_ms,
                       "launches_per_step": paths["train_n32768_step"], "card": card}),
           flush=True)
     del det_g, det_e, model, cloud, batches, pipe
@@ -3918,8 +3893,7 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
                           "bit_equal_backbone_forward": True, "calls_s": calls_s,
                           "forward_s": forward_s, "forward_peak_gib": forward_peak,
                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                          "pool_gib": og.captured_bytes / 2**30,
-                          "pr16_pool_gib": 20.03, "pr16_peak_gib": [12.44, 14.03],
+                          "pr16_peak_gib": [12.44, 14.03],
                           "launches": paths["sharded_p1_n1048576"], "card": card}), flush=True)
         del owner, model, pts, want, heads
     finally:
@@ -4744,11 +4718,8 @@ def main() -> None:
                               for k in ("x_raw", "w_raw")),
                           "cpu_label_agreement": agree_cpu}), flush=True)
 
-        # ---- 4. rate ---------------------------------------------------------
-        rate = sess.benchmark(batch=B, iters=20)
-        print(json.dumps({"rate": "decompose", **rate, "card": card}), flush=True)
-
         if args.profile:
+            request_ms = time_ms(lambda: sess.decompose(requests[16]))
             # device span of the backbone alone and with the decomposition,
             # then a trace of whole requests: device time by kernel name
             # (the card's own events, so nothing is counted twice)
@@ -4759,7 +4730,7 @@ def main() -> None:
                                                             num_sk_points=SK))
             print(json.dumps({"breakdown": "bucket 16", "backbone_ms": fwd_ms,
                               "decomposition_ms": full_ms - fwd_ms,
-                              "request_ms": rate["ms_per_request"], "card": card}),
+                              "request_ms": request_ms, "card": card}),
                   flush=True)
             # the busy share holds the traced device time against the
             # untraced request time: tracing slows the host, not the card
@@ -4777,7 +4748,7 @@ def main() -> None:
             print(json.dumps({"profile": f"{requests_traced} x decompose(16)",
                               "device_ms_per_request": device_ms / requests_traced,
                               "device_busy_share": device_ms / requests_traced
-                              / rate["ms_per_request"], "card": card}), flush=True)
+                              / request_ms, "card": card}), flush=True)
             top = sorted(on_card, key=lambda e: e.self_device_time_total,
                          reverse=True)[:20]
             for e in top:
@@ -5074,8 +5045,6 @@ def main() -> None:
     check(int(same.sum()) >= B // 2, f"only {int(same.sum())} clouds' labels agree")
     plain_lat_err = float((got["latents"] - want["latents"])[same].abs().max())
     check(plain_lat_err <= 1e-3, f"latents kernel vs plain: {plain_lat_err}")
-    rate_lat = sess_lat.benchmark(batch=B, iters=20)
-    rate_geo = sess_geo.benchmark(batch=B, iters=20)
     # the encoder alone on a bucket's 128 sketches of 2,048 points
     enc_in = torch.randn(B * K, SK, 4, device=dev)
     enc_macs = sum(m.weight.shape[0] * m.weight.shape[1]
@@ -5089,16 +5058,12 @@ def main() -> None:
                       "unit_norm_max_err": norm_err, "plain_label_agreement": agree8,
                       "plain_latent_max_abs_err": plain_lat_err,
                       "plain_clouds_compared": int(same.sum())}), flush=True)
-    print(json.dumps({"rate": "decompose with latents", **rate_lat,
-                      "without_latents": rate_geo["decompositions_per_sec"],
-                      "ms_per_request_without_latents": rate_geo["ms_per_request"],
-                      "phase4_without_latents": rate["decompositions_per_sec"],
-                      "encoder_ms": enc_ms, "encoder_flop": enc_flop,
+    print(json.dumps({"slice": "the sketch encoder", "encoder_ms": enc_ms, "encoder_flop": enc_flop,
                       "encoder_flop_bound_ms": enc_flop / FP32_OPS_PER_S * 1e3,
                       "card": card}), flush=True)
     if args.profile:
         profile_steps("decompose(16) with latents", lambda: sess_lat.decompose(requests[16]),
-                      card, rate_lat["ms_per_request"])
+                      card, time_ms(lambda: sess_lat.decompose(requests[16])))
     del sess_lat, sess_geo, plain8, got, want
 
     # evaluation: cli_main with the implicit stack, in the default mode and

@@ -36,6 +36,10 @@ captured too: its first, eager call creates the communicator, and the
 capture runs in ``capture_error_mode="thread_local"``, so that the
 process group's watchdog thread, which queries CUDA events, cannot
 invalidate it.
+
+Under a profiler each call shows the path it took as a host span
+(``p2c.graphs.eager``, ``p2c.graphs.capture``, ``p2c.graphs.replay``), so a
+recapture shows in any trace.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ from __future__ import annotations
 from typing import Any, Callable, Hashable, NamedTuple
 
 import torch
+
+from point2cyl_torch.core.profiling import span
 
 StepFn = Callable[[dict[str, torch.Tensor], "torch.Generator | None"], Any]
 
@@ -71,7 +77,6 @@ class StepGraphs:
         self.eager_calls = 0
         self.captures = 0
         self.replays = 0
-        self.captured_bytes = 0  # device memory the captures reserved
 
     def __call__(self, fn: StepFn, inputs: dict[str, torch.Tensor],
                  generator: torch.Generator | None = None,
@@ -86,19 +91,23 @@ class StepGraphs:
         """
         if not self.enabled:
             self.eager_calls += 1
-            return fn(inputs, generator)
+            with span("graphs.eager"):
+                return fn(inputs, generator)
         key = (static, generator is None,
                tuple((name, tuple(x.shape), x.dtype) for name, x in inputs.items()))
         with torch.cuda.device(self.device):
             entry = self._graphs.get(key)
             if entry is None and key not in self._warm:
-                out = self._on_side_stream(fn, inputs, generator)
+                with span("graphs.eager"):
+                    out = self._on_side_stream(fn, inputs, generator)
                 self._warm.add(key)
                 self.eager_calls += 1
                 return out
             if entry is None:
-                entry = self._capture(key, fn, inputs, generator is not None)
-            return self._replay(entry, inputs, generator)
+                with span("graphs.capture"):
+                    entry = self._capture(key, fn, inputs, generator is not None)
+            with span("graphs.replay"):
+                return self._replay(entry, inputs, generator)
 
     @property
     def stream(self) -> torch.cuda.Stream:
@@ -133,7 +142,6 @@ class StepGraphs:
         # torch.cuda.graph does (its collection of Python garbage and of
         # the pinned host memory's cache a step's capture does not need)
         torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self.stream):
             graph.capture_begin(self._pool, capture_error_mode=self.capture_error_mode)
@@ -144,7 +152,6 @@ class StepGraphs:
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
         entry = self._graphs[key] = _Captured(graph, static_inputs, outputs)
         self.captures += 1
-        self.captured_bytes += torch.cuda.memory_reserved(self.device) - reserved
         return entry
 
     def _replay(self, entry: _Captured, inputs, generator):

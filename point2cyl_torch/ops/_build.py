@@ -9,7 +9,9 @@ each entry point takes device pointers and the CUDA stream as
 ``c_void_p`` and returns ``cudaGetLastError()`` after its launch.
 
 Nothing here runs when the package is imported, and only CUDA tensors
-reach it: the wrappers route CPU tensors to the plain versions.
+reach it: the wrappers route CPU tensors to the plain versions. The build
+or load runs in a ``p2c.build`` span (``core/profiling.py``), which shows
+it in a traced set-up.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+from point2cyl_torch.core.profiling import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -100,11 +104,11 @@ def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call."""
     global _lib
     if _lib is None:
-        sources = _sources()
-        path = _library_path(_hashed())
-        if not path.exists():
-            _build(sources, path)
-        _lib = ctypes.CDLL(str(path))
+        with span("build"):
+            path = _library_path(_hashed())
+            if not path.exists():
+                _build(_sources(), path)
+            _lib = ctypes.CDLL(str(path))
     return _lib
 
 

@@ -33,6 +33,7 @@ import torch
 from point2cyl_torch.core.checkpoint import restore_backbone, restore_implicit_stack
 from point2cyl_torch.core.config import BackboneConfig
 from point2cyl_torch.core.device import resolve_device
+from point2cyl_torch.core.profiling import mark
 from point2cyl_torch.eval.metrics import base_barrel_probs, hard_segment_centers
 from point2cyl_torch.models.backbone import Backbone
 from point2cyl_torch.models.implicit import PointNetEncoder
@@ -111,7 +112,9 @@ def _decomposition(heads, points: torch.Tensor, num_sk_points: int,
     with ``encoder`` also each instance's sketch latent (B, K, L) from its
     ``[p2d / scale | n2d]`` samples (``eval.py:463-543``). Segment
     sampling is deterministic, so a request always gets the same
-    answer."""
+    answer. Its phases on the card: ``serve_decomposition``, then
+    ``serve_encoder`` with an encoder, then ``serve_pack``."""
+    mark("serve_decomposition", points)
     w_hard = hard_w_encoding(heads.w, to_null_mask=True)  # (B, N, K)
     col_valid = w_hard.sum(dim=1) > 0  # (B, K) non-null columns
     w_lab = torch.where(col_valid[:, None, :], heads.w, torch.full_like(heads.w, -1.0))
@@ -133,9 +136,11 @@ def _decomposition(heads, points: torch.Tensor, num_sk_points: int,
         "bb_labels": bb_labels.to(torch.int8),
     }
     if encoder is not None:
+        mark("serve_encoder", points)
         b, k = scales.shape
         enc_in = torch.cat([p2d / scales[..., None, None], n2d], dim=-1)
         out["latents"] = encoder(enc_in.reshape(b * k, num_sk_points, 4)).reshape(b, k, -1)
+    mark("serve_pack", points)
     out["packed"] = pack_decomposition(out)
     return out
 
@@ -154,9 +159,12 @@ def _backbone_forward(
     assembled heads (unit ``normals``, softmaxed ``w`` and, with the bb
     head, ``w_barrel``/``w_base``); with ``num_sk_points`` also the
     decomposition, with ``encoder`` its latents (see
-    :func:`_decomposition`)."""
+    :func:`_decomposition`). On the card its work is the phase
+    ``serve_backbone`` (``core/profiling.py``), the decomposition's phases
+    after it, and an ``end`` marker."""
     if num_sk_points is not None and not (pred_seg and pred_bb and k):
         raise ValueError("decomposition needs seg+bb heads and k")
+    mark("serve_backbone", points)
     x_raw, w_raw = model(points)
     out = {"x_raw": x_raw, "w_raw": w_raw}
     if k is not None:
@@ -168,6 +176,7 @@ def _backbone_forward(
             out["w_base"] = heads.w_base
         if num_sk_points is not None:
             out.update(_decomposition(heads, points, num_sk_points, encoder))
+    mark("end", points)
     return out
 
 

@@ -23,6 +23,13 @@ chunk's selected outputs are copied to pinned host memory on the
 replica's stream right after its replay, before the next chunk can
 overwrite them, and the request waits for the copies once at its end.
 ``graph=False`` runs every chunk eagerly.
+
+Under a profiler a request is a ``p2c.session.request`` span
+(``core/profiling.py``) holding, per chunk, ``p2c.session.stage`` (slice,
+padding, the pageable copy to the card), ``p2c.session.launch`` (the
+graph's input copy and replay launch) and ``p2c.session.fetch`` (the
+copies to pinned memory), then ``p2c.session.wait`` (the closing
+synchronise) and ``p2c.session.assemble`` (concatenation, unpacking).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 from point2cyl_torch.core.config import BackboneConfig
 from point2cyl_torch.core.device import resolve_device
 from point2cyl_torch.core.graphs import StepGraphs
+from point2cyl_torch.core.profiling import span
 from point2cyl_torch.models.backbone import build_backbone
 from point2cyl_torch.models.implicit import PointNetEncoder
 from point2cyl_torch.serve.export import (
@@ -119,9 +127,20 @@ class InferenceSession:
 
         return step
 
-    def _run_raw(self, pts: np.ndarray, keys: tuple[str, ...],
+    def _run_raw(self, points: Any, keys: tuple[str, ...],
                  decompose: bool = False) -> dict[str, np.ndarray]:
-        """Run one request of any batch size; fetch ``keys`` to the host."""
+        """Run one request of any batch size (one cloud: its leading axis
+        dropped); fetch ``keys`` to the host, a packed decomposition
+        unpacked."""
+        with span("session.request"):
+            return self._request(points, keys, decompose)
+
+    def _request(self, points: Any, keys: tuple[str, ...],
+                 decompose: bool) -> dict[str, np.ndarray]:
+        pts = np.asarray(points, np.float32)
+        squeeze = pts.ndim == 2
+        if squeeze:
+            pts = pts[None]
         n = pts.shape[0]
         if pts.shape[1:] != (self.num_points, 3):
             raise ValueError(f"expected (n, {self.num_points}, 3), got {pts.shape}")
@@ -131,46 +150,49 @@ class InferenceSession:
         i = 0
         with torch.inference_mode():
             while i < n:
-                take = min(max_b, n - i)
-                b = self._bucket_for(take)
-                chunk = pts[i:i + take]
-                if take < b:
-                    pad = np.zeros((b - take, self.num_points, 3), pts.dtype)
-                    chunk = np.concatenate([chunk, pad], axis=0)
-                    self.stats["padded"] += b - take
-                d = self._next_dev
-                self._next_dev = (d + 1) % len(self.devices)
-                used.add(d)
-                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.devices[d])
-                out = self._graphs[d](self._forward(d, keys, decompose), {"points": x},
-                                      static=(decompose, keys))
-                fetched.append({key: _to_host(out[key][:take]) for key in keys})
+                with span("session.stage"):
+                    take = min(max_b, n - i)
+                    b = self._bucket_for(take)
+                    chunk = pts[i:i + take]
+                    if take < b:
+                        pad = np.zeros((b - take, self.num_points, 3), pts.dtype)
+                        chunk = np.concatenate([chunk, pad], axis=0)
+                        self.stats["padded"] += b - take
+                    d = self._next_dev
+                    self._next_dev = (d + 1) % len(self.devices)
+                    used.add(d)
+                    x = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.devices[d])
+                with span("session.launch"):
+                    out = self._graphs[d](self._forward(d, keys, decompose), {"points": x},
+                                          static=(decompose, keys))
+                with span("session.fetch"):
+                    fetched.append({key: _to_host(out[key][:take]) for key in keys})
                 i += take
-            for d in used:
-                if self.devices[d].type == "cuda":
-                    torch.cuda.synchronize(self.devices[d])
+            with span("session.wait"):
+                for d in used:
+                    if self.devices[d].type == "cuda":
+                        torch.cuda.synchronize(self.devices[d])
+        with span("session.assemble"):
+            out = {key: np.concatenate([c[key].numpy() for c in fetched], axis=0)
+                   for key in keys}
+            if "packed" in out:
+                out.update(unpack_decomposition(out.pop("packed"), self.encoder is not None))
+            if squeeze:
+                out = {k: v[0] for k, v in out.items()}
         self.stats["requests"] += 1
         self.stats["clouds"] += n
-        return {key: np.concatenate([c[key].numpy() for c in fetched], axis=0)
-                for key in keys}
+        return out
 
     def predict(self, points: Any, assemble: bool = True) -> dict:
         """Per-point heads for a batch of clouds: raw (``x_raw``, ``w_raw``)
         or assembled (unit ``normals``, softmaxed ``w`` and, with the bb
         head, ``w_barrel``/``w_base``)."""
-        pts = np.asarray(points, np.float32)
-        squeeze = pts.ndim == 2
-        if squeeze:
-            pts = pts[None]
         if not assemble:
             keys = ("x_raw", "w_raw")
         else:
             seg_bb = bool(self.meta["pred_seg"]) and bool(self.meta["pred_bb"])
             keys = ("normals", "w") + (("w_barrel", "w_base") if seg_bb else ())
-        out = self._run_raw(pts, keys)
-        if squeeze:
-            out = {k: v[0] for k, v in out.items()}
-        return out
+        return self._run_raw(points, keys)
 
     def decompose(self, points: Any, include_labels: bool = True,
                   exact_latents: bool = False) -> dict:
@@ -186,48 +208,12 @@ class InferenceSession:
                 "artifact was exported without decomposition outputs "
                 "(export with num_sk_points)"
             )
-        pts = np.asarray(points, np.float32)
-        squeeze = pts.ndim == 2
-        if squeeze:
-            pts = pts[None]
-        with_latents = self.encoder is not None
-        packed = not exact_latents
-        keys = (("packed",) if packed else
+        keys = (("packed",) if not exact_latents else
                 ("axes", "centers", "extents", "scales", "found")
-                + (("latents",) if with_latents else ()))
+                + (("latents",) if self.encoder is not None else ()))
         if include_labels:
             keys += ("labels", "bb_labels")
-        out = self._run_raw(pts, keys, decompose=True)
-        if packed:
-            out.update(unpack_decomposition(out.pop("packed"), with_latents))
-        if squeeze:
-            out = {k: v[0] for k, v in out.items()}
-        return out
-
-    def benchmark(self, batch: int | None = None, iters: int = 20) -> dict:
-        """Steady-state decompositions per second through :meth:`decompose`
-        (host arrays in and out, transfers included) at one batch size,
-        timed with CUDA events after two warm-up requests (the eager first
-        request of the bucket and its capture)."""
-        if self.device.type != "cuda":
-            raise RuntimeError("benchmark times the card with CUDA events; the "
-                               "session is not on a CUDA device")
-        b = batch or self._buckets[-1]
-        pts = np.random.default_rng(0).standard_normal(
-            (b, self.num_points, 3), dtype=np.float32)
-        self.decompose(pts)
-        self.decompose(pts)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            self.decompose(pts)
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / iters
-        return {"batch": b, "iters": iters, "ms_per_request": ms,
-                "decompositions_per_sec": b * 1000.0 / ms,
-                "device": torch.cuda.get_device_name(self.device)}
+        return self._run_raw(points, keys, decompose=True)
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,11 @@ statistics, dropout, random FPS starts), the heads, the proxy losses
 (Hungarian matching, relaxed mIoU, normal, base/barrel CE, closed-form
 axis and centre), backpropagation through the kernels' autograd
 Functions, optax's Adam on the staircase learning rate, and the
-non-finite guard (JAX ``steps.py:190-257``).
+non-finite guard (JAX ``steps.py:190-257``). On the card the step's phases
+carry markers (``core/profiling.py``): ``train_forward`` (noise, the
+forward, the heads), ``train_loss`` (the proxy losses and the matching),
+``train_backward``, ``train_update`` (the guard, Adam, the kept state, the
+step count) and ``end``.
 
 The step is one program, as JAX's jitted step is: the step count lives on
 the device, the learning rate and the BN momentum are computed from it
@@ -46,6 +50,7 @@ import torch
 
 from point2cyl_torch.core.config import TrainConfig
 from point2cyl_torch.core.graphs import step_graphs
+from point2cyl_torch.core.profiling import mark
 from point2cyl_torch.core.schedules import staircase_bn_momentum, staircase_lr
 from point2cyl_torch.losses.aggregate import base_barrel_ce_loss, compute_all_losses
 from point2cyl_torch.losses.normal import normal_loss
@@ -316,11 +321,12 @@ class Trainer:
         """The step's body, with no host read: the loss scalars stacked in
         ``AUX_KEYS`` order."""
         cfg = self.cfg
-        generator = step_generator(self.mesh, generator, batch["point_cloud"].shape[0])
+        pts = batch["point_cloud"]
+        mark("train_forward", pts)
+        generator = step_generator(self.mesh, generator, pts.shape[0])
         momentum = staircase_bn_momentum(self.step, cfg.batch_size, cfg.bn_decay_step,
                                          cfg.bn_init_momentum, cfg.bn_decay_rate,
                                          cfg.bn_momentum_clip)
-        pts = batch["point_cloud"]
         if cfg.add_noise:
             pts = add_noise(generator, pts, batch["normals"], cfg.noise_sigma)
             batch = dict(batch, point_cloud=pts)
@@ -330,9 +336,12 @@ class Trainer:
                                   generator=generator)
         heads = assemble_heads(x_raw, w_raw, cfg.pred_seg, cfg.pred_bb,
                                k=batch["extrusion_axes"].shape[1])
+        mark("train_loss", pts)
         total, aux = proxy_losses(heads, batch, cfg)
+        mark("train_backward", pts)
         total.backward()
         aux = mean_over_ranks(self.mesh, self._grads.buffer, aux)
+        mark("train_update", pts)
         with torch.no_grad():
             ok = torch.isfinite(aux["total"]) & torch.isfinite(self._grads.grad).all()
             lr = staircase_lr(self.step, cfg.batch_size, cfg.learning_rate,
@@ -341,7 +350,9 @@ class Trainer:
             self._kept.keep_unless(ok, stats)
             self.step.copy_(torch.where(ok, self.step + 1, self.step))
         aux["skipped"] = 1.0 - ok.to(total.dtype)
-        return torch.stack([aux[key] for key in AUX_KEYS])
+        vals = torch.stack([aux[key] for key in AUX_KEYS])
+        mark("end", pts)
+        return vals
 
     @property
     def device(self) -> torch.device:

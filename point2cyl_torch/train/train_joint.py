@@ -48,6 +48,7 @@ from point2cyl_torch.core.checkpoint import CheckpointManager, restore_implicit_
 from point2cyl_torch.core.config import TrainConfig
 from point2cyl_torch.core.device import resolve_device
 from point2cyl_torch.core.logging import TrainLogger
+from point2cyl_torch.core.profiling import mark
 from point2cyl_torch.core.schedules import staircase_bn_momentum, staircase_lr
 from point2cyl_torch.data.h5_io import load_h5
 from point2cyl_torch.data.pipeline import InputPipeline
@@ -141,7 +142,12 @@ class JointTrainer:
     call with each batch shape (``core/graphs.py``), data parallel over
     NCCL too; over a host-staged mesh, or with ``graph=False``, eagerly.
     ``optimizer`` is a ``torch.optim.Adam`` that only holds the state, in
-    its checkpoint layout (two groups).
+    its checkpoint layout (two groups). On the card the step's phases
+    carry markers (``core/profiling.py``): ``train_forward`` (the frozen
+    encoder's GT latents, the backbone, the heads), ``train_loss`` (the
+    proxy losses and the matching), ``train_sketch`` (both sketch
+    projections and the encoder), ``train_igr`` (the IGR and latent
+    losses), ``train_backward``, ``train_update`` and ``end``.
     """
 
     def __init__(self, backbone: torch.nn.Module, implicit: ImplicitNet,
@@ -232,10 +238,12 @@ class JointTrainer:
         else:
             x_raw, w_raw = self.backbone(pts)
         heads = steps.assemble_heads(x_raw, w_raw, cfg.pred_seg, cfg.pred_bb, k=k)
+        mark("train_loss", pts)
         proxy_total, aux, matching, mask = steps.proxy_losses_and_matching(
             heads, batch, cfg)
 
         # the predicted sketches' latents (train_Point2Cyl.py:516-599)
+        mark("train_sketch", pts)
         if self.use_gt_im:
             proj_normals, proj_label, proj_bb = batch["normals"], i_gt, gt_bb
         else:
@@ -264,6 +272,7 @@ class JointTrainer:
         latents = latents.reshape(b, k, -1)
 
         # IGR and latent losses (train_Point2Cyl.py:608-672)
+        mark("train_igr", pts)
         im_total = torch.zeros((), dtype=pts.dtype, device=pts.device)
         if self.with_im_loss:
             igr = igr_losses(self.implicit, generator, sk[..., :2], sk[..., 2:], latents,
@@ -292,18 +301,24 @@ class JointTrainer:
     def _step(self, batch: dict, generator) -> torch.Tensor:
         """The step's body, with no host read: the loss scalars and
         ``skipped`` stacked in the order of ``train_step``'s keys."""
+        pts = batch["point_cloud"]
+        mark("train_forward", pts)
         kept = self._kept.take()
         self._grads.zero()
         total, aux = self.loss(batch, generator)
+        mark("train_backward", pts)
         if total.requires_grad:
             total.backward()
         aux = steps.mean_over_ranks(self.mesh, self._grads.buffer, aux)
+        mark("train_update", pts)
         with torch.no_grad():
             ok = torch.isfinite(aux["total"]) & torch.isfinite(self._grads.grad).all()
             self._update(ok)
             self._kept.keep_unless(ok, kept)
         aux["skipped"] = 1.0 - ok.to(aux["total"].dtype)
-        return torch.stack([aux[key] for key in (*self._keys, "skipped")])
+        vals = torch.stack([aux[key] for key in (*self._keys, "skipped")])
+        mark("end", pts)
+        return vals
 
     @torch.no_grad()
     def _update(self, ok: torch.Tensor) -> None:

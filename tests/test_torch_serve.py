@@ -170,12 +170,6 @@ def test_session_needs_the_card_by_default(artifacts):
         TorchSession(artifacts[1])
 
 
-def test_benchmark_needs_the_card(sessions):
-    sess = sessions[1]
-    with pytest.raises(RuntimeError, match="CUDA"):
-        sess.benchmark(batch=1, iters=1)
-
-
 def test_decompose_requires_decomposition_artifact(weights, tmp_path):
     path = str(tmp_path / "heads.p2ct")
     meta = torch_export.export_artifact(path, weights[2], k=K,
