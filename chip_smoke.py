@@ -403,6 +403,9 @@ EVAL_FIT_ATOL = {"fit_cyl_loss": 1e-4, "fit_global_loss": 1e-4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TIMED_RUNS = 25
+# a served replica's raw heads and latents against the unfolded modules it
+# was folded from (eval BN in the weights: float32 rounding in another order)
+FOLD_ATOL = 1e-4
 
 
 def card_line() -> str:
@@ -1725,6 +1728,10 @@ def two_card_phase(card: str, dev, root: str, inp: dict) -> None:
     a, b = one.predict(req, assemble=False), two.predict(req, assemble=False)
     check(all(np.array_equal(a[k], b[k]) for k in a) and two._next_dev == 1,
           "12c: the two-card session differs from one card")
+    check(two.stats["folded_layers"] == 17 and two._models[0] is not two._models[1]
+          and all(m.served_fc.weight.device == torch.device(d)
+                  for m, d in zip(two._models, ("cuda:0", "cuda:1"))),
+          "12c: the two cards' replicas are not each folded on their card")
     print(json.dumps({**report, "world": 2, "backend": "nccl", "session_bit_equal": True,
                       "card": card}), flush=True)
 
@@ -2419,6 +2426,8 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     export_artifact(path, state, k=K, backbone_config=cfg16, buckets=(1, 4, 16),
                     num_sk_points=SK)
     sess = InferenceSession(path)
+    check(sess.served is sess.model and sess.stats["folded_layers"] == 0,
+          f"13c: the bf16 session folded {sess.stats['folded_layers']} layers")
     requests = {n: clouds(200 + n, n, cfg.num_points) for n in (1, 5, 16)}
     for fn in counters.values():
         fn.launches = 0
@@ -2436,11 +2445,11 @@ def bf16_phase(args, card: str, dev, root: str) -> dict:
     plain_model = build_backbone(plain16, state_dict=state, device=dev)
     cpu_model = build_backbone(cfg16, state_dict=state, device="cpu")
     with torch.inference_mode():
-        got = _backbone_forward(sess.model, pts16, k=K, num_sk_points=SK)
+        got = _backbone_forward(sess.served, pts16, k=K, num_sk_points=SK)
         want = _backbone_forward(plain_model, pts16, k=K, num_sk_points=SK)
         cpu = _backbone_forward(cpu_model, torch.from_numpy(requests[1]), k=K,
                                 num_sk_points=SK)
-        card1 = _backbone_forward(sess.model, torch.from_numpy(requests[1]).to(dev), k=K,
+        card1 = _backbone_forward(sess.served, torch.from_numpy(requests[1]).to(dev), k=K,
                                   num_sk_points=SK)
         f32_model = build_backbone(cfg, state_dict=state, device=dev)
         f32_heads = _backbone_forward(f32_model, pts16, k=K, num_sk_points=SK)
@@ -2794,7 +2803,8 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
     export_artifact(arts["latents"], state, k=K, backbone_config=cfg, buckets=(1, 4, 16),
                     num_sk_points=SK, encoder_state_dict=enc.state_dict())
     requests = {n: clouds(140 + n, n, cfg.num_points) for n in (1, 4, 16, 37)}
-    sessions = {}
+    sessions, fold_err = {}, {}
+    folded_layers = {"geometry": 17, "latents": 22}
     for c in kernel_counters().values():
         c.launches = 0
     for kind, path in arts.items():
@@ -2814,11 +2824,32 @@ def graphs_phase(args, card: str, dev, root: str) -> dict:
               f"14c {kind}: predict(37) raw heads differ from the eager session")
         g = sess._graphs[0]
         check(g.captures == 4 and g.replays > 0, f"14c {kind}: {g.captures} captures")
+        # the captured folded replica against the unfolded modules it was
+        # folded from: raw heads of a bucket-16 request, and latents of
+        # seeded sketches
+        check(sess.stats["folded_layers"] == folded_layers[kind]
+              and sess.stats["unfolded_layers"] == 0,
+              f"14c {kind}: the session folded {sess.stats['folded_layers']} layers")
+        raw = sess.predict(requests[16], assemble=False)
+        with torch.inference_mode():
+            heads = sess.model(torch.from_numpy(requests[16]).to(dev))
+            fold_err[kind] = {key: float(np.abs(raw[key] - h.cpu().numpy()).max())
+                              for key, h in zip(("x_raw", "w_raw"), heads)}
+            if sess.encoder is not None:
+                sk = torch.randn(128, SK, 4, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(15))
+                fold_err[kind]["latents"] = float(
+                    (sess.served_encoder(sk) - sess.encoder(sk)).abs().max())
+        check(max(fold_err[kind].values()) <= FOLD_ATOL,
+              f"14c {kind}: the folded replica against the unfolded modules: "
+              f"{fold_err[kind]}")
     serve_counts = counts_now()
     check(all(serve_counts[name] > 0 for name in served),
           f"14c: the captured requests launched {serve_counts}")
     print(json.dumps({"phase": "14c", "requests": list(requests), "bit_equal": True,
-                      "with_latents": [False, True], "launches": serve_counts}), flush=True)
+                      "with_latents": [False, True], "launches": serve_counts,
+                      "folded_layers": folded_layers,
+                      "fold_max_abs_err": fold_err, "fold_atol": FOLD_ATOL}), flush=True)
 
     # f (the buckets' part). In turns, captured against eager:
     # decompositions a second at buckets 1, 4 and 16 with and without
@@ -3758,6 +3789,8 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
     art = os.path.join(root, "large.p2ct")
     export_artifact(art, state, k=K, backbone_config=cfg, buckets=(1, 4), num_sk_points=SK)
     sess, eager = InferenceSession(art), InferenceSession(art, graph=False)
+    check(sess.stats["folded_layers"] == 17 and sess.stats["unfolded_layers"] == 0,
+          f"17c: the session folded {sess.stats['folded_layers']} layers")
     requests = {b: clouds(1710 + b, b, n) for b in (1, 4)}
     for b, req in requests.items():
         want = eager.predict(req, assemble=False)
@@ -3775,12 +3808,12 @@ def large_phase(card: str, dev, root: str) -> tuple[list, dict]:
                                                knn_impl="plain"), state_dict=state, device=dev)
     pts4 = torch.from_numpy(requests[4]).to(dev)
     with torch.inference_mode():
-        got = _backbone_forward(sess.model, pts4, k=K, num_sk_points=SK)
+        got = _backbone_forward(sess.served, pts4, k=K, num_sk_points=SK)
         want = _backbone_forward(plain, pts4, k=K, num_sk_points=SK)
     serve_err = max(float((got[k] - want[k]).abs().max()) for k in ("x_raw", "w_raw"))
     check(serve_err <= LARGE_HEADS_ATOL and all(bool(torch.isfinite(got[k]).all())
                                                 for k in ("x_raw", "w_raw")),
-          f"17c: kernel vs all-plain heads differ by {serve_err}")
+          f"17c: served (folded) vs all-plain heads differ by {serve_err}")
     serve_ms = in_turns({"captured": lambda: sess.predict(requests[4], assemble=False),
                          "eager": lambda: eager.predict(requests[4], assemble=False)}, 3)
     print(json.dumps({"phase": "17c", "num_points": n, "buckets": [1, 4],
@@ -4657,6 +4690,8 @@ def main() -> None:
                         buckets=(1, 4, 16), num_sk_points=SK)
         sess = InferenceSession(path)
         check(sess.device.type == "cuda", "the session did not default to the card")
+        check(sess.stats["folded_layers"] == 17 and sess.stats["unfolded_layers"] == 0,
+              f"the session folded {sess.stats['folded_layers']} layers")
         requests = {n: clouds(100 + n, n, cfg.num_points) for n in (1, 5, 16)}
         # one forward each: 1 -> bucket 1, 5 -> bucket 16 (11 zero rows),
         # 16 -> bucket 16
@@ -4690,7 +4725,7 @@ def main() -> None:
         # the same request with every *_impl="plain", on the card
         pts16 = torch.from_numpy(requests[16]).to(dev)
         with torch.inference_mode():
-            got = _backbone_forward(sess.model, pts16, k=K, num_sk_points=SK)
+            got = _backbone_forward(sess.served, pts16, k=K, num_sk_points=SK)
             want = _backbone_forward(plain_model, pts16, k=K, num_sk_points=SK)
         for key in ("x_raw", "w_raw"):
             torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-4,
@@ -4704,7 +4739,7 @@ def main() -> None:
         with torch.inference_mode():
             cpu = _backbone_forward(cpu_model, torch.from_numpy(requests[1]), k=K,
                                     num_sk_points=SK)
-            card1 = _backbone_forward(sess.model, torch.from_numpy(requests[1]).to(dev),
+            card1 = _backbone_forward(sess.served, torch.from_numpy(requests[1]).to(dev),
                                       k=K, num_sk_points=SK)
         for key in ("x_raw", "w_raw"):
             torch.testing.assert_close(card1[key].cpu(), cpu[key], rtol=0, atol=1e-4,
@@ -4725,8 +4760,8 @@ def main() -> None:
             # (the card's own events, so nothing is counted twice)
             x = torch.from_numpy(requests[16]).to(dev)
             with torch.inference_mode():
-                fwd_ms = time_ms(lambda: sess.model(x))
-                full_ms = time_ms(lambda: _backbone_forward(sess.model, x, k=K,
+                fwd_ms = time_ms(lambda: sess.served(x))
+                full_ms = time_ms(lambda: _backbone_forward(sess.served, x, k=K,
                                                             num_sk_points=SK))
             print(json.dumps({"breakdown": "bucket 16", "backbone_ms": fwd_ms,
                               "decomposition_ms": full_ms - fwd_ms,

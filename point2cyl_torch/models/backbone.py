@@ -279,10 +279,15 @@ class Backbone(nn.Module):
                 dst_xyz, xyz_up, dst_f, feats_up, train, bn_momentum
             )
             xyz_up = dst_xyz
-        h = torch.relu(self.bn1(self.fc1(feats_up), train, bn_momentum))
+        h = self.fc_stage(feats_up, train, bn_momentum)
         if train:
             h = dropout(h, self.cfg.dropout_rate, generator)
         return [head(h) for head in self.fc2]
+
+    def fc_stage(self, x: torch.Tensor, train: bool = False,
+                 momentum: float | torch.Tensor = 0.1) -> torch.Tensor:
+        """``fc1`` with its BN and ReLU, before the dropout and the heads."""
+        return torch.relu(self.bn1(self.fc1(x), train, momentum))
 
 
 def build_backbone(

@@ -156,12 +156,16 @@ class PointNetEncoder(nn.Module):
             self.fc.weight.uniform_(-bound, bound, generator=generator)
             self.fc.bias.uniform_(-bound, bound, generator=generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False,
-                momentum: float = 0.1) -> torch.Tensor:
-        x = x[..., :self.c_in]
+    def mlp(self, x: torch.Tensor, train: bool = False,
+            momentum: float = 0.1) -> torch.Tensor:
+        """The five per-point dense-BN-ReLU layers over ``x`` (M, S, c_in)."""
         for conv, bn in self._layers():
             x = torch.relu(bn(conv(x), train, momentum))
-        x = self.fc(x.amax(dim=1))
+        return x
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                momentum: float = 0.1) -> torch.Tensor:
+        x = self.fc(self.mlp(x[..., :self.c_in], train, momentum).amax(dim=1))
         return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
                                min=1e-12)
 

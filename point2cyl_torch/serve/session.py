@@ -7,6 +7,15 @@ At inference the backbone and the sketch encoder are strictly per-sample
 (BatchNorm runs on stored statistics), so padding rows cannot perturb
 real rows.
 
+The replicas served are folded copies of ``session.model`` and
+``session.encoder`` (``models/folded.py``; the first device's are
+``session.served`` and ``session.served_encoder``): each float32 dense
+layer with its eval BN and ReLU is one GEMM with the bias and ReLU in
+its epilogue, its weights folded once at load; a model whose dense
+layers compute in bf16 or fp16 is served as loaded. ``stats["folded_layers"]``
+and ``stats["unfolded_layers"]`` count one replica's layers of each
+kind.
+
 With ``devices=`` the session holds one replica of the models on each
 device and deals the chunks out round-robin, as the JAX session does
 (``point2cyl_tpu/serve/session.py:41-95, 150-163``): every chunk is
@@ -44,6 +53,7 @@ from point2cyl_torch.core.device import resolve_device
 from point2cyl_torch.core.graphs import StepGraphs
 from point2cyl_torch.core.profiling import span
 from point2cyl_torch.models.backbone import build_backbone
+from point2cyl_torch.models.folded import fold_for_serving, layer_counts
 from point2cyl_torch.models.implicit import PointNetEncoder
 from point2cyl_torch.serve.export import (
     LoadedArtifact,
@@ -88,19 +98,26 @@ class InferenceSession:
                     self.meta["pred_bb"],
                 ),
             )
-        self._models = [build_backbone(cfg, state_dict=art.weights, device=d)
-                        for d in self.devices]
-        self._encoders = [None] * len(self.devices)
+        models = [build_backbone(cfg, state_dict=art.weights, device=d)
+                  for d in self.devices]
+        encoders = [None] * len(self.devices)
         if self.meta.get("with_latents"):
             for i, d in enumerate(self.devices):
                 enc = PointNetEncoder(int(self.meta["latent_size"]), 2, with_normals=True)
                 enc.load_state_dict(art.encoder_weights, strict=True)
-                self._encoders[i] = enc.to(d).eval()
-        self.model, self.encoder = self._models[0], self._encoders[0]
+                encoders[i] = enc.to(d).eval()
+        self.model, self.encoder = models[0], encoders[0]
+        self._models = [fold_for_serving(m) for m in models]
+        self._encoders = [None if e is None else fold_for_serving(e) for e in encoders]
+        self.served, self.served_encoder = self._models[0], self._encoders[0]
+        counts = [layer_counts(net) for net in (self.served, self.served_encoder)
+                  if net is not None]
         self._graphs = [StepGraphs(d, enabled=graph) for d in self.devices]
         self._buckets = sorted(int(b) for b in self.meta["buckets"])
         self._next_dev = 0  # the round-robin cursor, kept across requests
-        self.stats = {"requests": 0, "clouds": 0, "padded": 0}
+        self.stats = {"requests": 0, "clouds": 0, "padded": 0,
+                      "folded_layers": sum(c[0] for c in counts),
+                      "unfolded_layers": sum(c[1] for c in counts)}
 
     @property
     def num_points(self) -> int:
